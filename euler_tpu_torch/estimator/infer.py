@@ -1,0 +1,105 @@
+"""The inference half of the estimator (counterpart of
+euler_tpu/estimator/base_estimator.py:809-877, estimators.py:140-155 and
+:234-253, and euler_tpu/serving/export.py:405-440 `embed_all`).
+
+A deterministic sweep over root ids in fixed batches: the final batch
+is padded by repeating its last id, with a metric_mask zeroing the pad
+rows. Each batch gets the next seed of the inference stream (stream 1:
+seed = 1<<31 | counter), so inference never shifts the training draws.
+embed_all runs the model over the sweep and returns (ids, embeddings)
+sorted by id, each id's first embedding kept — dedup by first occurrence
+drops exactly the pad rows.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from euler_tpu_torch.mp_utils.base import ModelOutput
+
+_INFER_STREAM = 1
+
+
+class NodeInferencer:
+    """Runs a device-sampled model (e.g. DeviceSampledGraphSage) over a
+    DeviceFeatureStore and a DeviceNeighborTable on their device."""
+
+    def __init__(self, model: torch.nn.Module, feature_store,
+                 neighbor_table, batch_size: int):
+        if feature_store.device != neighbor_table.device:
+            raise ValueError("feature store and neighbor table must be on "
+                             "one device")
+        self.model = model
+        self.store = feature_store
+        self.device = feature_store.device
+        self.batch_size = int(batch_size)
+        self.static_batch: Dict[str, Any] = dict(neighbor_table.tables)
+        self.static_batch["feature_table"] = feature_store.features
+        if feature_store.feature_scale is not None:
+            self.static_batch["feature_scale"] = feature_store.feature_scale
+        if feature_store.labels is not None:
+            self.static_batch["label_table"] = feature_store.labels
+        self._seed_counter = 0
+
+    def _next_seed(self) -> int:
+        self._seed_counter += 1
+        return (_INFER_STREAM << 31) | self._seed_counter
+
+    def infer_input_fn(self, ids: Optional[np.ndarray] = None
+                       ) -> Iterator[Dict[str, Any]]:
+        """Batches over `ids` (uint64; default every node of the store),
+        each {"rows": [int32 roots on the device], "sample_seed",
+        "infer_ids": the batch's ids, "metric_mask": [B] float32}."""
+        ids = self.store.ids if ids is None else \
+            np.asarray(ids, np.uint64).ravel()
+        bs = self.batch_size
+
+        def gen():
+            for i in range(0, len(ids), bs):
+                chunk = ids[i:i + bs]
+                n_real = len(chunk)
+                if n_real < bs:
+                    chunk = np.concatenate(
+                        [chunk, np.full(bs - n_real, chunk[-1], np.uint64)])
+                mask = np.zeros(bs, np.float32)
+                mask[:n_real] = 1.0
+                yield {
+                    "rows": [torch.from_numpy(self.store.lookup(chunk))
+                             .to(self.device)],
+                    "sample_seed": self._next_seed(),
+                    "infer_ids": chunk,
+                    "metric_mask": torch.from_numpy(mask).to(self.device),
+                }
+
+        return gen()
+
+    def run(self, batch: Dict[str, Any]) -> ModelOutput:
+        """One forward of the model over a batch plus the static tables."""
+        with torch.inference_mode():
+            return self.model({**batch, **self.static_batch})
+
+    def embed_all(self, input_fn=None) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids [N] uint64 sorted unique, embeddings [N, D] float32) over
+        input_fn's batches (default: the sweep over every node).
+
+        The batches' embeddings stay on the device until the sweep ends;
+        the kept rows are gathered there and copied to the host once."""
+        it = self.infer_input_fn() if input_fn is None else (
+            input_fn() if callable(input_fn) else input_fn)
+        embs, ids = [], []
+        for batch in it:
+            emb = self.run(batch).embedding
+            v = np.asarray(batch["infer_ids"]).ravel()
+            if v.shape[0] != emb.shape[0]:
+                raise ValueError(f"batch carries {v.shape[0]} ids for "
+                                 f"{emb.shape[0]} embedding rows")
+            embs.append(emb.to(torch.float32))
+            ids.append(v.astype(np.uint64))
+        if not embs:
+            raise ValueError("input_fn yielded no batches")
+        uniq, first = np.unique(np.concatenate(ids), return_index=True)
+        keep = torch.from_numpy(first).to(embs[0].device)
+        return uniq, torch.cat(embs)[keep].cpu().numpy()

@@ -1,0 +1,1 @@
+"""Kernel wrappers of the port, each beside its plain PyTorch version."""
