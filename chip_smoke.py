@@ -3,13 +3,12 @@
 
     python3 chip_smoke.py [--out PATH]
 
-The GraphSAGE inference-and-serve path at the width of bench.py's
-flagship configuration (bench.py:776-869): a products-like graph
-(2.45M nodes, average degree 50, 16 classes, 100-dim features quantized
-to int8 with a bfloat16 per-column scale, neighbor cap 32),
-DeviceSampledGraphSage with dim 128 and fanouts [15, 10] and random
-seeded weights, root batches of 32768. Phases, in order; any failure
-raises and the exit code is not 0:
+The GraphSAGE path at the width of bench.py's flagship configuration
+(bench.py:776-869): a products-like graph (2.45M nodes, average degree
+50, 16 classes, 100-dim features quantized to int8 with a bfloat16
+per-column scale, neighbor cap 32), DeviceSampledGraphSage with dim 128
+and fanouts [15, 10] and random seeded weights, root batches of 32768.
+Phases, in order; any failure raises and the exit code is not 0:
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off
   2. build    nvcc builds every kernel under euler_tpu_torch/csrc
@@ -19,10 +18,19 @@ raises and the exit code is not 0:
               time, the plain version's, embedding_bag's and the bound
   5. slice    the inference sweep over every node (75 batches) through
               the kernel (launch count checked), finite outputs, kernel
-              forward vs plain forward, and a small input against the
-              CPU path
-  6. serve    embed / score requests against direct indexing
-  7. result   the kernels JSON line, then {"ok": true, "device": ...}
+              forward vs plain forward
+  6. train    NodeEstimator.train with Adam (lr 0.01) on the same
+              tables: 5 warm-up steps, 30 timed steps in 3 windows
+              (bench.py:883-911), then 10 event-timed steps; edges/s,
+              one profiled step, launches == steps, a finite falling
+              loss, no skipped step; one remat=True step against the
+              plain step (same loss, gradients, 2 launches)
+  7. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
+              on the cora stand-in for seeds 0, 1, 2: mean test
+              micro-F1 at least 0.79 (the RESULTS.md row is 0.811)
+  8. small    a small input through the card and through the CPU path
+  9. serve    embed / score requests against direct indexing
+ 10. result   the kernels JSON line, then {"ok": true, "device": ...}
 
 Without CUDA it exits 1 and prints no result. --out PATH also writes
 the full record (every case, timing and profile) as JSON.
@@ -31,6 +39,8 @@ the full record (every case, timing and profile) as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -42,7 +52,9 @@ import numpy as np
 import torch
 
 from euler_tpu_torch.dataset.synthetic import products_like, synthetic_citation
+from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
+from euler_tpu_torch.examples import run_graphsage
 from euler_tpu_torch.kernels import _build
 from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
 from euler_tpu_torch.ops.gather_mean import gather_mean, gather_mean_reference
@@ -57,6 +69,14 @@ DIM, FANOUTS, BATCH = 128, (15, 10), 32768
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TIMED_SAMPLES, BURST = 20, 5
+# training (bench.py:776-911): Adam at lr 0.01, 5 warm-up steps, 30
+# timed steps in 3 windows; then event-timed steps
+TRAIN_LR, WARMUP_STEPS, TIMED_STEPS, WINDOWS, EVENT_STEPS = 0.01, 5, 30, 3, 10
+EDGES_PER_STEP = sum(BATCH * int(np.prod(FANOUTS[:h + 1]))
+                     for h in range(len(FANOUTS)))
+# quality: RESULTS.md graphsage-dev-int8 | cora | micro-F1 | 0.811
+QUALITY_SEEDS, QUALITY_FLOOR, QUALITY_ROW, QUALITY_BAND = (0, 1, 2), 0.79, \
+    0.811, 0.01
 
 
 def log(msg: str) -> None:
@@ -157,12 +177,14 @@ def phase_graph(dev: torch.device):
                                          device=dev)
     t_tables = time.monotonic() - t0
     edges = int(g.neighbors.size)
+    node_types = g.node_types
     del g
     log(f"graph: {FULL_NODES} nodes, {edges} directed edges, built in "
         f"{t_graph:.1f}s; tables in {t_tables:.1f}s (uniform_rows="
         f"{table.uniform_rows}, hub_frac={table.hub_frac:.3f}, "
         f"edge_keep_frac={table.edge_keep_frac:.3f})")
-    return store, table, {"nodes": FULL_NODES, "directed_edges": edges,
+    return store, table, node_types, {
+                          "nodes": FULL_NODES, "directed_edges": edges,
                           "graph_seconds": t_graph,
                           "table_seconds": t_tables,
                           "uniform_rows": table.uniform_rows,
@@ -269,8 +291,7 @@ def phase_slice(inf: NodeInferencer, model) -> dict:
     if not fwd_err <= fwd_tol:
         raise AssertionError(f"kernel forward vs plain forward: {fwd_err} "
                              f"> {fwd_tol}")
-    edges = sum(BATCH * int(np.prod(FANOUTS[:h + 1]))
-                for h in range(len(FANOUTS)))
+    edges = EDGES_PER_STEP
     ms = statistics.median(per_fwd)
     t_fwd = sum(per_fwd) / 1e3
     r = {"forwards": len(sweep), "roots": n_roots,
@@ -288,7 +309,8 @@ def phase_slice(inf: NodeInferencer, model) -> dict:
          "kernel_vs_plain_forward_tol": fwd_tol,
          "kernel_vs_plain_logit_err": logit_err,
          "loss_batch0": float(out.loss), "metric_batch0": float(out.metric),
-         "profile": profile_forward(inf, sweep[1])}
+         "profile": profile_device(lambda: inf.run(sweep[1]),
+                                   "one forward")}
     log(f"slice: {len(sweep)} forwards of {BATCH} roots over {n_roots} "
         f"nodes (fanouts {list(FANOUTS)}, dim {DIM}), gather_mean launches "
         f"{launches}; sweep {wall:.3f}s = {r['roots_per_s']:.0f} roots/s, "
@@ -301,18 +323,18 @@ def phase_slice(inf: NodeInferencer, model) -> dict:
     return r, out_ids, emb
 
 
-def profile_forward(inf: NodeInferencer, batch: dict) -> dict:
-    """One forward under torch.profiler: device time by kernel and the
-    device's busy share of the forward's wall time. Informational: a
-    profiler that records no device time is reported, not failed."""
+def profile_device(fn, what: str, top_n: int = 10) -> dict:
+    """One call of fn under torch.profiler: device time by kernel, and
+    by kind (gather_mean, GEMMs, the rest). Informational: a profiler
+    that records no device time is reported, not failed."""
     from torch.profiler import ProfilerActivity, profile
 
-    inf.run(batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        inf.run(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
 
@@ -320,20 +342,189 @@ def profile_forward(inf: NodeInferencer, batch: dict) -> dict:
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0) or 0)
 
-    # device-side entries only: an aten op's self device time repeats
-    # the time of the kernels it launched
+    # device-side kernels only: an aten op's self device time repeats
+    # the time of the kernels it launched, and a record_function range
+    # (e.g. Optimizer.step) shows on the device as an annotation
     rows = sorted(((dev_us(e), e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and dev_us(e) > 0), reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     top = [{"name": k[:90], "ms": us / 1e3, "calls": c}
-           for us, k, c in rows[:10]]
-    log(f"profile: one forward, wall {wall_ms:.3f} ms (profiled), device "
-        f"busy {busy_ms:.3f} ms over {len(rows)} kernel names")
+           for us, k, c in rows[:top_n]]
+    kinds = {"gather_mean": 0.0, "gemm": 0.0, "other": 0.0}
+    for us, k, _ in rows:
+        kind = ("gather_mean" if "gather_mean" in k
+                else "gemm" if "gemm" in k.lower() else "other")
+        kinds[kind] += us / 1e3
+    log(f"profile: {what}, wall {wall_ms:.3f} ms (profiled), device busy "
+        f"{busy_ms:.3f} ms over {len(rows)} kernel names; gather_mean "
+        f"{kinds['gather_mean']:.3f} ms, GEMMs {kinds['gemm']:.3f} ms, "
+        f"the rest {kinds['other']:.3f} ms")
     for t in top:
         log(f"  {t['ms']:8.3f} ms  x{t['calls']:<3d} {t['name']}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": top}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": top,
+            "by_kind_ms": kinds}
+
+
+def phase_train(store, table, node_types, dev: torch.device) -> dict:
+    """Train the flagship model through NodeEstimator on the sweep's
+    tables, as bench.py times it: warm-up, then 3 windows of steps on
+    the host clock with a synchronize at the window edges only."""
+    model = DeviceSampledGraphSage(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
+        uniform_sampling=table.uniform_rows,
+        generator=torch.Generator().manual_seed(0))
+    est = NodeEstimator(
+        model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
+                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
+                    train_node_type=-1, seed=0),
+        node_types, store, table, device=dev)
+    it = est.train_input_fn()
+    torch.cuda.synchronize()
+    gather_mean.launches = 0
+    losses = est.train(it, max_steps=WARMUP_STEPS)["losses"]
+    per_window = TIMED_STEPS // WINDOWS
+    window_s, window_rates = [], []
+    for _ in range(WINDOWS):
+        done = est.step
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = est.train(it, max_steps=done + per_window)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        window_s.append(dt)
+        window_rates.append((res["global_step"] - done) / dt)
+        losses += res["losses"]
+    timed_s = sum(window_s)
+    # device time per step: CUDA events around the step itself, batches
+    # built beforehand; and the host's time to enqueue the step
+    batches = [next(it) for _ in range(EVENT_STEPS)]
+    step_ms, host_ms, event_losses = [], [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        loss, _ = est._train_step(b)
+        stop.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        stop.synchronize()
+        event_losses.append(loss)
+        step_ms.append(start.elapsed_time(stop))
+    losses += torch.stack(event_losses).cpu().tolist()
+    launches = gather_mean.launches
+    steps = est.step
+    skipped = int(est.skipped_steps)
+    if launches != steps:
+        raise AssertionError(f"gather_mean launched {launches} times in "
+                             f"{steps} training steps")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5:
+        raise AssertionError(f"loss did not fall: first 5 mean {first5}, "
+                             f"last 5 mean {last5}")
+    if skipped != 0:
+        raise AssertionError(f"{skipped} training steps skipped")
+    prof = profile_device(lambda: est._train_step(next(it)),
+                          "one training step", top_n=15)
+    eps = EDGES_PER_STEP * TIMED_STEPS / timed_s
+    ms = statistics.median(step_ms)
+    r = {"steps": steps, "gather_mean_launches": launches,
+         "skipped_steps": skipped, "losses": losses,
+         "loss_first5_mean": first5, "loss_last5_mean": last5,
+         "window_seconds": window_s, "window_steps_per_s": window_rates,
+         "steps_per_s": TIMED_STEPS / timed_s,
+         "edges_per_step": EDGES_PER_STEP, "edges_per_sec_per_gpu": eps,
+         "step_ms": step_ms, "step_ms_median": ms,
+         "host_enqueue_ms": host_ms,
+         "host_enqueue_ms_median": statistics.median(host_ms),
+         "device_busy_share": (prof["device_busy_ms"] * TIMED_STEPS
+                               / (timed_s * 1e3)),
+         "profile": prof, "remat": check_remat(est, model, it, dev)}
+    log(f"train: {steps} steps of {BATCH} roots (Adam lr {TRAIN_LR}), "
+        f"gather_mean launches {launches}, skipped {skipped}; "
+        f"edges_per_sec_per_gpu {eps:.6g} ({EDGES_PER_STEP} edges/step, "
+        f"{r['steps_per_s']:.3f} steps/s; windows "
+        + ", ".join(f"{x:.3f}" for x in window_rates)
+        + f" steps/s); step_ms median {ms:.3f} (events), host enqueue "
+        f"{r['host_enqueue_ms_median']:.3f} ms/step; device busy "
+        f"{r['device_busy_share']:.1%} of the timed windows (profiled "
+        f"busy ms x steps / wall); loss first 5 {first5:.4f} -> last 5 "
+        f"{last5:.4f}")
+    return r
+
+
+def check_remat(est, model, it, dev) -> dict:
+    """One step's loss and gradients from the trained state with
+    remat=True against the plain model: the same loss, gradients within
+    1e-5 of the largest, and gather_mean launched twice (forward, and
+    again in the backward pass)."""
+    remat = DeviceSampledGraphSage(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
+        uniform_sampling=model.uniform_sampling, remat=True).to(dev)
+    remat.load_state_dict(model.state_dict())
+    batch = {**next(it), **est.static_batch}
+    out = {}
+    for name, m in (("plain", model), ("remat", remat)):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = gather_mean.launches
+        res = m(batch)
+        res.loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (res.loss.detach(),
+                     {n: p.grad.detach().clone()
+                      for n, p in m.named_parameters()},
+                     gather_mean.launches - n0,
+                     torch.cuda.max_memory_allocated())
+    (lp, gp, np_, mp), (lr, gr, nr, mr) = out["plain"], out["remat"]
+    big = max(float(g.abs().max()) for g in gp.values())
+    err = max(max_abs_err(gr[n], gp[n]) for n in gp)
+    loss_diff = abs(float(lr) - float(lp))
+    log(f"remat: loss {float(lr):.6f} vs {float(lp):.6f} (diff "
+        f"{loss_diff:.3g}), max grad err {err:.3g} (tol {1e-5 * big:.3g}), "
+        f"gather_mean launches {nr} vs {np_}; peak device memory "
+        f"{mr / 2**30:.2f} vs {mp / 2**30:.2f} GiB")
+    if not (loss_diff == 0.0 and err <= 1e-5 * big and nr == 2 and np_ == 1):
+        raise AssertionError("remat step disagrees with the plain step")
+    return {"loss_diff": loss_diff, "max_grad_err": err,
+            "grad_tol": 1e-5 * big, "launches": nr, "plain_launches": np_,
+            "peak_bytes": mr, "plain_peak_bytes": mp}
+
+
+def phase_quality() -> dict:
+    """fit_citation on the cora stand-in through the port's runner, on
+    the card, one run per seed; the runner's own output goes to the
+    record."""
+    f1, logs = [], []
+    for seed in QUALITY_SEEDS:
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            res = run_graphsage.main(["--device_sampler", "--int8_features",
+                                      "--seed", str(seed)])
+        secs = time.monotonic() - t0
+        logs.append(buf.getvalue())
+        if res["train_skipped_steps"] != 0:
+            raise AssertionError(f"cora seed {seed}: skipped steps")
+        f1.append(float(res["test_metric"]))
+        log(f"quality: cora seed {seed}: test micro-F1 {f1[-1]:.4f} "
+            f"(best step {res['best_step']}, {secs:.1f}s)")
+    mean = float(np.mean(f1))
+    gate = abs(mean - QUALITY_ROW) <= QUALITY_BAND
+    log(f"quality: cora mean test micro-F1 {mean:.4f} over seeds "
+        f"{list(QUALITY_SEEDS)} (floor {QUALITY_FLOOR}; RESULTS.md row "
+        f"{QUALITY_ROW} +- {QUALITY_BAND}: {'met' if gate else 'not met'})")
+    if not mean >= QUALITY_FLOOR:
+        raise AssertionError(f"cora mean micro-F1 {mean} < {QUALITY_FLOOR}")
+    return {"seeds": list(QUALITY_SEEDS), "test_micro_f1": f1,
+            "mean": mean, "gate_met": gate, "logs": logs}
 
 
 def phase_small_vs_cpu(dev: torch.device) -> dict:
@@ -419,7 +610,7 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     record = {"device": phase_device(), "build": phase_build()}
-    store, table, record["graph"] = phase_graph(dev)
+    store, table, node_types, record["graph"] = phase_graph(dev)
     model = DeviceSampledGraphSage(
         NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
         uniform_sampling=table.uniform_rows,
@@ -432,9 +623,11 @@ def main(argv=None) -> int:
     record["kernels"] = phase_kernels(store, deepest)
     del deepest, probe
     record["slice"], ids, emb = phase_slice(inf, model)
+    record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    record["train"] = phase_train(store, table, node_types, dev)
+    record["quality"] = phase_quality()
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     record["serve"] = phase_serve(ids, emb, dev)
-    record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     main_case = record["kernels"][0]
     kernels = {"kernels": [{
         "name": "gather_mean", "route": "cuda",
@@ -443,6 +636,7 @@ def main(argv=None) -> int:
         "replaces_function": "euler_tpu/ops/pallas_ops.py:"
                              "_pallas_gather_mean",
         "launches": record["slice"]["gather_mean_launches"],
+        "train_launches": record["train"]["gather_mean_launches"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

@@ -1,1 +1,41 @@
-"""Datasets of the port (synthetic stand-ins, as arrays)."""
+"""Datasets of the port (synthetic stand-ins, as arrays).
+
+`get_dataset(name)` builds the named citation stand-in. The shapes and
+calibrated difficulty knobs are a copy of euler_tpu/dataset/__init__.py
+`_CITATION_SHAPES` (cora, citeseer, pubmed), fed to the same numpy
+draws (synthetic.synthetic_citation), so the port's "cora" has the
+reference's features, labels, split and edges. The reference first
+looks for prepared files under $EULER_TPU_DATA_DIR; the port has no
+graph engine to load them into yet (ROADMAP.md Queue A, 'Engine
+binding') and always builds the stand-in.
+"""
+
+from __future__ import annotations
+
+from euler_tpu_torch.dataset.synthetic import (  # noqa: F401
+    TEST_TYPE, TRAIN_TYPE, VAL_TYPE, GraphArrays, synthetic_citation,
+)
+
+# copy of euler_tpu/dataset/__init__.py:_CITATION_SHAPES (citation sets)
+_CITATION_SHAPES = {
+    "cora": dict(n=2708, d=1433, num_classes=7, signal=1.2,
+                 confuse_frac=0.2, informative_dims=48,
+                 intra_degree=3.0, inter_degree=1.5),
+    "citeseer": dict(n=3327, d=3703, num_classes=6, signal=1.12,
+                     confuse_frac=0.21, informative_dims=48,
+                     intra_degree=3.0, inter_degree=1.4),
+    "pubmed": dict(n=19717, d=500, num_classes=3, signal=1.1,
+                   confuse_frac=0.25, informative_dims=32,
+                   intra_degree=3.6, inter_degree=0.9),
+}
+
+
+def get_dataset(name: str, **overrides) -> GraphArrays:
+    """The named citation stand-in as GraphArrays (node_types gives the
+    split); overrides replace its knobs, as in the reference."""
+    name = name.lower()
+    if name not in _CITATION_SHAPES:
+        raise ValueError(f"unknown dataset {name!r}; options "
+                         f"{sorted(_CITATION_SHAPES)} (the other named "
+                         "sets are not ported yet)")
+    return synthetic_citation(**{**_CITATION_SHAPES[name], **overrides})

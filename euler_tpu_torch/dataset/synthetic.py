@@ -16,6 +16,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
+# split as node type (reference: base_dataset.py TRAIN/VAL/TEST_TYPE)
+TRAIN_TYPE, VAL_TYPE, TEST_TYPE = 0, 1, 2
+
 
 @dataclass
 class GraphArrays:
@@ -35,6 +38,17 @@ class GraphArrays:
     @property
     def num_nodes(self) -> int:
         return int(self.features.shape[0])
+
+    @property
+    def node_types(self) -> np.ndarray:
+        """[N] int32 split per node, as the reference's build_engine
+        (base_dataset.py:54-83) types them: TRAIN where train_mask,
+        else VAL where val_mask, else TEST — every node outside the
+        train and val splits is TEST_TYPE, in test_mask or not."""
+        types = np.full(self.num_nodes, TEST_TYPE, np.int32)
+        types[self.val_mask] = VAL_TYPE
+        types[self.train_mask] = TRAIN_TYPE
+        return types
 
     def onehot_labels(self) -> np.ndarray:
         out = np.zeros((self.num_nodes, self.num_classes), np.float32)

@@ -9,18 +9,36 @@ seed = 1<<31 | counter), so inference never shifts the training draws.
 embed_all runs the model over the sweep and returns (ids, embeddings)
 sorted by id, each id's first embedding kept — dedup by first occurrence
 drops exactly the pad rows.
+
+`run` and `embed_all` put the model in eval mode (no dropout) for their
+forwards and give it back in the mode it was in; the training
+estimator (estimators.NodeEstimator) builds its eval sweeps from this
+class.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from euler_tpu_torch.mp_utils.base import ModelOutput
+from euler_tpu_torch.platform import host_to_device
 
 _INFER_STREAM = 1
+
+
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """model.eval() for the block, then the mode it had before."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
 
 
 class NodeInferencer:
@@ -48,6 +66,13 @@ class NodeInferencer:
         self._seed_counter += 1
         return (_INFER_STREAM << 31) | self._seed_counter
 
+    def batch(self, ids: np.ndarray, sample_seed: int) -> Dict[str, Any]:
+        """{"rows": [int32 roots on the device], "sample_seed",
+        "infer_ids"} for uint64 ids."""
+        return {"rows": [host_to_device(self.store.lookup(ids),
+                                        self.device)],
+                "sample_seed": sample_seed, "infer_ids": ids}
+
     def infer_input_fn(self, ids: Optional[np.ndarray] = None
                        ) -> Iterator[Dict[str, Any]]:
         """Batches over `ids` (uint64; default every node of the store),
@@ -66,19 +91,16 @@ class NodeInferencer:
                         [chunk, np.full(bs - n_real, chunk[-1], np.uint64)])
                 mask = np.zeros(bs, np.float32)
                 mask[:n_real] = 1.0
-                yield {
-                    "rows": [torch.from_numpy(self.store.lookup(chunk))
-                             .to(self.device)],
-                    "sample_seed": self._next_seed(),
-                    "infer_ids": chunk,
-                    "metric_mask": torch.from_numpy(mask).to(self.device),
-                }
+                b = self.batch(chunk, self._next_seed())
+                b["metric_mask"] = host_to_device(mask, self.device)
+                yield b
 
         return gen()
 
     def run(self, batch: Dict[str, Any]) -> ModelOutput:
-        """One forward of the model over a batch plus the static tables."""
-        with torch.inference_mode():
+        """One forward of the model, in eval mode, over a batch plus the
+        static tables."""
+        with eval_mode(self.model), torch.inference_mode():
             return self.model({**batch, **self.static_batch})
 
     def embed_all(self, input_fn=None) -> Tuple[np.ndarray, np.ndarray]:

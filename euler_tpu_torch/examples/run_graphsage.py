@@ -1,0 +1,93 @@
+"""Supervised GraphSAGE on device-resident tables (counterpart of
+examples/graphsage/run_graphsage.py:19-132, its supervised
+--device_sampler [--int8_features] branch, with the same defaults).
+
+    python -m euler_tpu_torch.examples.run_graphsage --device_sampler \\
+        --int8_features [--dataset cora] [--seed 0] [--device cpu]
+
+Prints the result dict of fit_citation (test_metric is the test split's
+micro-F1 at the best-val weights). --seed seeds the model's init, the
+root draws and dropout (the reference's estimator seed, default 0).
+The reference's other flags (--mode unsupervised, --aggregator,
+--fused_sampler, --act_cache) belong to paths not ported yet (ROADMAP.md
+Queue A) and are not accepted.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from euler_tpu_torch.dataset import get_dataset
+from euler_tpu_torch.estimator.estimators import NodeEstimator
+from euler_tpu_torch.examples.common import fit_citation
+from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
+from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+from euler_tpu_torch.platform import resolve_device
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", default="cora")
+    ap.add_argument("--fanouts", default="10,10")
+    ap.add_argument("--hidden_dim", type=int, default=64)
+    ap.add_argument("--device_sampler", action="store_true",
+                    help="sample fanouts on the device (the only path "
+                         "ported)")
+    ap.add_argument("--sampler_cap", type=int, default=32)
+    ap.add_argument("--int8_features", action="store_true",
+                    help="int8 feature table with a float32 per-column "
+                         "scale")
+    ap.add_argument("--batch_size", type=int, default=64)
+    ap.add_argument("--learning_rate", type=float, default=0.003)
+    ap.add_argument("--dropout", type=float, default=0.6)
+    ap.add_argument("--weight_decay", type=float, default=0.0)
+    ap.add_argument("--max_steps", type=int, default=600)
+    ap.add_argument("--model_dir", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU; default CUDA")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    args = build_parser().parse_args(argv)
+    if not args.device_sampler:
+        raise NotImplementedError(
+            "the host-fed sampler needs the graph engine, not ported yet: "
+            "ROADMAP.md Queue A, 'Engine binding'; pass --device_sampler")
+    dev = resolve_device(args.device)
+    fanouts = tuple(int(x) for x in args.fanouts.split(","))
+    data = get_dataset(args.dataset)
+    print(f"dataset {args.dataset}: {data.num_nodes} nodes, "
+          f"{data.neighbors.size} directed edges [synthetic]", flush=True)
+    d = data.features.shape[1]
+    feats = np.concatenate([data.features, np.zeros((1, d), np.float32)])
+    labels = np.concatenate([data.onehot_labels(),
+                             np.zeros((1, data.num_classes), np.float32)])
+    store = DeviceFeatureStore.from_arrays(
+        feats, labels, quantize="int8" if args.int8_features else None,
+        device=dev)
+    sampler = DeviceNeighborTable.from_csr(data.offsets, data.neighbors,
+                                           cap=args.sampler_cap, device=dev)
+    model = DeviceSampledGraphSage(
+        data.num_classes, d, multilabel=False, dim=args.hidden_dim,
+        fanouts=fanouts, dropout=args.dropout,
+        generator=torch.Generator().manual_seed(args.seed))
+    est = NodeEstimator(
+        model, dict(batch_size=args.batch_size,
+                    learning_rate=args.learning_rate,
+                    weight_decay=args.weight_decay, seed=args.seed),
+        data.node_types, store, sampler, model_dir=args.model_dir or None,
+        device=dev)
+    res = fit_citation(est, args.max_steps)
+    res.pop("train_losses", None)
+    print(res, flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

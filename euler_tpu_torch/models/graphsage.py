@@ -7,6 +7,11 @@ feature gather and the label lookup read the device tables. The deepest
 hop's features are read only as neighbor means, so that layer goes
 through ops.gather_mean (one kernel launch per forward on CUDA) and the
 [n·k, D] gathered layer is never built.
+
+remat=True runs `_GatherEncode` under torch.utils.checkpoint, as the
+reference wraps it in nn.remat: the backward pass gathers the hop
+layers again instead of keeping them, so a training step launches
+gather_mean twice.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from euler_tpu_torch.mp_utils.base import SuperviseModel
 from euler_tpu_torch.ops.gather_mean import gather_mean
@@ -22,6 +28,7 @@ from euler_tpu_torch.parallel.device_sampler import (
     _ROADMAP_LAYOUTS, sample_fanout_rows,
 )
 from euler_tpu_torch.parallel.feature_store import dequantize_rows
+from euler_tpu_torch.platform import seeded_generator
 from euler_tpu_torch.utils.encoders import SageEncoder
 
 
@@ -42,9 +49,7 @@ def sample_seed_generator(sample_seed: int,
     """The per-batch sampling stream, seeded from (17, sample_seed) as
     the reference folds sample_seed into key(17). Its bits are torch's,
     not JAX's."""
-    g = torch.Generator(device=device)
-    g.manual_seed((17 << 32) | (int(sample_seed) & 0xFFFFFFFF))
-    return g
+    return seeded_generator(device, 17, int(sample_seed) & 0xFFFFFFFF)
 
 
 class _GatherEncode(nn.Module):
@@ -82,14 +87,16 @@ class DeviceSampledGraphSage(SuperviseModel):
     per hop) replays a draw instead of the seeded stream.
 
     Ported: encoder 'sage' with the 'mean' aggregator over replicated
-    split tables. remat, the gcn/genie encoders, other aggregators, and
-    the fused/alias/row-sharded layouts raise NotImplementedError."""
+    split tables, remat and dropout. The gcn/genie encoders, other
+    aggregators, and the fused/alias/row-sharded layouts raise
+    NotImplementedError."""
 
     def __init__(self, num_classes: int, in_dim: int,
                  multilabel: bool = True, dim: int = 32,
                  fanouts: Sequence[int] = (10, 10),
                  aggregator: str = "mean", encoder: str = "sage",
                  remat: bool = False, uniform_sampling: bool = False,
+                 dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         if encoder not in ("sage", "gcn", "genie"):
             raise ValueError(f"DeviceSampledGraphSage.encoder must be "
@@ -103,17 +110,14 @@ class DeviceSampledGraphSage(SuperviseModel):
                 f"aggregator {aggregator!r} in DeviceSampledGraphSage is "
                 "not ported yet: ROADMAP.md Queue A, 'Other "
                 "device-resident families'")
-        if remat:
-            raise NotImplementedError(
-                "remat recomputes the gather in a backward pass: ROADMAP.md "
-                "Queue A, 'Training'")
         enc = _GatherEncode(in_dim, dim, fanouts, aggregator,
                             generator=generator)
         super().__init__(num_classes, multilabel, enc.out_dim,
-                         generator=generator)
+                         dropout=dropout, generator=generator)
         self.encoder = enc
         self.fanouts = tuple(int(k) for k in fanouts)
         self.uniform_sampling = bool(uniform_sampling)
+        self.remat = bool(remat)
 
     def sample_rows(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
         """[roots, hop1, ..., hopL] int32 rows for this batch."""
@@ -131,6 +135,11 @@ class DeviceSampledGraphSage(SuperviseModel):
                                   uniform=self.uniform_sampling)
 
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
-        return self.encoder(batch["feature_table"],
-                            batch.get("feature_scale"),
-                            self.sample_rows(batch))
+        args = (batch["feature_table"], batch.get("feature_scale"),
+                self.sample_rows(batch))
+        if self.remat and torch.is_grad_enabled():
+            # the encoder draws no random numbers (sampling is done), so
+            # the recompute needs no saved RNG state
+            return checkpoint(self.encoder, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self.encoder(*args)

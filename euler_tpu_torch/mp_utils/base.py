@@ -2,8 +2,11 @@
 of euler_tpu/mp_utils/base.py:24-96 (ModelOutput, SuperviseModel).
 
 A model takes a batch dict of tensors already on its device and returns
-a ModelOutput. The reference's dropout is active only in training
-steps, which this inference slice does not port.
+a ModelOutput. Dropout (base.py:41-62) acts on the embedding before the
+logits, only in training mode (`model.train()`), with a mask drawn from
+the batch's `dropout_generator`: the estimator makes one per step,
+seeded from (seed + 1, step) as the reference folds the step into
+key(seed + 1). There is no global RNG; the mask's bits are torch's.
 """
 
 from __future__ import annotations
@@ -36,17 +39,35 @@ class SuperviseModel(nn.Module):
     padded rows from the loss mean and the metric counts."""
 
     def __init__(self, num_classes: int, multilabel: bool, emb_dim: int,
+                 dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got {dropout}")
         self.num_classes = int(num_classes)
         self.multilabel = bool(multilabel)
+        self.dropout = float(dropout)
         self.out = Dense(emb_dim, num_classes, generator=generator)
 
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
         raise NotImplementedError
 
+    def _drop(self, emb: torch.Tensor, gen: Optional[torch.Generator]
+              ) -> torch.Tensor:
+        """flax nn.Dropout: keep with probability 1-p, scale kept units
+        by 1/(1-p)."""
+        if gen is None:
+            raise ValueError("dropout in training mode needs the batch's "
+                             "dropout_generator (the estimator's step "
+                             "stream)")
+        keep_p = 1.0 - self.dropout
+        u = torch.rand(emb.shape, generator=gen, device=emb.device)
+        return torch.where(u < keep_p, emb / keep_p, torch.zeros_like(emb))
+
     def forward(self, batch: Dict[str, Any]) -> ModelOutput:
         emb = self.embed(batch)
+        if self.dropout > 0.0 and self.training:
+            emb = self._drop(emb, batch.get("dropout_generator"))
         labels = batch.get("labels")
         if labels is None:
             labels = batch["label_table"][batch["rows"][0].long()]

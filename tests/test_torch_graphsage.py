@@ -209,7 +209,7 @@ def test_deepest_hop_goes_through_neighbor_mean():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [{"remat": True}, {"encoder": "gcn"},
+@pytest.mark.parametrize("kw", [{"encoder": "genie"}, {"encoder": "gcn"},
                                 {"aggregator": "maxpool"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
