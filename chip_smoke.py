@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (euler_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out PATH]
+    python3 chip_smoke.py [--out PATH] [--baseline-source PATH]
 
 The GraphSAGE path at the width of bench.py's flagship configuration
 (bench.py:776-869): a products-like graph (2.45M nodes, average degree
@@ -11,11 +11,16 @@ and fanouts [15, 10] and random seeded weights, root batches of 32768.
 Phases, in order; any failure raises and the exit code is not 0:
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off
-  2. build    nvcc builds every kernel under euler_tpu_torch/csrc
+  2. build    nvcc builds every kernel under euler_tpu_torch/csrc; ptxas
+              registers and spills per kernel (a spill fails the run)
   3. graph    synthetic graph → feature store + neighbor table on the card
   4. kernels  gather_mean against its plain version at the path's shapes
-              (int8 + bf16 scale, int8 + f32 scale, f32 table), with its
-              time, the plain version's, embedding_bag's and the bound
+              (int8 + bf16 scale, int8 + f32 scale, f32 table), the cora
+              runner's (n 640, D 1433, int8 + f32 scale) and the path's
+              int8 table one byte off alignment; per case its launch
+              plan, time, GB/s and share of the bound, the plain
+              version's time, embedding_bag's and the bound; a sweep of
+              launch plans on the main case
   5. slice    the inference sweep over every node (75 batches) through
               the kernel (launch count checked), finite outputs, kernel
               forward vs plain forward
@@ -34,6 +39,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 Without CUDA it exits 1 and prints no result. --out PATH also writes
 the full record (every case, timing and profile) as JSON.
+--baseline-source PATH builds an earlier gather_mean.cu that has the
+first kernel's C entry (gather_mean_launch without plan arguments) and
+times it against the current kernel in phase 4, in turns (old, new,
+new, old) on every case.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ import contextlib
 import io
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -57,7 +68,10 @@ from euler_tpu_torch.estimator.infer import NodeInferencer
 from euler_tpu_torch.examples import run_graphsage
 from euler_tpu_torch.kernels import _build
 from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
-from euler_tpu_torch.ops.gather_mean import gather_mean, gather_mean_reference
+from euler_tpu_torch.ops import gather_mean as gather_mean_module
+from euler_tpu_torch.ops.gather_mean import (
+    gather_mean, gather_mean_reference, launch_plan, take_rows,
+)
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
 from euler_tpu_torch.serving.engine import EmbeddingEngine
@@ -152,13 +166,102 @@ def phase_device() -> dict:
             "cuda": torch.version.cuda, "numpy": np.__version__}
 
 
-def phase_build() -> dict:
+def ptxas_report(nvcc_log: str) -> list:
+    """[(kernel, registers, spill bytes)] from nvcc's -Xptxas -v output,
+    kernel names demangled where c++filt exists."""
+    rows, name, spill = [], None, 0
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                n = n.replace("(anonymous namespace)::", "")
+                r[0] = re.sub(r"^void |\(.*", "", n)
+    return [tuple(r) for r in rows]
+
+
+def start_baseline_build(src: str) -> tuple:
+    """nvcc for an earlier gather_mean.cu, started now (it runs beside
+    the current kernel's build); wait with finish_baseline_build."""
+    out = _build.BUILD_DIR / "baseline" / "gather_mean.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def finish_baseline_build(proc, out):
+    import ctypes
+
+    log_text, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"baseline gather_mean build failed:\n{log_text}")
+    fn = ctypes.CDLL(str(out)).gather_mean_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def baseline_gather_mean(fn, table, rows, scale, out=None):
+    """The earlier kernel on the same inputs (its dtype codes are the
+    current ones), into `out` when given; not counted in
+    gather_mean.launches."""
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+    n, k = rows.shape
+    if out is None:
+        out = torch.empty(
+            (n, table.shape[1]),
+            dtype=scale.dtype if scale is not None else table.dtype,
+            device=table.device)
+    rc = fn(table.data_ptr(), codes[table.dtype], rows.data_ptr(),
+            scale.data_ptr() if scale is not None else None,
+            codes[scale.dtype] if scale is not None else -1, out.data_ptr(),
+            n, k, table.shape[1], table.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"baseline gather_mean launch failed: {rc}")
+    return out
+
+
+def phase_build(baseline_source=None) -> tuple:
+    base = (start_baseline_build(baseline_source) if baseline_source
+            else None)
     r = _build.build("gather_mean")
     log(f"build: gather_mean {r['seconds']:.1f}s")
-    for line in r["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  {line.strip()}")
-    return {"gather_mean_seconds": r["seconds"]}
+    report = ptxas_report(r["log"])
+    for name, regs, spill in report:
+        log(f"  ptxas {name}: {regs} registers, {spill} bytes spilled")
+    spilled = [x for x in report if x[2] > 0]
+    if not report:
+        raise AssertionError("no ptxas report for gather_mean (remove its "
+                             "library under build/ to rebuild it)")
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers: {spilled}")
+    t0 = time.monotonic()
+    base_fn = finish_baseline_build(*base) if base else None
+    if base:
+        log(f"build: baseline gather_mean ({baseline_source}) ready "
+            f"{time.monotonic() - t0:.1f}s after the current one")
+    return {"gather_mean_seconds": r["seconds"], "ptxas": report}, base_fn
 
 
 def phase_graph(dev: torch.device):
@@ -192,25 +295,61 @@ def phase_graph(dev: torch.device):
                           "edge_keep_frac": table.edge_keep_frac}
 
 
-def phase_kernels(store, rows: torch.Tensor) -> list:
+def cora_case(dev: torch.device) -> tuple:
+    """The cora runner's gather_mean shapes (run_graphsage.py defaults:
+    batch 64, fanouts [10, 10], so n = 640 hop-1 rows with k = 10 over a
+    [2709, 1433] int8 table with a float32 scale), seeded data."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.integers(-127, 128, (2709, 1433),
+                                      dtype=np.int8)).to(dev)
+    scale = torch.from_numpy(rng.random(1433, dtype=np.float32)
+                             / 127).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 2708, (640, 10),
+                                         dtype=np.int32)).to(dev)
+    return q, scale, rows
+
+
+def payload_bytes(table, rows, out_dtype) -> int:
+    """What the kernel moves as it gathers: every (row, neighbor) row
+    read whole, the indices, the output (the bound counts distinct rows
+    instead)."""
+    n, k = rows.shape
+    d = table.shape[1]
+    return (n * k * d * table.element_size() + rows.numel() * 4
+            + n * d * torch.tensor([], dtype=out_dtype).element_size())
+
+
+def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
+                  baseline=None) -> dict:
     """gather_mean vs its plain version on the path's own deepest-hop
-    rows [n, k] and feature table. Tolerances: float32 outputs within
-    1e-5 of the largest value (summation order and the 1/k multiply);
-    bfloat16 outputs within 2^-7 of the largest (one bf16 rounding)."""
+    rows [n, k] and feature table, the cora runner's shapes and the
+    path's table one byte off alignment. Tolerances: float32 outputs
+    within 1e-5 of the largest value (summation order and the 1/k and
+    scale multiplies); bfloat16 outputs within 2^-7 of the largest (one
+    bf16 rounding). With a baseline kernel, old and new are timed in
+    turns (old, new, new, old) on every case."""
     q, scale_bf16 = store.features, store.feature_scale
     scale_f32 = scale_bf16.float()
     table_f32 = q.float() * scale_f32
+    shifted = torch.empty(q.numel() + 1, dtype=torch.int8, device=dev)
+    shifted[1:] = q.view(-1)
+    shifted = shifted[1:].view(q.shape)
+    cq, cscale, crows = cora_case(dev)
     cases = [
-        ("int8+bf16 scale", q, scale_bf16, (q.to(torch.bfloat16)
-                                            * scale_bf16)),
-        ("int8+f32 scale", q, scale_f32, table_f32),
-        ("f32 table", table_f32, None, table_f32),
+        ("int8+bf16 scale", q, scale_bf16, rows,
+         lambda: q.to(torch.bfloat16) * scale_bf16),
+        ("int8+f32 scale", q, scale_f32, rows, lambda: table_f32),
+        ("f32 table", table_f32, None, rows, lambda: table_f32),
+        ("cora int8+f32 scale", cq, cscale, crows,
+         lambda: cq.float() * cscale),
+        ("int8+bf16 scale, table 1 byte off", shifted, scale_bf16, rows,
+         lambda: q.to(torch.bfloat16) * scale_bf16),
     ]
     results = []
-    for name, table, scale, dense in cases:
-        got = gather_mean(table, rows, scale)
+    for name, table, scale, r_, dense_fn in cases:
+        got = gather_mean(table, r_, scale)
         torch.cuda.synchronize()
-        ref = gather_mean_reference(table, rows, scale)
+        ref = gather_mean_reference(table, r_, scale)
         err = max_abs_err(got, ref)
         big = float(ref.float().abs().max())
         tol = (2 ** -7 if got.dtype == torch.bfloat16 else 1e-5) * big
@@ -218,23 +357,70 @@ def phase_kernels(store, rows: torch.Tensor) -> list:
                 or got.shape != ref.shape:
             raise AssertionError(f"gather_mean {name}: max abs err {err} "
                                  f"> tol {tol} (or dtype/shape mismatch)")
-        r = {"case": name, "n": rows.shape[0], "k": rows.shape[1],
+        plan = launch_plan(table, r_, got, scale)
+        dense = dense_fn()
+
+        def launch_only():  # the kernel without the wrapper's host work
+            gather_mean_module._launch(table, r_, scale, got, plan)
+        r = {"case": name, "n": r_.shape[0], "k": r_.shape[1],
              "D": table.shape[1], "N": table.shape[0],
-             "max_abs_err": err, "tol": tol,
-             "ms": time_ms(lambda: gather_mean(table, rows, scale)),
+             "max_abs_err": err, "tol": tol, "plan": plan._asdict(),
+             "ms": time_ms(lambda: gather_mean(table, r_, scale)),
+             "launch_only_ms": time_ms(launch_only),
              "plain_ms": time_ms(
-                 lambda: gather_mean_reference(table, rows, scale)),
+                 lambda: gather_mean_reference(table, r_, scale)),
              "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
-                 rows, dense, mode="mean"))}
-        r.update(gather_mean_bound(table, rows, scale, got.dtype))
+                 r_, dense, mode="mean"))}
+        del dense
+        r.update(gather_mean_bound(table, r_, scale, got.dtype))
+        r["payload_bytes"] = payload_bytes(table, r_, got.dtype)
+        r["payload_gbps"] = r["payload_bytes"] / r["ms"] / 1e6
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        if baseline is not None:
+            old = baseline_gather_mean(baseline, table, r_, scale)
+            torch.cuda.synchronize()
+            r["baseline_max_abs_err_vs_new"] = max_abs_err(old, got)
+            if not r["baseline_max_abs_err_vs_new"] <= tol:
+                raise AssertionError(f"baseline kernel disagrees on {name}")
+            turns = []  # both through a thin ctypes call into one buffer
+            for which in ("old", "new", "new", "old"):
+                fn = ((lambda: baseline_gather_mean(baseline, table, r_,
+                                                    scale, old))
+                      if which == "old" else launch_only)
+                turns.append((which, time_ms(fn)))
+            r["turns_ms"] = turns
+            log(f"  turns old/new/new/old: "
+                + " / ".join(f"{t:.4f}" for _, t in turns) + " ms")
         log(f"kernel gather_mean [{name}] n={r['n']} k={r['k']} D={r['D']} "
-            f"N={r['N']}: max_abs_err {err:.3g} (tol {tol:.3g}); "
-            f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-            f"library_ms {r['library_ms']:.4f} bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            f"N={r['N']} plan V={plan.vec_bytes} lanes={plan.lanes} "
+            f"rows/block={plan.rows_per_block} grid={plan.grid}x"
+            f"{plan.col_blocks}: max_abs_err "
+            f"{err:.3g} (tol {tol:.3g}); kernel_ms {r['ms']:.4f} (launch "
+            f"only {r['launch_only_ms']:.4f}) "
+            f"({r['payload_gbps']:.1f} GB/s payload, {r['bound_share']:.1%} "
+            f"of the bound) plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
         results.append(r)
         del got, ref
-    return results
+    del shifted
+    return {"cases": results, "plans": plan_sweep(q, scale_bf16, rows)}
+
+
+def plan_sweep(table, scale, rows) -> list:
+    """The main case at 4, 8 and 16 warps per block (launch_plan's
+    default is 4). Informational."""
+    out = torch.empty((rows.shape[0], table.shape[1]), dtype=scale.dtype,
+                      device=table.device)
+    res = []
+    for rpb in (4, 8, 16):
+        plan = launch_plan(table, rows, out, scale, rows_per_block=rpb)
+        ms = time_ms(lambda: gather_mean_module._launch(
+            table, rows, scale, out, plan))
+        res.append({"plan": plan._asdict(), "ms": ms})
+        log(f"  plan rows/block={rpb} grid={plan.grid}x{plan.col_blocks}: "
+            f"{ms:.4f} ms")
+    return res
 
 
 def _check_finite(name: str, t: torch.Tensor, shape) -> None:
@@ -353,15 +539,20 @@ def profile_device(fn, what: str, top_n: int = 10) -> dict:
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     top = [{"name": k[:90], "ms": us / 1e3, "calls": c}
            for us, k, c in rows[:top_n]]
-    kinds = {"gather_mean": 0.0, "gemm": 0.0, "other": 0.0}
+    # masked_fill runs on the path only in take_rows (the fill rule of
+    # the hop-0/1 gathers); its index compares count as "other"
+    kinds = {"gather_mean": 0.0, "gemm": 0.0, "masked_fill": 0.0,
+             "other": 0.0}
     for us, k, _ in rows:
         kind = ("gather_mean" if "gather_mean" in k
-                else "gemm" if "gemm" in k.lower() else "other")
+                else "gemm" if "gemm" in k.lower()
+                else "masked_fill" if "masked_fill" in k else "other")
         kinds[kind] += us / 1e3
     log(f"profile: {what}, wall {wall_ms:.3f} ms (profiled), device busy "
         f"{busy_ms:.3f} ms over {len(rows)} kernel names; gather_mean "
         f"{kinds['gather_mean']:.3f} ms, GEMMs {kinds['gemm']:.3f} ms, "
-        f"the rest {kinds['other']:.3f} ms")
+        f"take_rows' masked fills {kinds['masked_fill']:.3f} ms, the rest "
+        f"{kinds['other']:.3f} ms")
     for t in top:
         log(f"  {t['ms']:8.3f} ms  x{t['calls']:<3d} {t['name']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": top,
@@ -431,6 +622,7 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
         raise AssertionError(f"{skipped} training steps skipped")
     prof = profile_device(lambda: est._train_step(next(it)),
                           "one training step", top_n=15)
+    index_rule = time_index_rule(est, model, it, prof["device_busy_ms"])
     eps = EDGES_PER_STEP * TIMED_STEPS / timed_s
     ms = statistics.median(step_ms)
     r = {"steps": steps, "gather_mean_launches": launches,
@@ -444,7 +636,8 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
          "host_enqueue_ms_median": statistics.median(host_ms),
          "device_busy_share": (prof["device_busy_ms"] * TIMED_STEPS
                                / (timed_s * 1e3)),
-         "profile": prof, "remat": check_remat(est, model, it, dev)}
+         "profile": prof, "index_rule": index_rule,
+         "remat": check_remat(est, model, it, dev)}
     log(f"train: {steps} steps of {BATCH} roots (Adam lr {TRAIN_LR}), "
         f"gather_mean launches {launches}, skipped {skipped}; "
         f"edges_per_sec_per_gpu {eps:.6g} ({EDGES_PER_STEP} edges/step, "
@@ -456,6 +649,24 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
         f"busy ms x steps / wall); loss first 5 {first5:.4f} -> last 5 "
         f"{last5:.4f}")
     return r
+
+
+def time_index_rule(est, model, it, step_busy_ms: float) -> dict:
+    """What jnp.take's fill rule costs a step: the hop-0 and hop-1
+    gathers through take_rows against plain indexing of the same rows
+    (CUDA events), beside the step's profiled device time."""
+    batch = {**next(it), **est.static_batch}
+    with torch.no_grad():
+        rows = model.sample_rows(batch)[:-1]
+    table = batch["feature_table"]
+    ms = time_ms(lambda: [take_rows(table, r) for r in rows])
+    plain = time_ms(lambda: [table[r.long()] for r in rows])
+    share = (ms - plain) / step_busy_ms
+    log(f"index rule: hop-0/1 gathers {ms:.4f} ms with take_rows vs "
+        f"{plain:.4f} ms plain indexing (+{ms - plain:.4f} ms a step, "
+        f"{share:.2%} of the profiled step's device time)")
+    return {"take_rows_ms": ms, "plain_index_ms": plain,
+            "added_ms": ms - plain, "step_share": share}
 
 
 def check_remat(est, model, it, dev) -> dict:
@@ -603,13 +814,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full record as JSON to this path")
+    ap.add_argument("--baseline-source", default=None,
+                    help="an earlier gather_mean.cu with the first kernel's "
+                         "C entry, timed against the current one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    record = {"device": phase_device(), "build": phase_build()}
+    record = {"device": phase_device()}
+    record["build"], baseline = phase_build(args.baseline_source)
     store, table, node_types, record["graph"] = phase_graph(dev)
     model = DeviceSampledGraphSage(
         NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
@@ -620,7 +835,7 @@ def main(argv=None) -> int:
              **inf.static_batch}
     with torch.inference_mode():
         deepest = model.sample_rows(probe)[-1].view(BATCH * FANOUTS[0], -1)
-    record["kernels"] = phase_kernels(store, deepest)
+    record["kernels"] = phase_kernels(store, deepest, dev, baseline)
     del deepest, probe
     record["slice"], ids, emb = phase_slice(inf, model)
     record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
@@ -628,7 +843,7 @@ def main(argv=None) -> int:
     record["quality"] = phase_quality()
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     record["serve"] = phase_serve(ids, emb, dev)
-    main_case = record["kernels"][0]
+    main_case = record["kernels"]["cases"][0]
     kernels = {"kernels": [{
         "name": "gather_mean", "route": "cuda",
         "source": "euler_tpu_torch/csrc/gather_mean.cu",
@@ -643,7 +858,7 @@ def main(argv=None) -> int:
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "cases": record["kernels"]}]}
+        "cases": record["kernels"]["cases"]}]}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

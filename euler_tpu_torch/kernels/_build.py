@@ -56,10 +56,13 @@ def library_path(name: str) -> Path:
 def build(name: str) -> dict:
     """Compile kernel `name` unless its library exists. Returns
     {"seconds": wall seconds (0.0 if already built), "log": nvcc's
-    output (the ptxas register/spill report)}."""
+    output (the ptxas register/spill report), kept beside the library
+    so a later call reads it too}."""
     out = library_path(name)
+    log = out.with_suffix(".log")
     if out.is_file():
-        return {"seconds": 0.0, "log": ""}
+        return {"seconds": 0.0,
+                "log": log.read_text() if log.is_file() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.monotonic()
@@ -70,6 +73,9 @@ def build(name: str) -> dict:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(proc.stdout)
+    os.replace(tmp_log, log)
     os.replace(tmp, out)  # atomic: a reader never sees a partial file
     return {"seconds": time.monotonic() - t0, "log": proc.stdout}
 

@@ -23,7 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from euler_tpu_torch.mp_utils.base import SuperviseModel
-from euler_tpu_torch.ops.gather_mean import gather_mean
+from euler_tpu_torch.ops.gather_mean import gather_mean, take_rows
 from euler_tpu_torch.parallel.device_sampler import (
     _ROADMAP_LAYOUTS, sample_fanout_rows,
 )
@@ -34,11 +34,12 @@ from euler_tpu_torch.utils.encoders import SageEncoder
 
 def gather_feature_rows(batch: Dict[str, Any],
                         rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """table[rows] for each hop's rows; with batch["feature_scale"] the
-    int8 rows are dequantized into the scale's dtype."""
+    """table[rows] for each hop's rows, with jnp.take's fill semantics
+    (ops.gather_mean.take_rows); with batch["feature_scale"] the int8
+    rows are dequantized into the scale's dtype."""
     table = batch["feature_table"]
     scale = batch.get("feature_scale")
-    out = [table[r.long()] for r in rows]
+    out = [take_rows(table, r) for r in rows]
     if scale is None:
         return out
     return [dequantize_rows(x, scale) for x in out]
