@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (euler_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out PATH] [--baseline-source PATH]
+                          [--extra-loop-k K ...]
 
 The GraphSAGE path at the width of bench.py's flagship configuration
 (bench.py:776-869): a products-like graph (2.45M nodes, average degree
@@ -30,15 +31,28 @@ Phases, in order; any failure raises and the exit code is not 0:
               one profiled step, launches == steps, a finite falling
               loss, no skipped step; one remat=True step against the
               plain step (same loss, gradients, 2 launches)
-  7. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
+  7. loop     the same training at steps_per_loop = 32 (bench.py's K,
+              bench.py:41-44), fed by bench.py's prefetch thread (depth
+              3): K + 2 warm-up steps (the first window eager, then the
+              capture of the 32-step CUDA graph, then a tail of 2), 3
+              timed windows of 64 steps (two replays each); edges/s,
+              host ms per step, ms per replay (events), busy share from
+              one profiled replay (32 gather_mean kernels in it), peak
+              memory, and launches: eager launches + launches recorded
+              per window x replays == steps. Then the graph against
+              eager steps at the same shapes: 3 windows of 32 from the
+              same weights and batches at K = 32 and at K = 1 give the
+              same losses, parameters and Adam moments, bit for bit
+  8. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
               on the cora stand-in for seeds 0, 1, 2: mean test
               micro-F1 at least 0.79 (the RESULTS.md row is 0.811)
-  8. small    a small input through the card and through the CPU path
-  9. serve    embed / score requests against direct indexing
- 10. result   the kernels JSON line, then {"ok": true, "device": ...}
+  9. small    a small input through the card and through the CPU path
+ 10. serve    embed / score requests against direct indexing
+ 11. result   the kernels JSON line, then {"ok": true, "device": ...}
 
 Without CUDA it exits 1 and prints no result. --out PATH also writes
 the full record (every case, timing and profile) as JSON.
+--extra-loop-k K also times phase 7's loop at steps_per_loop = K.
 --baseline-source PATH builds an earlier gather_mean.cu that has the
 first kernel's C entry (gather_mean_launch without plan arguments) and
 times it against the current kernel in phase 4, in turns (old, new,
@@ -65,6 +79,7 @@ import torch
 from euler_tpu_torch.dataset.synthetic import products_like, synthetic_citation
 from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
+from euler_tpu_torch.estimator.prefetch import make_feeder
 from euler_tpu_torch.examples import run_graphsage
 from euler_tpu_torch.kernels import _build
 from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
@@ -88,6 +103,9 @@ TIMED_SAMPLES, BURST = 20, 5
 TRAIN_LR, WARMUP_STEPS, TIMED_STEPS, WINDOWS, EVENT_STEPS = 0.01, 5, 30, 3, 10
 EDGES_PER_STEP = sum(BATCH * int(np.prod(FANOUTS[:h + 1]))
                      for h in range(len(FANOUTS)))
+# the K-step loop (bench.py:41-44, :622-657, :857-899): K = 32, the
+# prefetch thread's depth 3, K + 2 warm-up steps, 3 timed windows
+LOOP_K, FEEDER_DEPTH, LOOP_WINDOW_STEPS, LOOP_EQ_WINDOWS = 32, 3, 64, 3
 # quality: RESULTS.md graphsage-dev-int8 | cora | micro-F1 | 0.811
 QUALITY_SEEDS, QUALITY_FLOOR, QUALITY_ROW, QUALITY_BAND = (0, 1, 2), 0.79, \
     0.811, 0.01
@@ -556,28 +574,25 @@ def profile_device(fn, what: str, top_n: int = 10) -> dict:
     for t in top:
         log(f"  {t['ms']:8.3f} ms  x{t['calls']:<3d} {t['name']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": top,
-            "by_kind_ms": kinds}
+            "by_kind_ms": kinds,
+            "gather_mean_calls": sum(c for _, k, c in rows
+                                     if "gather_mean" in k)}
 
 
 def phase_train(store, table, node_types, dev: torch.device) -> dict:
     """Train the flagship model through NodeEstimator on the sweep's
     tables, as bench.py times it: warm-up, then 3 windows of steps on
     the host clock with a synchronize at the window edges only."""
-    model = DeviceSampledGraphSage(
-        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
-        uniform_sampling=table.uniform_rows,
-        generator=torch.Generator().manual_seed(0))
-    est = NodeEstimator(
-        model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
-                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
-                    train_node_type=-1, seed=0),
-        node_types, store, table, device=dev)
+    est = flagship_estimator(store, table, node_types, dev)
+    model = est.model
     it = est.train_input_fn()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     gather_mean.launches = 0
     losses = est.train(it, max_steps=WARMUP_STEPS)["losses"]
     per_window = TIMED_STEPS // WINDOWS
     window_s, window_rates = [], []
+    sums0 = _phase_sums(est)
     for _ in range(WINDOWS):
         done = est.step
         torch.cuda.synchronize()
@@ -589,6 +604,8 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
         window_rates.append((res["global_step"] - done) / dt)
         losses += res["losses"]
     timed_s = sum(window_s)
+    input_wait_ms, dispatch_ms = (
+        float(x) for x in np.subtract(_phase_sums(est), sums0))
     # device time per step: CUDA events around the step itself, batches
     # built beforehand; and the host's time to enqueue the step
     batches = [next(it) for _ in range(EVENT_STEPS)]
@@ -606,6 +623,7 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
         event_losses.append(loss)
         step_ms.append(start.elapsed_time(stop))
     losses += torch.stack(event_losses).cpu().tolist()
+    peak = torch.cuda.max_memory_allocated()
     launches = gather_mean.launches
     steps = est.step
     skipped = int(est.skipped_steps)
@@ -636,7 +654,9 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
          "host_enqueue_ms_median": statistics.median(host_ms),
          "device_busy_share": (prof["device_busy_ms"] * TIMED_STEPS
                                / (timed_s * 1e3)),
-         "profile": prof, "index_rule": index_rule,
+         "input_wait_ms": input_wait_ms, "dispatch_ms": dispatch_ms,
+         "peak_device_bytes": peak, "profile": prof,
+         "index_rule": index_rule,
          "remat": check_remat(est, model, it, dev)}
     log(f"train: {steps} steps of {BATCH} roots (Adam lr {TRAIN_LR}), "
         f"gather_mean launches {launches}, skipped {skipped}; "
@@ -646,7 +666,10 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
         + f" steps/s); step_ms median {ms:.3f} (events), host enqueue "
         f"{r['host_enqueue_ms_median']:.3f} ms/step; device busy "
         f"{r['device_busy_share']:.1%} of the timed windows (profiled "
-        f"busy ms x steps / wall); loss first 5 {first5:.4f} -> last 5 "
+        f"busy ms x steps / wall); timed windows: {input_wait_ms:.1f} ms "
+        f"building batches, {dispatch_ms:.1f} ms dispatching steps; "
+        f"peak device memory {peak / 2**30:.2f} GiB; loss first 5 "
+        f"{first5:.4f} -> last 5 "
         f"{last5:.4f}")
     return r
 
@@ -707,6 +730,188 @@ def check_remat(est, model, it, dev) -> dict:
     return {"loss_diff": loss_diff, "max_grad_err": err,
             "grad_tol": 1e-5 * big, "launches": nr, "plain_launches": np_,
             "peak_bytes": mr, "plain_peak_bytes": mp}
+
+
+def flagship_estimator(store, table, node_types, dev, **cfg):
+    """The flagship model (random weights from seed 0) in a NodeEstimator
+    over the path's tables, with bench.py's training parameters."""
+    model = DeviceSampledGraphSage(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
+        uniform_sampling=table.uniform_rows,
+        generator=torch.Generator().manual_seed(0))
+    return NodeEstimator(
+        model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
+                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
+                    train_node_type=-1, seed=0, **cfg),
+        node_types, store, table, device=dev)
+
+
+def phase_loop(store, table, node_types, dev, k: int = LOOP_K) -> dict:
+    """NodeEstimator.train at steps_per_loop = k (32) as bench.py drives it:
+    the prefetch thread (depth 3) builds each batch and copies its roots
+    to the card; K + 2 warm-up steps; 3 timed windows on the host clock
+    with a synchronize at the window edges only."""
+    est = flagship_estimator(store, table, node_types, dev,
+                             steps_per_loop=k)
+    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH)
+    try:
+        return _drive_loop(est, it, k)
+    finally:
+        it.close()
+
+
+def _phase_sums(est) -> tuple:
+    """Host ms summed so far in the estimator's input_wait and
+    device_step phases (obs histograms)."""
+    return (est._hist_input_wait.value["sum"],
+            est._hist_device_step.value["sum"])
+
+
+def _drive_loop(est, it, k: int) -> dict:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gather_mean.launches = 0
+    warm = k + 2
+    t0 = time.monotonic()
+    losses = est.train(iter([next(it) for _ in range(warm)]),
+                       max_steps=warm)["losses"]
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    window_s, window_rates = [], []
+    sums0 = _phase_sums(est)
+    for _ in range(WINDOWS):
+        done = est.step
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = est.train(it, max_steps=done + LOOP_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        window_s.append(dt)
+        window_rates.append((res["global_step"] - done) / dt)
+        losses += res["losses"]
+    input_wait_ms, dispatch_ms = (
+        float(x) for x in np.subtract(_phase_sums(est), sums0))
+    launches = gather_mean.launches
+    loop = est._graphed
+    steps, replays = est.step, loop.replays
+    per_replay = loop.launches_per_replay
+    eager = launches - loop.captures * per_replay
+    device_launches = eager + replays * per_replay
+    peak = torch.cuda.max_memory_allocated()
+    skipped = int(est.skipped_steps)
+    if per_replay != k or device_launches != steps or eager <= 0:
+        raise AssertionError(
+            f"gather_mean: {launches} host launches, {per_replay} recorded "
+            f"per {k}-step window, {loop.captures} captures, "
+            f"{replays} replays: {device_launches} launches on the "
+            f"card for {steps} steps")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5 or skipped != 0:
+        raise AssertionError(f"loss first 5 {first5} -> last 5 {last5}, "
+                             f"{skipped} skipped steps")
+    # one replay at a time: CUDA events around it, the host's time to
+    # enqueue it (copies of the window's roots, re-seeding, replay,
+    # clones), batches prebuilt
+    replay_ms, host_ms = [], []
+    for _ in range(WINDOWS):
+        window = [next(it) for _ in range(k)]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        loop.run(est, window)
+        stop.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        stop.synchronize()
+        replay_ms.append(start.elapsed_time(stop))
+    windows = [[next(it) for _ in range(k)] for _ in range(2)]
+    prof = profile_device(lambda: loop.run(est, windows.pop()),
+                          f"one replay of the {k}-step graph", top_n=15)
+    if prof["device_busy_ms"] > 0 and prof["gather_mean_calls"] != k:
+        raise AssertionError(f"{prof['gather_mean_calls']} gather_mean "
+                             f"kernels in one {k}-step replay")
+    timed_steps = WINDOWS * LOOP_WINDOW_STEPS
+    timed_s = sum(window_s)
+    eps = EDGES_PER_STEP * timed_steps / timed_s
+    busy_step_ms = prof["device_busy_ms"] / k
+    r = {"steps_per_loop": k, "feeder_depth": FEEDER_DEPTH,
+         "steps": steps, "warmup_steps": warm, "warmup_seconds": warm_s,
+         "gather_mean_host_launches": launches,
+         "gather_mean_launches_per_replay": per_replay,
+         "captures": loop.captures, "replays": replays,
+         "gather_mean_device_launches": device_launches,
+         "skipped_steps": skipped, "losses": losses,
+         "loss_first5_mean": first5, "loss_last5_mean": last5,
+         "window_seconds": window_s, "window_steps_per_s": window_rates,
+         "steps_per_s": timed_steps / timed_s,
+         "edges_per_sec_per_gpu": eps,
+         "replay_ms": replay_ms, "replay_ms_median": statistics.median(
+             replay_ms),
+         "host_ms_per_replay": host_ms,
+         "host_ms_per_step": statistics.median(host_ms) / k,
+         "device_busy_ms_per_step": busy_step_ms,
+         "device_busy_share": busy_step_ms * timed_steps / (timed_s * 1e3),
+         "replay_busy_share": prof["device_busy_ms"] / prof["wall_ms"],
+         "input_wait_ms": input_wait_ms, "dispatch_ms": dispatch_ms,
+         "device_edges_per_s": EDGES_PER_STEP * k / (
+             statistics.median(replay_ms) / 1e3),
+         "peak_device_bytes": peak, "profile": prof}
+    log(f"loop: {steps} steps at steps_per_loop {k} ({loop.captures} "
+        f"capture, {replays} replays), gather_mean {launches} host "
+        f"launches, {per_replay} per replayed window, {device_launches} on "
+        f"the card == steps; edges_per_sec_per_gpu {eps:.6g} "
+        f"({r['steps_per_s']:.3f} steps/s; windows "
+        + ", ".join(f"{x:.3f}" for x in window_rates)
+        + f" steps/s); replay {r['replay_ms_median']:.3f} ms (events) = "
+        f"{r['replay_ms_median'] / k:.3f} ms/step; host "
+        f"{r['host_ms_per_step']:.4f} ms/step to enqueue; device busy "
+        f"{r['device_busy_share']:.1%} of the timed windows, "
+        f"{r['replay_busy_share']:.1%} of the profiled replay; "
+        f"{prof['gather_mean_calls']} gather_mean kernels in it; timed "
+        f"windows: {input_wait_ms:.1f} ms waiting for batches, "
+        f"{dispatch_ms:.1f} ms dispatching; peak "
+        f"device memory {peak / 2**30:.2f} GiB; loss first 5 {first5:.4f} "
+        f"-> last 5 {last5:.4f}")
+    return r
+
+
+def check_graph_vs_eager(store, table, node_types, dev) -> dict:
+    """LOOP_EQ_WINDOWS windows of 32 steps at K = 32 (the first eager on
+    the capture stream, the rest graph replays) and at K = 1, from the
+    same weights on the same batches: losses, parameters and Adam's
+    moments and steps equal bit for bit."""
+    steps = LOOP_EQ_WINDOWS * LOOP_K
+    feed = flagship_estimator(store, table, node_types, dev).train_input_fn()
+    batches = [next(feed) for _ in range(steps)]
+    runs = []
+    for k in (LOOP_K, 1):
+        est = flagship_estimator(store, table, node_types, dev,
+                                 steps_per_loop=k)
+        res = est.train(iter(batches), max_steps=steps)
+        runs.append((est, res["losses"]))
+    (eg, lg), (ee, le) = runs
+    diffs = {"losses": float(np.max(np.abs(np.subtract(lg, le))))}
+    for name, p in ee.model.state_dict().items():
+        diffs[name] = max_abs_err(eg.model.state_dict()[name], p)
+    sg, se = (e.optimizer.state_dict()["state"] for e in (eg, ee))
+    for i in se:
+        for n in se[i]:
+            diffs[f"adam[{i}].{n}"] = max_abs_err(sg[i][n], se[i][n])
+    worst = max(diffs.values())
+    replays = eg._graphed.replays
+    log(f"graph vs eager: {steps} steps at K = {LOOP_K} ({replays} replays) "
+        f"and K = 1 from the same weights and batches: largest difference "
+        f"{worst:.3g} over losses, {len(ee.model.state_dict())} parameters "
+        f"and {sum(len(v) for v in se.values())} Adam state tensors "
+        f"(bit for bit: {worst == 0.0})")
+    if not (worst == 0.0 and replays == LOOP_EQ_WINDOWS - 1):
+        raise AssertionError(f"graph replay differs from the eager steps: "
+                             f"{diffs}")
+    return {"steps": steps, "replays": replays, "max_abs_diff": worst,
+            "diffs": diffs}
 
 
 def phase_quality() -> dict:
@@ -814,6 +1019,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full record as JSON to this path")
+    ap.add_argument("--extra-loop-k", type=int, action="append", default=[],
+                    help="also time the loop phase at this steps_per_loop "
+                         "(repeatable); phase 7 always runs K = 32")
     ap.add_argument("--baseline-source", default=None,
                     help="an earlier gather_mean.cu with the first kernel's "
                          "C entry, timed against the current one")
@@ -840,6 +1048,11 @@ def main(argv=None) -> int:
     record["slice"], ids, emb = phase_slice(inf, model)
     record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     record["train"] = phase_train(store, table, node_types, dev)
+    record["loop"] = phase_loop(store, table, node_types, dev)
+    record["loop"]["graph_vs_eager"] = check_graph_vs_eager(
+        store, table, node_types, dev)
+    record["loop_extra"] = [phase_loop(store, table, node_types, dev, k)
+                            for k in args.extra_loop_k]
     record["quality"] = phase_quality()
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     record["serve"] = phase_serve(ids, emb, dev)
@@ -852,6 +1065,12 @@ def main(argv=None) -> int:
                              "_pallas_gather_mean",
         "launches": record["slice"]["gather_mean_launches"],
         "train_launches": record["train"]["gather_mean_launches"],
+        "loop_host_launches": record["loop"]["gather_mean_host_launches"],
+        "loop_launches_per_replay":
+            record["loop"]["gather_mean_launches_per_replay"],
+        "loop_replays": record["loop"]["replays"],
+        "loop_device_launches":
+            record["loop"]["gather_mean_device_launches"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

@@ -1,7 +1,9 @@
-"""The training loop: train / evaluate / train_and_evaluate and checkpoints
-(counterpart of euler_tpu/estimator/base_estimator.py:108-127 config,
-:238-300 the step and its nonfinite guard, :343-408 checkpoints,
-:582-692 train, :809-843 evaluate, :932-1015 train_and_evaluate).
+"""The training loop: train / evaluate / train_and_evaluate, checkpoints,
+the input path and its health counters (counterpart of
+euler_tpu/estimator/base_estimator.py:108-235 config and obs wiring,
+:238-333 the step, its nonfinite guard and the K-step loop, :343-408
+checkpoints, :410-579 the resilient input path and the feeder,
+:582-807 train, :809-843 evaluate, :932-1015 train_and_evaluate).
 
 The reference jits one functional step over a flax TrainState; here the
 state is the model's parameters, the optimizer's state, the global step
@@ -18,15 +20,32 @@ optimizer as `found_inf` (utils/optimizers.py), so no step waits for
 the host. The host reads the losses once, when `train` returns, and
 every `log_steps` steps when it prints.
 
+steps_per_loop = K > 1 is the reference's K-step lax.scan: every full
+window of K batches runs as one replay of a CUDA graph of K steps
+(estimator/graphed_loop.py); a tail shorter than K runs single steps.
+On the CPU, which only a caller asks for, a window is K eager steps:
+the same steps, with no graph.
+
+The input path is the reference's: a transient failure (ConnectionError,
+TimeoutError, any OSError) is retried with exponential backoff capped at
+2 s (input_retries, input_backoff_s), then up to skip_batch_budget
+batches are abandoned, then an emergency checkpoint is written and the
+error re-raises. feeder_workers > 1 moves batches to the card in feeder
+threads (estimator/prefetch.py). The counters live on the obs registry
+(euler_tpu_torch.obs) with the reference's names and labels;
+`input_health` and `health()` are views over them. profiling=True with
+a model_dir traces each train call with torch.profiler into
+model_dir/prof/.
+
 Entry points run on CUDA unless the caller asks for the CPU
 (`device="cpu"`). Options the reference has and the port does not yet
-(steps_per_loop > 1, the multi-worker feeder, input retries, the obs
-counters, the partitioned table tier, id bucketization, the profiling
-hook) raise NotImplementedError naming their ROADMAP item.
+(the partitioned table tier, id bucketization) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import re
 import time
@@ -35,31 +54,29 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from euler_tpu_torch import obs as _obs
+from euler_tpu_torch.estimator.graphed_loop import GraphedLoop
 from euler_tpu_torch.estimator.infer import eval_mode
+from euler_tpu_torch.estimator.prefetch import ParallelPrefetcher
+from euler_tpu_torch.estimator.retry import retryable_error
 from euler_tpu_torch.platform import (
-    DeviceLike, host_to_device, resolve_device, seeded_generator,
+    DeviceLike, host_to_device, resolve_device, seed_words,
 )
 from euler_tpu_torch.utils import optimizers as opt_lib
 
-_ROADMAP_LOOP = "ROADMAP.md Queue A, 'Training: steps_per_loop'"
-_ROADMAP_INPUT = "ROADMAP.md Queue A, 'Training: input pipeline and obs'"
 _ROADMAP_MULTI = "ROADMAP.md Queue A, 'Multi-GPU'"
 _ROADMAP_ENGINE = "ROADMAP.md Queue A, 'Engine binding'"
 
 # reference option → (the values that mean what the port does, its
 # ROADMAP item); any other value raises
 _UNPORTED = {
-    "steps_per_loop": ((1,), _ROADMAP_LOOP),
-    "feeder_workers": ((0, 1), _ROADMAP_INPUT),
-    "feeder_depth": ((0,), _ROADMAP_INPUT),
-    "input_retries": ((0,), _ROADMAP_INPUT),
-    "input_backoff_s": ((0,), _ROADMAP_INPUT),
-    "skip_batch_budget": ((0,), _ROADMAP_INPUT),
-    "profiling": ((False,), _ROADMAP_INPUT),
     "table_partition": ((0, 1), _ROADMAP_MULTI),
     "hub_cache_frac": ((0,), _ROADMAP_MULTI),
     "max_id": ((0,), _ROADMAP_ENGINE),
 }
+# per-process estimator numbering: the label value distinguishing N
+# estimators' children on the shared estimator_* metrics
+_EST_IDS = itertools.count()
 KEEP_CHECKPOINTS = 3
 _DROPOUT_WORD = 0xD0
 
@@ -87,6 +104,10 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     return {k: conv(v) for k, v in batch.items()}
 
 
+def _nanmean(t: torch.Tensor) -> torch.Tensor:
+    return torch.nanmean(t.float())
+
+
 def _last_finite(vals: np.ndarray) -> float:
     """Most recent finite value (NaN when none): a guard-skipped step's
     NaN loss is not the run's loss."""
@@ -100,9 +121,12 @@ class BaseEstimator:
     params (the reference's keys): optimizer ('adam'), learning_rate
     (0.01), weight_decay (0), seed (0: dropout draws from (seed+1,
     step)), log_steps (20), checkpoint_steps (1000; 0 = none),
-    nonfinite_guard (True). Checkpoints go to model_dir/checkpoints.
-    The model's parameters are initialised by its constructor (from its
-    generator), where the reference inits them from key(seed)."""
+    nonfinite_guard (True), steps_per_loop (1), input_retries (3),
+    input_backoff_s (0.1), skip_batch_budget (0), feeder_workers (0),
+    feeder_depth (0 = twice the workers), profiling (False).
+    Checkpoints go to model_dir/checkpoints. The model's parameters are
+    initialised by its constructor (from its generator), where the
+    reference inits them from key(seed)."""
 
     def __init__(self, model: torch.nn.Module, params: Dict[str, Any],
                  model_dir: Optional[str] = None, device: DeviceLike = None):
@@ -120,6 +144,22 @@ class BaseEstimator:
         self.log_steps = int(cfg.get("log_steps", 20))
         self.ckpt_steps = int(cfg.get("checkpoint_steps", 1000))
         self.nonfinite_guard = bool(cfg.get("nonfinite_guard", True))
+        # > 1: full windows of K batches run as one CUDA graph replay
+        self.steps_per_loop = int(cfg.get("steps_per_loop", 1))
+        self.profiling = bool(cfg.get("profiling", False))
+        # resilient input path: transient failures are retried with
+        # backoff; past the retries up to skip_batch_budget batches may
+        # be abandoned (counted); then an emergency checkpoint is
+        # written and the error re-raises
+        self.input_retries = int(cfg.get("input_retries", 3))
+        self.input_backoff_s = float(cfg.get("input_backoff_s", 0.1))
+        self._skip_budget = int(cfg.get("skip_batch_budget", 0))
+        # feeder_workers > 1 wraps train()'s input in a
+        # ParallelPrefetcher whose threads also move batches to the card
+        self.feeder_workers = int(cfg.get("feeder_workers", 0))
+        self.feeder_depth = int(cfg.get("feeder_depth", 0)) or None
+        self._live_feeder = None
+        self._input_factory = None
         self.step = 0
         self.skipped_steps = torch.zeros((), dtype=torch.int32,
                                          device=self.device)
@@ -127,20 +167,72 @@ class BaseEstimator:
         # device tensors merged into every batch (the tables)
         self.static_batch: Dict[str, Any] = {}
         self._restore_pending = True
+        self._graphed = None  # graphed_loop.GraphedLoop, at the first window
+        self._init_obs()
+
+    def _init_obs(self) -> None:
+        """The input-path counters, phase histograms and gauges on the obs
+        registry, children labelled by this estimator (the reference's
+        names); input_health and health() are views over them."""
+        self._obs_name = f"estimator{next(_EST_IDS)}"
+        reg = _obs.default_registry()
+        lab = {"estimator": self._obs_name}
+
+        def child(kind, name, help_):
+            return getattr(reg, kind)(name, help_, ("estimator",)).labels(
+                **lab)
+
+        self._ctr_input_failures = child(
+            "counter", "estimator_input_failures_total",
+            "input batches that raised")
+        self._ctr_input_retries = child(
+            "counter", "estimator_input_retries_total",
+            "input-pipeline retry sleeps")
+        self._ctr_skipped_batches = child(
+            "counter", "estimator_skipped_batches_total",
+            "input batches abandoned under skip_batch_budget")
+        self._hist_input_wait = child(
+            "histogram", "estimator_input_wait_ms",
+            "per-step host wait for the next batch (sampling + RPC + "
+            "host→device conversion)")
+        self._hist_device_step = child(
+            "histogram", "estimator_device_step_ms",
+            "per-step train-step dispatch")
+        self._hist_hook = child(
+            "histogram", "estimator_hook_ms",
+            "per-step logging/checkpoint hooks")
+        self._g_steps_per_sec = child(
+            "gauge", "estimator_steps_per_sec", "train-loop throughput")
+        self._g_skipped_steps = child(
+            "gauge", "estimator_skipped_steps",
+            "nonfinite-guard skipped device steps")
+        self._g_global_step = child(
+            "gauge", "estimator_global_step", "last reported global step")
+        # one-shot markers stay on the instance; input_health merges them
+        self._input_meta: Dict[str, Any] = {
+            "emergency_checkpoint_step": None, "last_input_error": None}
+        _obs.register_health(self._obs_name, self.health)
 
     # -- the step ----------------------------------------------------------
-    def _dropout_generator(self, step: int) -> torch.Generator:
+    @property
+    def uses_dropout(self) -> bool:
+        return getattr(self.model, "dropout", 0.0) > 0.0
+
+    def dropout_seed(self, step: int) -> int:
         # the last word keeps this stream apart from the sampling stream
         # (17, sample_seed) when seed + 1 == 17
-        return seeded_generator(self.device, self.seed + 1, step,
-                                _DROPOUT_WORD)
+        return seed_words(self.seed + 1, step, _DROPOUT_WORD)
 
-    def _train_step(self, batch: Dict[str, Any]):
-        """One update from one batch (already on the device). Returns the
-        (loss, metric) device scalars; nothing here waits for the card."""
-        batch = {**batch, **self.static_batch}
-        if getattr(self.model, "dropout", 0.0) > 0.0:
-            batch["dropout_generator"] = self._dropout_generator(self.step)
+    def _dropout_generator(self, step: int) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self.dropout_seed(step))
+        return g
+
+    def _update(self, batch: Dict[str, Any]):
+        """Forward, backward, the guard and the optimizer step on a batch
+        merged with the tables (and, with dropout, its generator). Returns
+        the (loss, metric) device scalars. Nothing here waits for the card
+        or reads the host's step, so a CUDA graph can capture it."""
         out = self.model(batch)
         self.optimizer.zero_grad(set_to_none=True)
         out.loss.backward()
@@ -158,8 +250,29 @@ class BaseEstimator:
             self.skipped_steps += found_inf.to(torch.int32)
         else:
             self.optimizer.step()
-        self.step += 1
         return loss, out.metric.detach()
+
+    def _train_step(self, batch: Dict[str, Any]):
+        """One update from one batch (already on the device). Returns the
+        (loss, metric) device scalars; nothing here waits for the card."""
+        batch = {**batch, **self.static_batch}
+        if self.uses_dropout:
+            batch["dropout_generator"] = self._dropout_generator(self.step)
+        loss, metric = self._update(batch)
+        self.step += 1
+        return loss, metric
+
+    def _train_window(self, batches: List[Dict[str, Any]]):
+        """K steps on K batches: one replay of the K-step CUDA graph on
+        the card, K eager steps on the CPU. Returns (losses [K], metrics
+        [K])."""
+        if self.device.type == "cuda":
+            if self._graphed is None:
+                self._graphed = GraphedLoop(self.device, self.steps_per_loop)
+            return self._graphed.run(self, batches)
+        outs = [self._train_step(b) for b in batches]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
 
     def _maybe_restore(self) -> None:
         # the reference restores when it first builds its state
@@ -203,7 +316,8 @@ class BaseEstimator:
 
     def restore_checkpoint(self) -> Optional[int]:
         """Load the latest checkpoint and resume at its step; None when
-        there is none."""
+        there is none. The optimizer's state tensors are replaced, so a
+        captured K-step graph is dropped and captured again."""
         found = self._checkpoints()
         if not found:
             return None
@@ -211,63 +325,345 @@ class BaseEstimator:
                              weights_only=True)
         self.model.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])
+        if self._graphed is not None:
+            self._graphed.invalidate()
         self.step = int(payload["step"])
         self.skipped_steps.fill_(int(payload["skipped_steps"]))
         self._restore_pending = False
         return self.step
 
+    # -- resilient input path ----------------------------------------------
+    @property
+    def input_health(self) -> Dict[str, Any]:
+        """Input-path counters: a view over this estimator's obs registry
+        children plus the last-error and emergency-checkpoint markers."""
+        return {
+            "input_failures": int(self._ctr_input_failures.value),
+            "input_retries": int(self._ctr_input_retries.value),
+            "skipped_batches": int(self._ctr_skipped_batches.value),
+            **self._input_meta,
+        }
+
+    def health(self) -> Dict[str, Any]:
+        """input_health plus the nonfinite guard's skip count. That count
+        comes from the obs gauge, which the train thread refreshes at
+        every log and when train() returns: health() may run on another
+        thread (/healthz) and must not wait for the card. (The
+        reference also merges its graph client's and partitioned
+        store's health; the port has neither yet: ROADMAP.md Queue A,
+        'Engine binding' and 'Multi-GPU'.)"""
+        out = dict(self.input_health)
+        out["skipped_steps"] = int(self._g_skipped_steps.value)
+        return out
+
+    def _phase(self, name: str, hist):
+        """Span + histogram for one train-loop phase (input_wait /
+        device_step / hook); exceptions, StopIteration included, pass
+        through."""
+        return _obs.timed_span(name, hist, estimator=self._obs_name)
+
+    def _emergency_checkpoint(self, err: BaseException) -> None:
+        """Best-effort checkpoint before an unrecoverable input error
+        re-raises: the run dies, the progress doesn't. Never masks the
+        original error."""
+        step = self.step
+        try:
+            self.save_checkpoint(step)
+            if self.model_dir:
+                self._input_meta["emergency_checkpoint_step"] = step
+                print(f"emergency checkpoint at step {step} before "
+                      f"re-raising input error: {err}", flush=True)
+        except Exception as ce:  # disk full etc.
+            print(f"emergency checkpoint failed ({ce}); "
+                  f"re-raising original input error", flush=True)
+
+    # -- multi-worker feeder -----------------------------------------------
+    def _train_batch_factory(self):
+        """Thread-safe zero-arg one-batch callable for the multi-worker
+        feeder, or None when the input stream must stay serialized
+        (subclass hook — see NodeEstimator)."""
+        return None
+
+    def _wrap_feeder(self, input_fn, use_factory: bool = True):
+        """ParallelPrefetcher over the train input, its workers moving
+        each batch to the card: the subclass batch factory when one
+        exists AND the caller passed the estimator's own train_input_fn;
+        a custom input_fn's stream is never substituted — it wraps with
+        serialized next() so its schedule is kept."""
+        src = self._train_batch_factory() if use_factory else None
+        if src is None:
+            src = input_fn() if callable(input_fn) else input_fn
+        f = ParallelPrefetcher(
+            src, workers=self.feeder_workers, depth=self.feeder_depth,
+            transform=lambda b: _to_device(b, self.device),
+            name=f"{self._obs_name}_train")
+        self._live_feeder = f
+        return f
+
+    def _close_live_feeder(self) -> None:
+        f, self._live_feeder = self._live_feeder, None
+        if f is not None:
+            f.close()
+
+    def _next_input(self, it):
+        """next(it) with transient-failure retry (exponential backoff)
+        and the skip-batch budget. Returns (raw_batch, it): the iterator
+        may have been recreated from the train input_fn after a failure
+        (a generator that raised is dead). StopIteration passes through;
+        an unrecoverable error checkpoints, then re-raises.
+
+        Retry and skip assume input_fn() gives a stateless (infinite
+        random-sampler) stream, as every built-in input_fn does, since
+        recreation restarts the stream. Without a factory (a plain
+        iterator) every failure is unrecoverable, unless the iterator is
+        a resilient feeder, which survives its own errors."""
+        attempts = 0
+        while True:
+            try:
+                return next(it), it
+            except StopIteration:
+                raise
+            except Exception as e:
+                transient = ((self._input_factory is not None
+                              or getattr(it, "resilient", False))
+                             and (retryable_error(e)
+                                  or isinstance(e, OSError)))
+                self._ctr_input_failures.inc()
+                self._input_meta["last_input_error"] = str(e)
+                if not transient:
+                    self._emergency_checkpoint(e)
+                    raise
+                if attempts < self.input_retries:
+                    attempts += 1
+                    self._ctr_input_retries.inc()
+                    with _obs.span("input_retry_backoff",
+                                   estimator=self._obs_name,
+                                   attempt=attempts):
+                        time.sleep(min(
+                            self.input_backoff_s * (2 ** (attempts - 1)),
+                            2.0))
+                elif self._skip_budget > 0:
+                    # retries exhausted for this batch: abandon it and
+                    # move on (a counted degraded event, not a job kill)
+                    self._skip_budget -= 1
+                    self._ctr_skipped_batches.inc()
+                    attempts = 0
+                else:
+                    self._emergency_checkpoint(e)
+                    raise
+                if self._input_factory is not None and not getattr(
+                        it, "resilient", False):
+                    # the raised iterator is dead: close it (a feeder
+                    # holds threads) and recreate it. A resilient
+                    # feeder delivers the error in-stream and goes on.
+                    closer = getattr(it, "close", None)
+                    if callable(closer):
+                        try:
+                            closer()
+                        except Exception:
+                            pass
+                    it = self._input_factory()
+
+    def _next_batch(self, it):
+        """The next batch on the device, timed as input_wait."""
+        with self._phase("input_wait", self._hist_input_wait):
+            raw, it = self._next_input(it)
+            return _to_device(raw, self.device), it
+
     # -- entry points ------------------------------------------------------
     def train(self, input_fn: Callable[[], Iterator[Dict]],
               max_steps: int = 1000) -> Dict[str, Any]:
         """Steps until the global step reaches max_steps or the input
-        ends. input_fn: a callable giving an iterator, or the iterator
-        itself (then train takes only the batches it steps on, so one
-        iterator can feed several calls). The returned dict also holds
-        `losses`, this call's per-step losses."""
-        it = input_fn() if callable(input_fn) else input_fn
-        batch = _to_device(next(it), self.device)
+        ends. input_fn: a callable giving an iterator (recreated after an
+        input failure), or the iterator itself (then train takes only the
+        batches it steps on, so one iterator can feed several calls). The
+        returned dict also holds `losses`, this call's per-step losses,
+        and `skipped_batches`, the batches the input path abandoned."""
+        own_feeder = self.feeder_workers > 1 and callable(input_fn)
+        if own_feeder:
+            # the feeder owns threads: train() reclaims it on every exit
+            # path, and recreation after a failure rebuilds it
+            use_factory = input_fn == getattr(self, "train_input_fn", None)
+            it = self._wrap_feeder(input_fn, use_factory)
+            self._input_factory = lambda: self._wrap_feeder(input_fn,
+                                                            use_factory)
+        else:
+            it = input_fn() if callable(input_fn) else input_fn
+            self._input_factory = input_fn if callable(input_fn) else None
+        try:
+            return self._train_impl(it, max_steps)
+        finally:
+            # the factory may hold this estimator (a bound train_input_fn):
+            # drop it so the estimator, and its graph's memory, is freed
+            # by reference counting
+            self._input_factory = None
+            if own_feeder:
+                self._close_live_feeder()
+
+    def _train_impl(self, it, max_steps: int) -> Dict[str, Any]:
+        batch, it = self._next_batch(it)
         self._maybe_restore()
         self.model.train()
-        step = start_step = self.step
-        losses: List[torch.Tensor] = []
-        metrics: List[torch.Tensor] = []
-        t0 = last_log = time.monotonic()
-        while step < max_steps:
-            loss, metric = self._train_step(batch)
-            step = self.step
-            losses.append(loss)
-            metrics.append(metric)
-            if step % self.log_steps == 0:
-                window = torch.stack(losses[-self.log_steps:]).cpu().numpy()
-                mwin = torch.stack(metrics[-self.log_steps:]).cpu().numpy()
-                now = time.monotonic()
-                rate = self.log_steps / max(now - last_log, 1e-9)
-                last_log = now
-                print(f"step {step}: loss={np.nanmean(window):.4f} "
-                      f"metric={np.nanmean(mwin):.4f} ({rate:.1f} steps/s)",
-                      flush=True)
-            if self.ckpt_steps and step % self.ckpt_steps == 0:
-                self.save_checkpoint(step)
-            if step < max_steps:
-                try:
-                    batch = _to_device(next(it), self.device)
-                except StopIteration:
-                    break
+        start_step = self.step
+        prof = self._start_profiler()
+        t0 = time.monotonic()
+        try:
+            if self.steps_per_loop > 1:
+                entries = self._run_looped(it, batch, max_steps)
+            else:
+                entries = self._run_single(it, batch, max_steps)
+        finally:
+            self._stop_profiler(prof, start_step)
+        step = self.step
         if self.ckpt_steps:
             self.save_checkpoint(step)
-        host_losses = (torch.stack(losses).cpu().numpy() if losses
-                       else np.zeros(0, np.float32))
-        host_metrics = (torch.stack(metrics).cpu().numpy() if metrics
-                        else np.zeros(0, np.float32))
+        # (loss, metric, weight): a step has weight 1, a K-step window
+        # its nan-means and weight K, as the reference weights its
+        # windows; NaN entries (guard-skipped steps) drop out
+        losses = (torch.cat([e[0] for e in entries]).cpu().numpy()
+                  if entries else np.zeros(0, np.float32))
+        metrics = (torch.stack([_nanmean(e[1]) for e in entries])
+                   .cpu().double().numpy() if entries else np.zeros(0))
+        w = np.asarray([e[1].numel() for e in entries], np.float64)
+        keep = np.isfinite(metrics)
+        if not entries:
+            metric = 0.0
+        elif keep.any():
+            metric = float(np.dot(metrics[keep], w[keep] / w[keep].sum()))
+        else:
+            metric = float("nan")
         rate = (step - start_step) / max(time.monotonic() - t0, 1e-9)
+        skipped = int(self.skipped_steps)
+        self._g_steps_per_sec.set(rate)
+        self._g_skipped_steps.set(skipped)
+        self._g_global_step.set(step)
         return {
-            "loss": _last_finite(host_losses),
-            "metric": float(np.nanmean(host_metrics)) if metrics else 0.0,
+            "loss": _last_finite(losses),
+            "metric": metric,
             "steps_per_sec": rate,
             "global_step": step,
-            "skipped_steps": int(self.skipped_steps),
-            "losses": host_losses.tolist(),
+            "skipped_steps": skipped,
+            "skipped_batches": self.input_health["skipped_batches"],
+            "losses": losses.tolist(),
         }
+
+    def _run_single(self, it, batch, max_steps: int) -> List[tuple]:
+        """One step per batch; logs when the step is a multiple of
+        log_steps, checkpoints at multiples of checkpoint_steps."""
+        step = self.step
+        entries: List[tuple] = []
+        last_log = time.monotonic()
+        while step < max_steps:
+            with _obs.span("train_step", estimator=self._obs_name,
+                           step=step):
+                with self._phase("device_step", self._hist_device_step):
+                    loss, metric = self._train_step(batch)
+                step = self.step
+                entries.append((loss.reshape(1), metric.reshape(1)))
+                do_log = step % self.log_steps == 0
+                do_ckpt = self.ckpt_steps and step % self.ckpt_steps == 0
+                if do_log or do_ckpt:
+                    with self._phase("hook", self._hist_hook):
+                        if do_log:
+                            window = entries[-self.log_steps:]
+                            last_log = self._log(
+                                step, torch.cat([e[0] for e in window]),
+                                torch.cat([e[1] for e in window]),
+                                self.log_steps, last_log)
+                        if do_ckpt:
+                            self.save_checkpoint(step)
+                if step < max_steps:
+                    try:
+                        batch, it = self._next_batch(it)
+                    except StopIteration:
+                        break
+        return entries
+
+    def _run_looped(self, it, first, max_steps: int) -> List[tuple]:
+        """steps_per_loop > 1: each full window of K batches runs as one
+        _train_window; a tail shorter than K runs single steps. Logs when
+        log_steps steps have passed since the last log, checkpoints when
+        a window crosses a multiple of checkpoint_steps."""
+        K = self.steps_per_loop
+        step = logged_at = self.step
+        entries: List[tuple] = []
+        last_log = time.monotonic()
+        buf = [first]
+        exhausted = False
+        while step < max_steps:
+            want = min(K, max_steps - step)
+            if len(buf) < want and not exhausted:
+                with self._phase("input_wait", self._hist_input_wait):
+                    while len(buf) < want and not exhausted:
+                        try:
+                            raw, it = self._next_input(it)
+                            buf.append(_to_device(raw, self.device))
+                        except StopIteration:
+                            exhausted = True
+            if not buf:
+                break
+            if len(buf) == K:
+                with self._phase("device_step", self._hist_device_step):
+                    entries.append(self._train_window(buf))
+            else:
+                for b in buf:
+                    with self._phase("device_step", self._hist_device_step):
+                        loss, metric = self._train_step(b)
+                    entries.append((loss.reshape(1), metric.reshape(1)))
+            prev, step, buf = step, self.step, []
+            do_log = step - logged_at >= self.log_steps
+            do_ckpt = self.ckpt_steps and \
+                step // self.ckpt_steps > prev // self.ckpt_steps
+            if do_log or do_ckpt:
+                with self._phase("hook", self._hist_hook):
+                    if do_log:
+                        last_log = self._log(step, *entries[-1],
+                                             step - logged_at, last_log)
+                        logged_at = step
+                    if do_ckpt:
+                        self.save_checkpoint(step)
+            if exhausted:
+                break
+        return entries
+
+    def _log(self, step: int, losses: torch.Tensor, metrics: torch.Tensor,
+             steps: int, last_log: float) -> float:
+        """Print the nan-means of the window's losses and metrics and the
+        rate since the last log; refresh the gauges health() reads (the
+        train thread owns the device state here). Returns the time."""
+        now = time.monotonic()
+        rate = steps / max(now - last_log, 1e-9)
+        self._g_steps_per_sec.set(rate)
+        self._g_skipped_steps.set(int(self.skipped_steps))
+        print(f"step {step}: loss={float(_nanmean(losses)):.4f} "
+              f"metric={float(_nanmean(metrics)):.4f} "
+              f"({rate:.1f} steps/s)", flush=True)
+        return now
+
+    def _start_profiler(self):
+        """profiling=True with a model_dir: torch.profiler over the train
+        call (the counterpart of jax.profiler.start_trace)."""
+        if not (self.profiling and self.model_dir):
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof, start_step: int) -> None:
+        """Stop the trace and write it as model_dir/prof/
+        trace-<first step>-<last step>.json (chrome trace format)."""
+        if prof is None:
+            return
+        prof.stop()
+        d = os.path.join(os.path.abspath(self.model_dir), "prof")
+        os.makedirs(d, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(d, f"trace-{start_step}-{self.step}.json"))
 
     def evaluate(self, input_fn, steps: int = 100) -> Dict[str, float]:
         """Mean loss and metric over up to `steps` batches, each batch
@@ -307,8 +703,16 @@ class BaseEstimator:
             eval_res = self.evaluate(eval_input_fn, eval_steps)
             return {**{f"train_{k}": v for k, v in train_res.items()},
                     **{f"eval_{k}": v for k, v in eval_res.items()}}
-        it = train_input_fn() if callable(train_input_fn) \
-            else train_input_fn
+        owned_feeder = self.feeder_workers > 1 and callable(train_input_fn)
+        if owned_feeder:
+            # one feeder spans every segment (segments pass it as a bare
+            # iterator, so train() neither wraps nor closes it)
+            it = self._wrap_feeder(
+                train_input_fn,
+                train_input_fn == getattr(self, "train_input_fn", None))
+        else:
+            it = train_input_fn() if callable(train_input_fn) \
+                else train_input_fn
         best_metric, best_step, best_snap = -float("inf"), 0, None
         train_res: Dict[str, Any] = {}
         step = 0
@@ -333,6 +737,8 @@ class BaseEstimator:
                     break  # train iterator exhausted mid-segment
         finally:
             self.ckpt_steps = saved_ckpt_steps
+            if owned_feeder:
+                self._close_live_feeder()
         if keep_best and best_snap is not None:
             self.model.load_state_dict(best_snap)
         if self.ckpt_steps:
@@ -343,13 +749,3 @@ class BaseEstimator:
         if keep_best:
             out["best_step"] = best_step
         return out
-
-    # -- not ported --------------------------------------------------------
-    @property
-    def input_health(self) -> Dict[str, Any]:
-        raise NotImplementedError(
-            f"the input-path counters are not ported yet: {_ROADMAP_INPUT}")
-
-    def health(self) -> Dict[str, Any]:
-        raise NotImplementedError(
-            f"the obs health view is not ported yet: {_ROADMAP_INPUT}")

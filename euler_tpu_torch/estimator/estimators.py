@@ -105,6 +105,13 @@ class NodeEstimator(BaseEstimator):
     def train_input_fn(self) -> Iterator[Dict]:
         return self._batches(self.train_node_type, _TRAIN_STREAM)
 
+    def _train_batch_factory(self):
+        """None: the multi-worker feeder serialises next() on
+        train_input_fn (euler_tpu/estimator/estimators.py:166-184, its
+        device-sampler branch). The per-batch seed stream is ordered, and
+        parallel claims would decouple seed order from batch order."""
+        return None
+
     def eval_input_fn(self) -> Iterator[Dict]:
         return self._batches(self.eval_node_type, _EVAL_STREAM)
 

@@ -28,7 +28,7 @@ from euler_tpu_torch.parallel.device_sampler import (
     _ROADMAP_LAYOUTS, sample_fanout_rows,
 )
 from euler_tpu_torch.parallel.feature_store import dequantize_rows
-from euler_tpu_torch.platform import seeded_generator
+from euler_tpu_torch.platform import seed_words
 from euler_tpu_torch.utils.encoders import SageEncoder
 
 
@@ -45,12 +45,19 @@ def gather_feature_rows(batch: Dict[str, Any],
     return [dequantize_rows(x, scale) for x in out]
 
 
+def sample_stream_seed(sample_seed: int) -> int:
+    """The seed of a batch's sampling stream, hashed from (17,
+    sample_seed) as the reference folds sample_seed into key(17)."""
+    return seed_words(17, int(sample_seed) & 0xFFFFFFFF)
+
+
 def sample_seed_generator(sample_seed: int,
                           device: torch.device) -> torch.Generator:
-    """The per-batch sampling stream, seeded from (17, sample_seed) as
-    the reference folds sample_seed into key(17). Its bits are torch's,
-    not JAX's."""
-    return seeded_generator(device, 17, int(sample_seed) & 0xFFFFFFFF)
+    """The per-batch sampling stream, seeded with
+    sample_stream_seed(sample_seed). Its bits are torch's, not JAX's."""
+    g = torch.Generator(device=device)
+    g.manual_seed(sample_stream_seed(sample_seed))
+    return g
 
 
 class _GatherEncode(nn.Module):
@@ -85,7 +92,9 @@ class DeviceSampledGraphSage(SuperviseModel):
     (nbr_table, cum_table, feature_table, optional feature_scale,
     label_table). in_dim is the feature width (flax infers it at init).
     An optional batch["sample_uniforms"] (one [n_h, k_h] float32 tensor
-    per hop) replays a draw instead of the seeded stream.
+    per hop) replays a draw instead of the seeded stream; an optional
+    batch["sample_generator"], already seeded as sample_seed_generator
+    seeds one, replaces the per-batch generator.
 
     Ported: encoder 'sage' with the 'mean' aggregator over replicated
     split tables, remat and dropout. The gcn/genie encoders, other
@@ -128,8 +137,14 @@ class DeviceSampledGraphSage(SuperviseModel):
                 f"fused/alias tables are {_ROADMAP_LAYOUTS}")
         roots = batch["rows"][0]
         uniforms = batch.get("sample_uniforms")
-        gen = None if uniforms is not None else sample_seed_generator(
-            batch["sample_seed"], roots.device)
+        gen = None
+        if uniforms is None:
+            # a generator that outlives the batch (the K-step CUDA graph
+            # captures it) comes already seeded for this sample_seed
+            gen = batch.get("sample_generator")
+            if gen is None:
+                gen = sample_seed_generator(batch["sample_seed"],
+                                            roots.device)
         return sample_fanout_rows(batch["nbr_table"], batch["cum_table"],
                                   roots, self.fanouts, generator=gen,
                                   uniforms=uniforms,

@@ -31,17 +31,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     raise ValueError(f"unsupported device {dev!s}: use 'cuda' or 'cpu'")
 
 
-def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
-    """A generator on `device` seeded from a hash of `words` (numpy's
-    SeedSequence), as the reference folds words into a JAX key. Packing
-    words into bits (a << 32 | b) would not do: torch's CPU generator
-    keeps only a seed's low 32 bits, so `a` would be lost there and two
-    streams could start from the same state. Every bit of the hash
-    depends on every word, on either device."""
+def seed_words(*words: int) -> int:
+    """A 63-bit seed hashed from `words` (numpy's SeedSequence), as the
+    reference folds words into a JAX key. Packing words into bits
+    (a << 32 | b) would not do: torch's CPU generator keeps only a
+    seed's low 32 bits, so `a` would be lost there and two streams
+    could start from the same state. Every bit of the hash depends on
+    every word, on either device."""
     state = np.random.SeedSequence([int(w) for w in words]).generate_state(
         1, np.uint64)
+    return int(state[0]) >> 1
+
+
+def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
+    """A fresh generator on `device` seeded with seed_words(*words). A
+    generator that lives on (one a CUDA graph captured) draws the same
+    bits after `gen.manual_seed(seed_words(*words))`."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(state[0]) >> 1)
+    g.manual_seed(seed_words(*words))
     return g
 
 

@@ -27,6 +27,12 @@ fused Adam, AdamW and SGD do this themselves (the momentum buffer is
 made at construction, as optax's trace starts at zero, so that a
 skipped first step has a buffer to keep); Adagrad and RMSprop here do
 it with torch.where.
+
+Every step is also one a CUDA graph can capture (estimator/
+graphed_loop.py): no host sync and nothing the host reads. Adam and
+AdamW are built capturable, which torch requires for a captured step
+and which leaves fused Adam's arithmetic as it is; fused SGD, Adagrad
+and RMSprop here need no flag.
 """
 
 from __future__ import annotations
@@ -148,10 +154,10 @@ def get(name: str, params: Iterable[torch.nn.Parameter],
             raise TypeError(f"unsupported {name} options {sorted(kw)}")
         if name == "adam":
             return torch.optim.Adam(params, lr=learning_rate, betas=betas,
-                                    eps=eps, fused=True)
+                                    eps=eps, fused=True, capturable=True)
         return torch.optim.AdamW(params, lr=learning_rate, betas=betas,
                                  eps=eps, weight_decay=weight_decay,
-                                 fused=True)
+                                 fused=True, capturable=True)
     if name == "sgd":
         if kw:
             raise TypeError(f"unsupported sgd options {sorted(kw)}")

@@ -207,3 +207,213 @@ def test_cuda_kernel_on_misaligned_tables(case, d):
         with pytest.raises(RuntimeError, match="launch failed"):
             gather_mean_module._launch(t, r, s, out, wide)
         assert gather_mean.launches == before
+
+
+# -- the K-step CUDA graph (estimator/graphed_loop.py) ----------------------
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (runs on the card)")
+
+
+def _training_setup(kind, dev="cuda"):
+    """(tables, node_types, model factory, params) for a NodeEstimator:
+    "flagship" has bench.py's shapes (batch 32768, fanouts [15, 10], dim
+    128, 100 int8 features with a bf16 scale, 16 classes, Adam lr 0.01)
+    on a 60,000-node products-like graph; "cora" the cora runner's
+    (2708 nodes, 1433 int8 features with a float32 scale, fanouts
+    [10, 10], dim 64, batch 64, dropout 0.6)."""
+    from euler_tpu_torch.dataset.synthetic import (
+        products_like, synthetic_citation,
+    )
+    from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
+    from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+    from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+
+    if kind == "flagship":
+        g = products_like(60_000, 50, 100, 16)
+        d, c, scale = 100, 16, torch.bfloat16
+        mk = dict(dim=128, fanouts=(15, 10), dropout=0.0)
+        params = dict(batch_size=32768, learning_rate=0.01,
+                      train_node_type=-1)
+    else:
+        g = synthetic_citation(n=2708, d=1433, num_classes=7, seed=0)
+        d, c, scale = 1433, 7, torch.float32
+        mk = dict(dim=64, fanouts=(10, 10), dropout=0.6)
+        params = dict(batch_size=64, learning_rate=0.003)
+    feats = np.concatenate([g.features, np.zeros((1, d), np.float32)])
+    labels = np.concatenate([g.onehot_labels(), np.zeros((1, c), np.float32)])
+    store = DeviceFeatureStore.from_arrays(feats, labels, quantize="int8",
+                                           scale_dtype=scale, device=dev)
+    tab = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=32,
+                                       device=dev)
+
+    def model():
+        return DeviceSampledGraphSage(
+            c, d, multilabel=False, uniform_sampling=tab.uniform_rows,
+            generator=torch.Generator().manual_seed(0), **mk)
+
+    return store, tab, g.node_types, model, params
+
+
+def _estimator(setup, dev="cuda", **cfg):
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+
+    store, tab, node_types, model, params = setup
+    return NodeEstimator(model(), {**params, "checkpoint_steps": 0,
+                                   "log_steps": 1 << 30, **cfg},
+                         node_types, store, tab, device=dev)
+
+
+def _assert_same_state(a, b):
+    """Parameters, optimizer state (Adam's moments and step) and the
+    guard's count, bit for bit."""
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(b.model.state_dict()[k], v), k
+    sa, sb = (e.optimizer.state_dict()["state"] for e in (a, b))
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        for n in sa[k]:
+            assert torch.equal(sa[k][n], sb[k][n]), (k, n)
+    assert int(a.skipped_steps) == int(b.skipped_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,k", [("flagship", 32), ("cora", 8)])
+def test_cuda_graph_windows_match_eager_steps(kind, k):
+    """3 windows and a tail of 2 at steps_per_loop = K (the first window
+    eager on the capture stream, then two graph replays, each re-seeding
+    the K sampling and, on cora, K dropout generators) against K = 1 on
+    the same batches: the same losses, parameters and Adam moments, bit
+    for bit; gather_mean recorded K times in the graph."""
+    _need_card()
+    setup = _training_setup(kind)
+    steps = 3 * k + 2
+    feed = _estimator(setup).train_input_fn()
+    batches = [next(feed) for _ in range(steps)]
+    graphed = _estimator(setup, steps_per_loop=k)
+    eager = _estimator(setup)
+    rg = graphed.train(iter(batches), max_steps=steps)
+    re_ = eager.train(iter(batches), max_steps=steps)
+    loop = graphed._graphed
+    assert (loop.captures, loop.replays) == (1, 2)
+    assert loop.launches_per_replay == k
+    assert rg["global_step"] == re_["global_step"] == steps
+    assert rg["losses"] == re_["losses"]
+    assert np.isfinite(rg["losses"]).all()
+    _assert_same_state(graphed, eager)
+
+
+def _labelled(batches, store, nan_at=()):
+    """Batches with their labels as a batch tensor, NaN at `nan_at`."""
+    out = []
+    for i, b in enumerate(batches):
+        lab = store.labels[b["rows"][0].long()].clone()
+        if i in nan_at:
+            lab[0, 0] = float("nan")
+        out.append({**b, "labels": lab})
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_graph_skips_nonfinite_steps():
+    """K = 4 on the cora setup with a labels tensor in the batch: a window
+    of NaN labels replays with every step skipped (parameters and
+    optimizer state as they were, 4 skips counted), a window with one
+    NaN step matches the eager steps (that step skipped)."""
+    _need_card()
+    setup = _training_setup("cora")
+    store = setup[0]
+    feed = _estimator(setup).train_input_fn()
+    raw = [next(feed) for _ in range(12)]
+    batches = _labelled(raw, store, nan_at={4, 5, 6, 7, 9})
+    graphed = _estimator(setup, steps_per_loop=4)
+    graphed.train(iter(batches[:4]), max_steps=4)  # eager, then capture
+    before = {k: v.clone() for k, v in graphed.model.state_dict().items()}
+    moments = {k: {n: t.clone() for n, t in s.items()} for k, s in
+               graphed.optimizer.state_dict()["state"].items()}
+    res = graphed.train(iter(batches[4:8]), max_steps=8)
+    assert graphed._graphed.replays == 1
+    assert res["skipped_steps"] == 4 and not np.isfinite(res["losses"]).any()
+    for k, v in graphed.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    for k, s in graphed.optimizer.state_dict()["state"].items():
+        for n, t in s.items():
+            assert torch.equal(t, moments[k][n]), (k, n)
+    graphed.train(iter(batches[8:]), max_steps=12)
+    eager = _estimator(setup)
+    eager.train(iter(batches), max_steps=12)
+    assert int(graphed.skipped_steps) == 5
+    _assert_same_state(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_recaptures_after_restore(tmp_path):
+    """16 steps at K = 4 with a checkpoint at 8; restoring it replaces
+    the optimizer's state tensors, so the graph is dropped and captured
+    again, and the 8 steps retrained from it end where the first run
+    ended, bit for bit."""
+    _need_card()
+    setup = _training_setup("cora")
+    feed = _estimator(setup).train_input_fn()
+    batches = [next(feed) for _ in range(16)]
+    est = _estimator(setup, steps_per_loop=4, checkpoint_steps=8)
+    est.model_dir = str(tmp_path)
+    est.train(iter(batches), max_steps=16)
+    first = {k: v.clone() for k, v in est.model.state_dict().items()}
+    (tmp_path / "checkpoints" / "ckpt-16.pt").unlink()
+    assert est.restore_checkpoint() == 8
+    assert est._graphed.graph is None
+    res = est.train(iter(batches[8:]), max_steps=16)
+    assert res["global_step"] == 16
+    assert (est._graphed.captures, est._graphed.replays) == (2, 4)
+    for k, v in est.model.state_dict().items():
+        assert torch.equal(v, first[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw",
+                                  "adagrad", "rmsprop"])
+def test_cuda_optimizer_steps_capture(name):
+    """Each optimizer's step, with the guard's found_inf, captured in a
+    CUDA graph and replayed: the same parameters and state as eager
+    steps on the same gradients, bit for bit, and a step with found_inf
+    set leaves them as they were."""
+    _need_card()
+    from euler_tpu_torch.utils import optimizers as opt_lib
+
+    rng = np.random.default_rng(1)
+    init = [rng.normal(size=s).astype(np.float32) for s in ((33, 7), (7,))]
+    grads = [[rng.normal(size=x.shape).astype(np.float32) for x in init]
+             for _ in range(4)]
+    runs = []
+    for graphed in (False, True):
+        ps = [torch.nn.Parameter(torch.from_numpy(x).cuda()) for x in init]
+        opt = opt_lib.get(name, ps, 0.01)
+        flag = torch.zeros((), device="cuda")
+        opt.found_inf = flag
+        for p, g_ in zip(ps, grads[0]):
+            p.grad = torch.from_numpy(g_).cuda()
+        opt.step()  # the first step eagerly: lazy state
+        if graphed:
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.graph(graph, stream=side):
+                opt.step()
+        for i, gs in enumerate(grads[1:]):
+            flag.fill_(1.0 if i == 1 else 0.0)
+            for p, g_ in zip(ps, gs):
+                p.grad.copy_(torch.from_numpy(g_))
+            graph.replay() if graphed else opt.step()
+        torch.cuda.synchronize()
+        runs.append(([p.detach().clone() for p in ps],
+                     {k: {n: t.clone() for n, t in s.items()
+                          if isinstance(t, torch.Tensor)}
+                      for k, s in opt.state_dict()["state"].items()}))
+    (pa, sa), (pb, sb) = runs
+    for a, b in zip(pa, pb):
+        assert torch.equal(a, b)
+    for k in sa:
+        for n in sa[k]:
+            assert torch.equal(sa[k][n], sb[k][n]), (k, n)

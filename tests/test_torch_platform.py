@@ -54,6 +54,11 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
     files = sorted((ROOT / "euler_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    for copy in ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+                 "obs/server.py", "estimator/prefetch.py",
+                 "estimator/retry.py", "estimator/graphed_loop.py"):
+        assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))
            for f in files}

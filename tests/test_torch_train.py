@@ -3,7 +3,14 @@ DeviceSampledGraphSage trained by BaseEstimator against the reference
 estimator's own train step (params converted from the flax init,
 uniforms replayed from the reference's key), the nonfinite guard,
 evaluate's weighting, keep_best, checkpoint resume, remat, dropout, the
-NodeEstimator streams, the cora stand-in and the cora protocol."""
+NodeEstimator streams, the cora stand-in and the cora protocol; and
+steps_per_loop, the input path with its counters, the feeder and the
+profiling hook (the K-step CUDA graph itself is tested on the card in
+tests/test_torch_cuda.py)."""
+
+import json
+import re
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +24,7 @@ from euler_tpu.models.graphsage import \
     DeviceSampledGraphSage as JaxDeviceSampledGraphSage
 from euler_tpu.parallel.feature_store import \
     DeviceFeatureStore as JaxDeviceFeatureStore
+from euler_tpu_torch import obs
 from euler_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from euler_tpu_torch.dataset import TEST_TYPE, TRAIN_TYPE, VAL_TYPE
 from euler_tpu_torch.dataset.synthetic import synthetic_citation
@@ -444,14 +452,13 @@ def test_node_estimator_streams_and_splits():
 
 
 def test_estimators_need_cuda_by_default_and_refuse_unported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BaseEstimator(_model(), {"steps_per_loop": 8}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BaseEstimator(_model(), {"feeder_workers": 4}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BaseEstimator(_model(), {"input_retries": 3}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BaseEstimator(_model(), {}, device="cpu").health()
+    for cfg in ({"table_partition": 2}, {"hub_cache_frac": 0.1},
+                {"max_id": 100}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            BaseEstimator(_model(), cfg, device="cpu")
+    for cfg in ({"table_partition": 1}, {"hub_cache_frac": 0.0},
+                {"max_id": 0}):  # the values that mean what the port does
+        BaseEstimator(_model(), cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BaseEstimator(_model(), {})
@@ -495,3 +502,239 @@ def test_cora_protocol_on_cpu_reaches_the_floor():
                               "--device", "cpu", "--max_steps", "100"])
     assert res["train_skipped_steps"] == 0
     assert res["test_metric"] >= 0.77
+
+
+# -- steps_per_loop, the input path, the feeder, profiling -----------------
+
+def _cpu_estimator(model, tab, store, **cfg):
+    est = BaseEstimator(model, {"learning_rate": LR, "checkpoint_steps": 0,
+                                "log_steps": 1000, **cfg},
+                        device="cpu", model_dir=cfg.pop("model_dir", None))
+    est.static_batch = _static(tab, store)
+    return est
+
+
+def test_k_steps_per_loop_match_single_steps():
+    """K = 4 over 10 steps (two windows and a tail of 2) against K = 1 on
+    the same batches, dropout on: the same global_step, bit-identical
+    parameters and optimizer state, the same per-step losses; metric
+    (the step-weighted mean of the window nan-means) within float32
+    rounding of the plain mean. As tests/test_dataflow_estimator.py
+    holds the reference's lax.scan loop."""
+    _, feats, labels = _graph()
+    _, tab, store = _tables(feats, labels)
+    batches = _batches(10, replay=False)
+    runs = []
+    for k in (1, 4):
+        est = _cpu_estimator(_model(dropout=0.5), tab, store,
+                             steps_per_loop=k)
+        runs.append((est, est.train(iter(batches), max_steps=10)))
+    (e1, r1), (e4, r4) = runs
+    assert r1["global_step"] == r4["global_step"] == e4.step == 10
+    assert r4["losses"] == r1["losses"] and r4["loss"] == r1["loss"]
+    assert r4["metric"] == pytest.approx(r1["metric"], rel=1e-6)
+    for k, v in e1.model.state_dict().items():
+        assert torch.equal(e4.model.state_dict()[k], v), k
+    s1, s4 = (e.optimizer.state_dict()["state"] for e in (e1, e4))
+    for k in s1:
+        for n in s1[k]:
+            assert torch.equal(s1[k][n], s4[k][n]), (k, n)
+
+
+def test_k_steps_per_loop_match_the_reference_estimator(tmp_path, capsys):
+    """K = 4, log_steps = 6, checkpoint_steps = 6 over 10 steps, the port
+    (replayed uniforms) against the reference's BaseEstimator (its
+    lax.scan windows and single-step tail): params within 1e-5 of the
+    largest (test_three_train_steps_match_the_reference_estimator's
+    float32 tolerance), the same step count, loss and metric, the same
+    log steps with the same window values, checkpoints at the same
+    steps (8, where the second window crosses 6, and 10 at the end)."""
+    _, feats, labels = _graph()
+    _, tab, store = _tables(feats, labels)
+    jest, jstatic = _jax_setup(feats, labels, "float32", tab)
+    cfg = {"steps_per_loop": 4, "log_steps": 6, "checkpoint_steps": 6}
+    jest.steps_per_loop, jest.log_steps, jest.ckpt_steps = 4, 6, 6
+    jest.static_batch = jstatic
+    saved = []
+    jest.save_checkpoint = saved.append
+    batches = _batches(10)
+    jbatches = [{"rows": [jnp.asarray(b["rows"][0].numpy())],
+                 "sample_seed": np.uint32(b["sample_seed"])}
+                for b in batches]
+    jest._init_state(_jbatch(batches[0], jstatic))
+    model = _model()
+    model.load_state_dict(flax_to_state_dict(jest.state.params))
+    jres = jest.train(iter(jbatches), max_steps=10)
+    jlog = capsys.readouterr().out
+    est = _cpu_estimator(model, tab, store, model_dir=str(tmp_path), **cfg)
+    res = est.train(iter(batches), max_steps=10)
+    log = capsys.readouterr().out
+    want = _leaves(jest.state.params)
+    got = _leaves(state_dict_to_flax(est.model.state_dict()))
+    tol = 1e-5 * max(np.abs(w).max() for w in want)
+    for w, g_ in zip(want, got):
+        np.testing.assert_allclose(g_, w, rtol=0, atol=tol)
+    assert res["global_step"] == jres["global_step"] == 10
+    assert abs(res["loss"] - jres["loss"]) <= 1e-4
+    assert abs(res["metric"] - jres["metric"]) <= 1e-4
+    parse = [[(int(s), float(l_), float(m)) for s, l_, m in re.findall(
+        r"step (\d+): loss=([\d.nan-]+) metric=([\d.nan-]+)", out)]
+        for out in (jlog, log)]
+    assert [x[0] for x in parse[0]] == [x[0] for x in parse[1]] == [8]
+    np.testing.assert_allclose(parse[1][0][1:], parse[0][0][1:], atol=2e-4)
+    assert saved == [8, 10]
+    assert [s for s, _ in est._checkpoints()] == [8, 10]
+
+
+def _scripted_input(schedule, make_batch):
+    """input_fn over a shared schedule: an int yields that batch,
+    "conn" raises ConnectionError, "value" ValueError. A recreated
+    iterator goes on where the schedule stands."""
+    pos = [0]
+
+    def input_fn():
+        def gen():
+            while pos[0] < len(schedule):
+                ev = schedule[pos[0]]
+                pos[0] += 1
+                if ev == "conn":
+                    raise ConnectionError("connection reset by peer")
+                if ev == "value":
+                    raise ValueError("bad batch")
+                yield make_batch(ev)
+        return gen()
+
+    return input_fn
+
+
+@pytest.mark.parametrize("case", ["defaults", "budget"])
+def test_input_path_matches_the_reference(tmp_path, case):
+    """One scripted input_fn through both packages. defaults: one
+    ConnectionError is retried (input_retries 3, backoff 0.1 s, the
+    reference's defaults). budget: input_retries 1, skip_batch_budget 1:
+    a retried error, a skipped batch, then a ValueError that writes an
+    emergency checkpoint and re-raises. Same input_health and health()
+    in both."""
+    if case == "defaults":
+        schedule, cfg, steps = [0, "conn", 1], {}, 2
+    else:
+        schedule = [0, "conn", 1, "conn", "conn", 2, "value", 3]
+        cfg, steps = {"input_retries": 1, "input_backoff_s": 0.001,
+                      "skip_batch_budget": 1}, 5
+    _, feats, labels = _graph()
+    _, tab, store = _tables(feats, labels)
+    batches = _batches(4, replay=False)
+    jest, jstatic = _jax_setup(feats, labels, "float32", tab)
+    jest = JaxBaseEstimator(jest.model, {"checkpoint_steps": 0, **cfg},
+                            model_dir=str(tmp_path / "jax"))
+    jest.static_batch = jstatic
+    est = _cpu_estimator(_model(), tab, store, model_dir=str(tmp_path / "pt"),
+                         **cfg)
+    results = []
+    for e, conv in ((jest, lambda i: {k: v for k, v in _jbatch(
+            batches[i], {}).items()}), (est, lambda i: batches[i])):
+        fn = _scripted_input(schedule, conv)
+        if case == "defaults":
+            res = e.train(fn, max_steps=steps)
+            results.append((res["global_step"], res["skipped_batches"]))
+        else:
+            with pytest.raises(ValueError, match="bad batch"):
+                e.train(fn, max_steps=steps)
+        results.append((e.input_health, e.health()))
+    assert results[0] == results[1] if case == "budget" else \
+        results[:2] == results[2:]
+    health = results[-1][1]
+    if case == "defaults":
+        assert results[0] == (2, 0)
+        assert health == {"input_failures": 1, "input_retries": 1,
+                          "skipped_batches": 0,
+                          "emergency_checkpoint_step": None,
+                          "last_input_error": "connection reset by peer",
+                          "skipped_steps": 0}
+    else:
+        assert health == {"input_failures": 4, "input_retries": 2,
+                          "skipped_batches": 1,
+                          "emergency_checkpoint_step": 3,
+                          "last_input_error": "bad batch",
+                          "skipped_steps": 0}
+        assert [s for s, _ in est._checkpoints()] == [3]
+    snap = obs.snapshot()["estimator_input_failures_total"]["values"]
+    assert snap[f"estimator={est._obs_name}"] == health["input_failures"]
+
+
+@pytest.mark.parametrize("steps_per_loop", [1, 4])
+def test_feeder_workers_give_the_same_batches_and_results(steps_per_loop):
+    """feeder_workers = 2 in device-sampler mode (no batch factory: the
+    feeder serialises next() on train_input_fn, its threads move the
+    batches to the device): the same losses, parameters and steps as no
+    feeder, and the feeder's threads end with train()."""
+    runs = []
+    for workers in (0, 2):
+        est = _node_estimator(batch_size=8, feeder_workers=workers,
+                              steps_per_loop=steps_per_loop, log_steps=1000)
+        assert est._train_batch_factory() is None
+        before = threading.active_count()
+        res = est.train(est.train_input_fn, max_steps=6)
+        assert est._live_feeder is None
+        assert threading.active_count() <= before
+        runs.append((res, est))
+    (ra, ea), (rb, eb) = runs
+    assert ra["losses"] == rb["losses"] and ra["global_step"] == 6
+    for k, v in ea.model.state_dict().items():
+        assert torch.equal(eb.model.state_dict()[k], v), k
+    snap = obs.snapshot()["feeder_batches_total"]["values"]
+    assert snap[f"feeder={eb._obs_name}_train"] >= 6
+
+
+def test_feeder_spans_train_and_evaluate_segments():
+    """train_and_evaluate with feeder_workers = 2: one feeder feeds every
+    segment (train() neither wraps nor closes it) and is closed at the
+    end; the same parameters as without a feeder."""
+    states = []
+    for workers in (0, 2):
+        est = _node_estimator(batch_size=8, feeder_workers=workers)
+        made = []
+        wrap = est._wrap_feeder
+        est._wrap_feeder = lambda *a: made.append(wrap(*a)) or made[-1]
+        res = est.train_and_evaluate(est.train_input_fn,
+                                     est.eval_sweep_input_fn, max_steps=6,
+                                     eval_steps=2, eval_every=2)
+        assert res["train_global_step"] == 6 and est._live_feeder is None
+        assert len(made) == (1 if workers else 0)
+        states.append(est.model.state_dict())
+    for k, v in states[0].items():
+        assert torch.equal(states[1][k], v), k
+
+
+def test_profiling_writes_a_trace_under_model_dir(tmp_path):
+    """profiling=True with a model_dir: torch.profiler traces the train
+    call into model_dir/prof/ (the reference: jax.profiler.start_trace
+    of model_dir/prof)."""
+    _, feats, labels = _graph()
+    _, tab, store = _tables(feats, labels)
+    est = _cpu_estimator(_model(), tab, store, profiling=True,
+                         model_dir=str(tmp_path))
+    est.train(iter(_batches(2, replay=False)), max_steps=2)
+    traces = list((tmp_path / "prof").iterdir())
+    assert [p.name for p in traces] == ["trace-0-2.json"]
+    trace = json.loads(traces[0].read_text())
+    assert trace["traceEvents"]
+
+
+def test_phase_spans_and_histograms_follow_the_reference_names():
+    """The loop's obs spans and histograms: train_step → input_wait /
+    device_step / hook, one device_step observation per step with
+    K = 1 and per window or tail step with K > 1."""
+    _, feats, labels = _graph()
+    _, tab, store = _tables(feats, labels)
+    obs.clear_trace()
+    for k, steps, dispatches in ((1, 6, 6), (4, 10, 4)):
+        est = _cpu_estimator(_model(), tab, store, steps_per_loop=k,
+                             log_steps=5, checkpoint_steps=0)
+        est.train(iter(_batches(steps, replay=False)), max_steps=steps)
+        hist = obs.snapshot()["estimator_device_step_ms"]["values"]
+        assert hist[f"estimator={est._obs_name}"]["count"] == dispatches
+        assert obs.snapshot()["estimator_global_step"]["values"][
+            f"estimator={est._obs_name}"] == steps
+    names = {s.name for s in obs.default_tracer().spans()}
+    assert {"train_step", "input_wait", "device_step", "hook"} <= names
