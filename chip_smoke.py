@@ -8,8 +8,10 @@ The GraphSAGE path at the width of bench.py's flagship configuration
 (bench.py:776-869): a products-like graph (2.45M nodes, average degree
 50, 16 classes, 100-dim features quantized to int8 with a bfloat16
 per-column scale, neighbor cap 32), DeviceSampledGraphSage with dim 128
-and fanouts [15, 10] and random seeded weights, root batches of 32768.
-Phases, in order; any failure raises and the exit code is not 0:
+and fanouts [15, 10] and random seeded weights, root batches of 32768;
+then the unsupervised family on the same graph (unsupervised GraphSAGE
+and the DeepWalk skip-gram of bench.py --walk). Phases, in order; any
+failure raises and the exit code is not 0:
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off
   2. build    nvcc builds every kernel under euler_tpu_torch/csrc; ptxas
@@ -43,12 +45,30 @@ Phases, in order; any failure raises and the exit code is not 0:
               eager steps at the same shapes: 3 windows of 32 from the
               same weights and batches at K = 32 and at K = 1 give the
               same losses, parameters and Adam moments, bit for bit
-  8. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
+  8. unsup    unsupervised GraphSAGE (DeviceSampledUnsupervisedSage,
+              5 negatives drawn over every node) at the flagship's
+              width on the same tables, in a plain BaseEstimator: K = 1
+              as phase 6, K = 32 as phase 7 (edges/s, roots/s, host ms
+              per step, busy share, peak memory, loss, MRR, launches ==
+              steps), then the graph against eager steps at K = 8, bit
+              for bit
+  9. walk     the DeepWalk skip-gram (DeviceSampledSkipGram) at bench.py
+              --walk's shape (bench.py:392-503: walk_len 5, window 1/1,
+              5 negatives, dim 128, K = 8): pairs/s (bench.py's metric),
+              ms per replay, host ms per step, busy share, peak memory,
+              dense Adam's bytes against the step; the graph against
+              eager steps at K = 8, bit for bit; then whether
+              F.embedding's dense backward repeats bit for bit
+ 10. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
               on the cora stand-in for seeds 0, 1, 2: mean test
-              micro-F1 at least 0.79 (the RESULTS.md row is 0.811)
-  9. small    a small input through the card and through the CPU path
- 10. serve    embed / score requests against direct indexing
- 11. result   the kernels JSON line, then {"ok": true, "device": ...}
+              micro-F1 at least 0.79 (the RESULTS.md row is 0.811); the
+              unsupervised runners: DeepWalk and LINE on cora against
+              their RESULTS.md rows (floor 0.95), unsupervised GraphSAGE
+              on ppi for seeds 0, 1, 2 against the JAX package's own
+              runs (floor 0.5); each gate printed, met or not
+ 11. small    a small input through the card and through the CPU path
+ 12. serve    embed / score requests against direct indexing
+ 13. result   the kernels JSON line, then {"ok": true, "device": ...}
 
 Without CUDA it exits 1 and prints no result. --out PATH also writes
 the full record (every case, timing and profile) as JSON.
@@ -77,17 +97,26 @@ import numpy as np
 import torch
 
 from euler_tpu_torch.dataset.synthetic import products_like, synthetic_citation
+from euler_tpu_torch.estimator import base_estimator
+from euler_tpu_torch.estimator.base_estimator import BaseEstimator
 from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
 from euler_tpu_torch.estimator.prefetch import make_feeder
-from euler_tpu_torch.examples import run_graphsage
+from euler_tpu_torch.examples import run_deepwalk, run_graphsage, run_line
+from euler_tpu_torch.examples.common import root_input_fn
 from euler_tpu_torch.kernels import _build
-from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
+from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
+from euler_tpu_torch.models.graphsage import (
+    DeviceSampledGraphSage, DeviceSampledUnsupervisedSage,
+)
 from euler_tpu_torch.ops import gather_mean as gather_mean_module
 from euler_tpu_torch.ops.gather_mean import (
     gather_mean, gather_mean_reference, launch_plan, take_rows,
 )
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+from euler_tpu_torch.parallel.device_walk import (
+    DeviceNodeSampler, gen_pair_offsets,
+)
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
 from euler_tpu_torch.serving.engine import EmbeddingEngine
 
@@ -109,6 +138,18 @@ LOOP_K, FEEDER_DEPTH, LOOP_WINDOW_STEPS, LOOP_EQ_WINDOWS = 32, 3, 64, 3
 # quality: RESULTS.md graphsage-dev-int8 | cora | micro-F1 | 0.811
 QUALITY_SEEDS, QUALITY_FLOOR, QUALITY_ROW, QUALITY_BAND = (0, 1, 2), 0.79, \
     0.811, 0.01
+# the unsupervised family: full-width GraphSAGE with 5 negatives (graph
+# vs eager at K = 8); DeepWalk at bench.py --walk's shape (bench.py:
+# 403-404, 814-818: walk_len 5, window 1/1, 5 negatives, K = 8)
+UNSUP_NEGS, UNSUP_EQ_K = 5, 8
+WALK_LEN, WALK_NEGS, WALK_K = 5, 5, 8
+# quality: RESULTS.md deepwalk-dev | cora | mrr | 0.995 and line-dev |
+# cora | mrr | 0.986; unsupervised GraphSAGE on ppi has no row: the JAX
+# package's own --device_sampler runner, mean eval MRR over engine
+# seeds 0-2 (tests/oracle_unsup_ppi.py: 0.5955, 0.5830, 0.5606). The
+# floors catch broken training; the gates are printed, met or not.
+DEEPWALK_ROW, LINE_ROW, UNSUP_FLOOR = 0.995, 0.986, 0.95
+PPI_ORACLE, PPI_FLOOR = 0.5797, 0.5
 
 
 def log(msg: str) -> None:
@@ -581,17 +622,32 @@ def profile_device(fn, what: str, top_n: int = 10) -> dict:
 
 def phase_train(store, table, node_types, dev: torch.device) -> dict:
     """Train the flagship model through NodeEstimator on the sweep's
-    tables, as bench.py times it: warm-up, then 3 windows of steps on
-    the host clock with a synchronize at the window edges only."""
+    tables, as bench.py times it (_drive_steps), then the index rule's
+    cost and the remat check."""
     est = flagship_estimator(store, table, node_types, dev)
-    model = est.model
     it = est.train_input_fn()
+    r = _drive_steps(est, it, "train")
+    r["index_rule"] = time_index_rule(est, est.model, it,
+                                      r["profile"]["device_busy_ms"])
+    r["remat"] = check_remat(est, est.model, it, dev)
+    return r
+
+
+def _drive_steps(est, it, what: str, work: str = "edges",
+                 work_per_step: int = 0) -> dict:
+    """est.train one step at a time, as bench.py times it: warm-up, then
+    3 windows of steps on the host clock with a synchronize at the
+    window edges only; then event-timed steps and one profiled step.
+    Fails unless gather_mean launched once per step, the loss is finite
+    and falling and no step was skipped. work_per_step: the flagship's
+    edges unless given."""
+    work_per_step = work_per_step or EDGES_PER_STEP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gather_mean.launches = 0
     losses = est.train(it, max_steps=WARMUP_STEPS)["losses"]
     per_window = TIMED_STEPS // WINDOWS
-    window_s, window_rates = [], []
+    window_s, window_rates, metrics = [], [], []
     sums0 = _phase_sums(est)
     for _ in range(WINDOWS):
         done = est.step
@@ -603,12 +659,14 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
         window_s.append(dt)
         window_rates.append((res["global_step"] - done) / dt)
         losses += res["losses"]
+        metrics.append(res["metric"])
     timed_s = sum(window_s)
     input_wait_ms, dispatch_ms = (
         float(x) for x in np.subtract(_phase_sums(est), sums0))
     # device time per step: CUDA events around the step itself, batches
-    # built beforehand; and the host's time to enqueue the step
-    batches = [next(it) for _ in range(EVENT_STEPS)]
+    # built (and moved to the card) beforehand; and the host's time to
+    # enqueue the step
+    batches = [_on_card(next(it), est) for _ in range(EVENT_STEPS)]
     step_ms, host_ms, event_losses = [], [], []
     for b in batches:
         start = torch.cuda.Event(enable_timing=True)
@@ -628,50 +686,56 @@ def phase_train(store, table, node_types, dev: torch.device) -> dict:
     steps = est.step
     skipped = int(est.skipped_steps)
     if launches != steps:
-        raise AssertionError(f"gather_mean launched {launches} times in "
-                             f"{steps} training steps")
+        raise AssertionError(f"{what}: gather_mean launched {launches} "
+                             f"times in {steps} training steps")
     if len(losses) != steps or not np.isfinite(losses).all():
-        raise AssertionError(f"non-finite training loss: {losses}")
+        raise AssertionError(f"{what}: non-finite training loss: {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if not last5 < first5:
-        raise AssertionError(f"loss did not fall: first 5 mean {first5}, "
-                             f"last 5 mean {last5}")
+        raise AssertionError(f"{what}: loss did not fall: first 5 mean "
+                             f"{first5}, last 5 mean {last5}")
     if skipped != 0:
-        raise AssertionError(f"{skipped} training steps skipped")
-    prof = profile_device(lambda: est._train_step(next(it)),
-                          "one training step", top_n=15)
-    index_rule = time_index_rule(est, model, it, prof["device_busy_ms"])
-    eps = EDGES_PER_STEP * TIMED_STEPS / timed_s
+        raise AssertionError(f"{what}: {skipped} training steps skipped")
+    prof = profile_device(lambda: est._train_step(_on_card(next(it), est)),
+                          f"one {what} step", top_n=15)
+    rate = work_per_step * TIMED_STEPS / timed_s
     ms = statistics.median(step_ms)
     r = {"steps": steps, "gather_mean_launches": launches,
          "skipped_steps": skipped, "losses": losses,
          "loss_first5_mean": first5, "loss_last5_mean": last5,
+         "window_metrics": metrics,
          "window_seconds": window_s, "window_steps_per_s": window_rates,
          "steps_per_s": TIMED_STEPS / timed_s,
-         "edges_per_step": EDGES_PER_STEP, "edges_per_sec_per_gpu": eps,
+         f"{work}_per_step": work_per_step,
+         f"{work}_per_sec_per_gpu": rate,
+         "roots_per_s": BATCH * TIMED_STEPS / timed_s,
          "step_ms": step_ms, "step_ms_median": ms,
          "host_enqueue_ms": host_ms,
          "host_enqueue_ms_median": statistics.median(host_ms),
          "device_busy_share": (prof["device_busy_ms"] * TIMED_STEPS
                                / (timed_s * 1e3)),
          "input_wait_ms": input_wait_ms, "dispatch_ms": dispatch_ms,
-         "peak_device_bytes": peak, "profile": prof,
-         "index_rule": index_rule,
-         "remat": check_remat(est, model, it, dev)}
-    log(f"train: {steps} steps of {BATCH} roots (Adam lr {TRAIN_LR}), "
+         "peak_device_bytes": peak, "profile": prof}
+    log(f"{what}: {steps} steps of {BATCH} roots (Adam lr {TRAIN_LR}), "
         f"gather_mean launches {launches}, skipped {skipped}; "
-        f"edges_per_sec_per_gpu {eps:.6g} ({EDGES_PER_STEP} edges/step, "
-        f"{r['steps_per_s']:.3f} steps/s; windows "
-        + ", ".join(f"{x:.3f}" for x in window_rates)
+        f"{work}_per_sec_per_gpu {rate:.6g} ({work_per_step} {work}/step, "
+        f"{r['steps_per_s']:.3f} steps/s, {r['roots_per_s']:.0f} roots/s; "
+        "windows " + ", ".join(f"{x:.3f}" for x in window_rates)
         + f" steps/s); step_ms median {ms:.3f} (events), host enqueue "
         f"{r['host_enqueue_ms_median']:.3f} ms/step; device busy "
         f"{r['device_busy_share']:.1%} of the timed windows (profiled "
         f"busy ms x steps / wall); timed windows: {input_wait_ms:.1f} ms "
         f"building batches, {dispatch_ms:.1f} ms dispatching steps; "
         f"peak device memory {peak / 2**30:.2f} GiB; loss first 5 "
-        f"{first5:.4f} -> last 5 "
-        f"{last5:.4f}")
+        f"{first5:.4f} -> last 5 {last5:.4f}; window metrics "
+        + ", ".join(f"{m:.4f}" for m in metrics))
     return r
+
+
+def _on_card(batch: dict, est) -> dict:
+    """A batch as the estimator's step takes it (numpy arrays moved to
+    its device)."""
+    return base_estimator._to_device(batch, est.device)
 
 
 def time_index_rule(est, model, it, step_busy_ms: float) -> dict:
@@ -767,7 +831,16 @@ def _phase_sums(est) -> tuple:
             est._hist_device_step.value["sum"])
 
 
-def _drive_loop(est, it, k: int) -> dict:
+def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
+                work_per_step: int = 0, kernels_per_step: int = 1) -> dict:
+    """est.train at steps_per_loop = k as bench.py drives it: k + 2
+    warm-up steps (the first window eager, the capture, a tail of 2),
+    3 timed windows of 64 steps; then event-timed replays and one
+    profiled replay. Fails unless gather_mean's launches on the card
+    (eager + recorded per window x replays) are kernels_per_step per
+    step, the loss is finite and falling and no step was skipped.
+    work_per_step: the flagship's edges unless given."""
+    work_per_step = work_per_step or EDGES_PER_STEP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gather_mean.launches = 0
@@ -777,7 +850,7 @@ def _drive_loop(est, it, k: int) -> dict:
                        max_steps=warm)["losses"]
     torch.cuda.synchronize()
     warm_s = time.monotonic() - t0
-    window_s, window_rates = [], []
+    window_s, window_rates, metrics = [], [], []
     sums0 = _phase_sums(est)
     for _ in range(WINDOWS):
         done = est.step
@@ -789,6 +862,7 @@ def _drive_loop(est, it, k: int) -> dict:
         window_s.append(dt)
         window_rates.append((res["global_step"] - done) / dt)
         losses += res["losses"]
+        metrics.append(res["metric"])
     input_wait_ms, dispatch_ms = (
         float(x) for x in np.subtract(_phase_sums(est), sums0))
     launches = gather_mean.launches
@@ -799,24 +873,26 @@ def _drive_loop(est, it, k: int) -> dict:
     device_launches = eager + replays * per_replay
     peak = torch.cuda.max_memory_allocated()
     skipped = int(est.skipped_steps)
-    if per_replay != k or device_launches != steps or eager <= 0:
+    if (per_replay != k * kernels_per_step
+            or device_launches != steps * kernels_per_step
+            or (kernels_per_step and eager <= 0)):
         raise AssertionError(
-            f"gather_mean: {launches} host launches, {per_replay} recorded "
-            f"per {k}-step window, {loop.captures} captures, "
+            f"{what}: gather_mean: {launches} host launches, {per_replay} "
+            f"recorded per {k}-step window, {loop.captures} captures, "
             f"{replays} replays: {device_launches} launches on the "
             f"card for {steps} steps")
     if len(losses) != steps or not np.isfinite(losses).all():
-        raise AssertionError(f"non-finite training loss: {losses}")
+        raise AssertionError(f"{what}: non-finite training loss: {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if not last5 < first5 or skipped != 0:
-        raise AssertionError(f"loss first 5 {first5} -> last 5 {last5}, "
-                             f"{skipped} skipped steps")
+        raise AssertionError(f"{what}: loss first 5 {first5} -> last 5 "
+                             f"{last5}, {skipped} skipped steps")
     # one replay at a time: CUDA events around it, the host's time to
     # enqueue it (copies of the window's roots, re-seeding, replay,
     # clones), batches prebuilt
     replay_ms, host_ms = [], []
     for _ in range(WINDOWS):
-        window = [next(it) for _ in range(k)]
+        window = [_on_card(next(it), est) for _ in range(k)]
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -827,15 +903,18 @@ def _drive_loop(est, it, k: int) -> dict:
         host_ms.append((time.perf_counter() - t0) * 1e3)
         stop.synchronize()
         replay_ms.append(start.elapsed_time(stop))
-    windows = [[next(it) for _ in range(k)] for _ in range(2)]
+    windows = [[_on_card(next(it), est) for _ in range(k)]
+               for _ in range(2)]
     prof = profile_device(lambda: loop.run(est, windows.pop()),
-                          f"one replay of the {k}-step graph", top_n=15)
-    if prof["device_busy_ms"] > 0 and prof["gather_mean_calls"] != k:
-        raise AssertionError(f"{prof['gather_mean_calls']} gather_mean "
-                             f"kernels in one {k}-step replay")
+                          f"one replay of the {k}-step {what} graph",
+                          top_n=15)
+    if prof["device_busy_ms"] > 0 \
+            and prof["gather_mean_calls"] != k * kernels_per_step:
+        raise AssertionError(f"{what}: {prof['gather_mean_calls']} "
+                             f"gather_mean kernels in one {k}-step replay")
     timed_steps = WINDOWS * LOOP_WINDOW_STEPS
     timed_s = sum(window_s)
-    eps = EDGES_PER_STEP * timed_steps / timed_s
+    eps = work_per_step * timed_steps / timed_s
     busy_step_ms = prof["device_busy_ms"] / k
     r = {"steps_per_loop": k, "feeder_depth": FEEDER_DEPTH,
          "steps": steps, "warmup_steps": warm, "warmup_seconds": warm_s,
@@ -846,8 +925,11 @@ def _drive_loop(est, it, k: int) -> dict:
          "skipped_steps": skipped, "losses": losses,
          "loss_first5_mean": first5, "loss_last5_mean": last5,
          "window_seconds": window_s, "window_steps_per_s": window_rates,
+         "window_metrics": metrics,
          "steps_per_s": timed_steps / timed_s,
-         "edges_per_sec_per_gpu": eps,
+         f"{work}_per_step": work_per_step,
+         f"{work}_per_sec_per_gpu": eps,
+         "roots_per_s": BATCH * timed_steps / timed_s,
          "replay_ms": replay_ms, "replay_ms_median": statistics.median(
              replay_ms),
          "host_ms_per_replay": host_ms,
@@ -856,14 +938,15 @@ def _drive_loop(est, it, k: int) -> dict:
          "device_busy_share": busy_step_ms * timed_steps / (timed_s * 1e3),
          "replay_busy_share": prof["device_busy_ms"] / prof["wall_ms"],
          "input_wait_ms": input_wait_ms, "dispatch_ms": dispatch_ms,
-         "device_edges_per_s": EDGES_PER_STEP * k / (
+         f"device_{work}_per_s": work_per_step * k / (
              statistics.median(replay_ms) / 1e3),
          "peak_device_bytes": peak, "profile": prof}
-    log(f"loop: {steps} steps at steps_per_loop {k} ({loop.captures} "
+    log(f"{what}: {steps} steps at steps_per_loop {k} ({loop.captures} "
         f"capture, {replays} replays), gather_mean {launches} host "
         f"launches, {per_replay} per replayed window, {device_launches} on "
-        f"the card == steps; edges_per_sec_per_gpu {eps:.6g} "
-        f"({r['steps_per_s']:.3f} steps/s; windows "
+        f"the card ({kernels_per_step} a step); {work}_per_sec_per_gpu "
+        f"{eps:.6g} ({r['steps_per_s']:.3f} steps/s, "
+        f"{r['roots_per_s']:.0f} roots/s; windows "
         + ", ".join(f"{x:.3f}" for x in window_rates)
         + f" steps/s); replay {r['replay_ms_median']:.3f} ms (events) = "
         f"{r['replay_ms_median'] / k:.3f} ms/step; host "
@@ -874,22 +957,23 @@ def _drive_loop(est, it, k: int) -> dict:
         f"windows: {input_wait_ms:.1f} ms waiting for batches, "
         f"{dispatch_ms:.1f} ms dispatching; peak "
         f"device memory {peak / 2**30:.2f} GiB; loss first 5 {first5:.4f} "
-        f"-> last 5 {last5:.4f}")
+        f"-> last 5 {last5:.4f}; window metrics "
+        + ", ".join(f"{m:.4f}" for m in metrics))
     return r
 
 
-def check_graph_vs_eager(store, table, node_types, dev) -> dict:
-    """LOOP_EQ_WINDOWS windows of 32 steps at K = 32 (the first eager on
+def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
+                         what: str = "flagship") -> dict:
+    """LOOP_EQ_WINDOWS windows of k steps at K = k (the first eager on
     the capture stream, the rest graph replays) and at K = 1, from the
     same weights on the same batches: losses, parameters and Adam's
-    moments and steps equal bit for bit."""
-    steps = LOOP_EQ_WINDOWS * LOOP_K
-    feed = flagship_estimator(store, table, node_types, dev).train_input_fn()
+    moments and steps equal bit for bit. make_estimator(K) builds the
+    estimator; feed gives the batches."""
+    steps = LOOP_EQ_WINDOWS * k
     batches = [next(feed) for _ in range(steps)]
     runs = []
-    for k in (LOOP_K, 1):
-        est = flagship_estimator(store, table, node_types, dev,
-                                 steps_per_loop=k)
+    for spl in (k, 1):
+        est = make_estimator(spl)
         res = est.train(iter(batches), max_steps=steps)
         runs.append((est, res["losses"]))
     (eg, lg), (ee, le) = runs
@@ -902,16 +986,195 @@ def check_graph_vs_eager(store, table, node_types, dev) -> dict:
             diffs[f"adam[{i}].{n}"] = max_abs_err(sg[i][n], se[i][n])
     worst = max(diffs.values())
     replays = eg._graphed.replays
-    log(f"graph vs eager: {steps} steps at K = {LOOP_K} ({replays} replays) "
-        f"and K = 1 from the same weights and batches: largest difference "
+    log(f"graph vs eager ({what}): {steps} steps at K = {k} ({replays} "
+        f"replays) and K = 1 from the same weights and batches: largest "
+        f"difference "
         f"{worst:.3g} over losses, {len(ee.model.state_dict())} parameters "
         f"and {sum(len(v) for v in se.values())} Adam state tensors "
         f"(bit for bit: {worst == 0.0})")
     if not (worst == 0.0 and replays == LOOP_EQ_WINDOWS - 1):
-        raise AssertionError(f"graph replay differs from the eager steps: "
-                             f"{diffs}")
-    return {"steps": steps, "replays": replays, "max_abs_diff": worst,
-            "diffs": diffs}
+        raise AssertionError(f"{what}: graph replay differs from the eager "
+                             f"steps: {diffs}")
+    return {"steps": steps, "steps_per_loop": k, "replays": replays,
+            "max_abs_diff": worst, "diffs": diffs}
+
+
+def unsup_estimator(store, table, neg, dev, **cfg) -> BaseEstimator:
+    """DeviceSampledUnsupervisedSage at the flagship's width (dim 128,
+    fanouts [15, 10], 5 negatives, random weights from seed 0) in a
+    plain BaseEstimator over the path's tables, Adam at lr 0.01."""
+    model = DeviceSampledUnsupervisedSage(
+        table.pad_row, FEAT_DIM, dim=DIM, fanouts=FANOUTS,
+        num_negs=UNSUP_NEGS, uniform_sampling=table.uniform_rows,
+        generator=torch.Generator().manual_seed(0))
+    est = BaseEstimator(model, dict(learning_rate=TRAIN_LR, optimizer="adam",
+                                    log_steps=1 << 30, checkpoint_steps=0,
+                                    seed=0, **cfg), device=dev)
+    est.static_batch.update({"feature_table": store.features,
+                             "feature_scale": store.feature_scale,
+                             **table.tables, **neg.tables})
+    return est
+
+
+def phase_unsup(store, table, neg, dev) -> dict:
+    """Unsupervised GraphSAGE at full width on the flagship's tables,
+    roots drawn over all nodes: K = 1 as phase 6 drives the flagship,
+    K = 32 as phase 7 (bench.py's prefetch thread of depth 3), and the
+    graph against eager steps at K = 8. gather_mean launches once per
+    step; edges per step as the flagship's."""
+    roots = root_input_fn(FULL_NODES, BATCH, 0)
+    r = {"k1": _drive_steps(unsup_estimator(store, table, neg, dev),
+                            roots(), "unsup")}
+    est = unsup_estimator(store, table, neg, dev, steps_per_loop=LOOP_K)
+    it = make_feeder(roots(), workers=0, depth=FEEDER_DEPTH)
+    try:
+        r["k32"] = _drive_loop(est, it, LOOP_K, what="unsup loop")
+    finally:
+        it.close()
+    del est
+    r["graph_vs_eager"] = check_graph_vs_eager(
+        lambda k: unsup_estimator(store, table, neg, dev, steps_per_loop=k),
+        root_input_fn(FULL_NODES, BATCH, 1)(), k=UNSUP_EQ_K,
+        what="unsupervised GraphSAGE")
+    return r
+
+
+def skipgram_estimator(table, neg, dev, **cfg) -> BaseEstimator:
+    """DeepWalk as bench.py --walk trains it (bench.py:392-503):
+    DeviceSampledSkipGram, dim 128, walk_len 5, window 1/1, 5
+    negatives, the unit-weight draw, Adam at lr 0.01, seed 0."""
+    model = DeviceSampledSkipGram(
+        table.pad_row, dim=DIM, walk_len=WALK_LEN, left_win=1, right_win=1,
+        num_negs=WALK_NEGS, uniform_sampling=table.uniform_rows,
+        generator=torch.Generator().manual_seed(0))
+    est = BaseEstimator(model, dict(learning_rate=TRAIN_LR, optimizer="adam",
+                                    log_steps=1 << 30, checkpoint_steps=0,
+                                    seed=0, **cfg), device=dev)
+    est.static_batch.update({**table.tables, **neg.tables})
+    return est
+
+
+def phase_walk(table, neg, dev) -> dict:
+    """The DeepWalk skip-gram at bench.py --walk's shape and K = 8
+    (bench.py's spl_walk, :814-818), fed by its prefetch thread (depth
+    3); pairs/s/GPU = steps x 32768 x 10 / s, bench.py's metric. The
+    path has no kernel of the port: gather_mean launches 0 times. Then
+    the graph against eager steps at K = 8, and dense Adam's bytes
+    beside the step's time: emb and ctx, [N+1, 128] float32 each, their
+    dense gradients and two moments; Adam reads p, g, m, v and writes
+    p, m, v."""
+    pairs_per_root = len(gen_pair_offsets(WALK_LEN + 1, 1, 1))
+    est = skipgram_estimator(table, neg, dev, steps_per_loop=WALK_K)
+    it = make_feeder(root_input_fn(FULL_NODES, BATCH, 0)(), workers=0,
+                     depth=FEEDER_DEPTH)
+    try:
+        r = _drive_loop(est, it, WALK_K, what="walk", work="pairs",
+                        work_per_step=BATCH * pairs_per_root,
+                        kernels_per_step=0)
+    finally:
+        it.close()
+    table_bytes = (table.pad_row + 1) * DIM * 4
+    adam_bytes = 2 * 7 * table_bytes
+    r["adam_bytes_per_step"] = adam_bytes
+    r["adam_bound_ms"] = adam_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms = r["replay_ms_median"] / WALK_K
+    log(f"walk: dense Adam over emb and ctx moves {adam_bytes / 1e9:.2f} GB "
+        f"a step, {r['adam_bound_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12} "
+        f"TB/s, against {step_ms:.3f} ms a step (events)")
+    del est
+    r["graph_vs_eager"] = check_graph_vs_eager(
+        lambda k: skipgram_estimator(table, neg, dev, steps_per_loop=k),
+        root_input_fn(FULL_NODES, BATCH, 1)(), k=WALK_K, what="DeepWalk")
+    return r
+
+
+def probe_embedding_backward(table, dev) -> dict:
+    """Whether F.embedding's dense backward on the card is deterministic
+    (the graph-vs-eager checks compare bit for bit): the gradient of a
+    [N+1, 128] table from the same upstream gradient, twice, for
+    indices of the walk step's shape ([32768 x 10, 6] rows drawn over
+    all nodes) and for the same count drawn from 1000 rows, where every
+    row collects thousands of adds."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = table.pad_row + 1
+    weight = torch.zeros((n, DIM), device=dev, requires_grad=True)
+    shape = (BATCH * len(gen_pair_offsets(WALK_LEN + 1, 1, 1)),
+             1 + WALK_NEGS)
+    up = torch.randn(shape + (DIM,), generator=gen, device=dev)
+    out = {}
+    for name, hi in (("all rows", n), ("1000 rows", 1000)):
+        idx = torch.randint(0, hi, shape, generator=gen, device=dev)
+        grads = []
+        for _ in range(2):
+            g, = torch.autograd.grad(
+                torch.nn.functional.embedding(idx, weight), weight, up)
+            grads.append(g)
+        out[name] = bool(torch.equal(grads[0], grads[1]))
+    del weight, up, grads
+    log("embedding backward: two runs bit for bit: " + ", ".join(
+        f"{k}: {v}" for k, v in out.items()))
+    return out
+
+
+def phase_unsup_quality() -> dict:
+    """The port's unsupervised runners on the card with the reference's
+    defaults: DeepWalk and LINE on the cora stand-in against their
+    RESULTS.md rows, unsupervised GraphSAGE on the ppi stand-in for
+    seeds 0-2 against the JAX package's own runs (its spread over seeds
+    is wider than the gate). Fails on a non-finite run, a skipped step,
+    or an MRR below its floor; prints each gate and whether it was
+    met."""
+    out = {}
+    for name, mod, argv, row in (
+            ("deepwalk cora", run_deepwalk, ["--device_sampler"],
+             DEEPWALK_ROW),
+            ("line cora", run_line, ["--device_sampler"], LINE_ROW)):
+        res, secs = _quiet_run(mod, argv, name)
+        m = res["eval_metric"]
+        gate = abs(m - row) <= QUALITY_BAND
+        log(f"quality: {name}: eval MRR {m:.4f} ({res['train_global_step']} "
+            f"steps, {secs:.1f}s; floor {UNSUP_FLOOR}; RESULTS.md row {row} "
+            f"+- {QUALITY_BAND}: {'met' if gate else 'not met'})")
+        if not m >= UNSUP_FLOOR:
+            raise AssertionError(f"{name}: eval MRR {m} < {UNSUP_FLOOR}")
+        out[name] = {"eval_mrr": m, "row": row, "gate_met": gate,
+                     "result": res}
+    mrr = []
+    for seed in QUALITY_SEEDS:
+        res, secs = _quiet_run(
+            run_graphsage, ["--device_sampler", "--mode", "unsupervised",
+                            "--dataset", "ppi", "--seed", str(seed)],
+            f"ppi seed {seed}")
+        mrr.append(res["eval_metric"])
+        log(f"quality: unsupervised GraphSAGE ppi seed {seed}: eval MRR "
+            f"{mrr[-1]:.4f} ({secs:.1f}s)")
+    mean = float(np.mean(mrr))
+    gate = abs(mean - PPI_ORACLE) <= QUALITY_BAND
+    log(f"quality: unsupervised GraphSAGE ppi mean eval MRR {mean:.4f} over "
+        f"seeds {list(QUALITY_SEEDS)} (floor {PPI_FLOOR}; the reference's "
+        f"own mean {PPI_ORACLE} +- {QUALITY_BAND}, "
+        f"tests/oracle_unsup_ppi.py: {'met' if gate else 'not met'})")
+    if not mean >= PPI_FLOOR:
+        raise AssertionError(f"ppi mean eval MRR {mean} < {PPI_FLOOR}")
+    out["graphsage unsup ppi"] = {"eval_mrr": mrr, "mean": mean,
+                                  "oracle": PPI_ORACLE, "gate_met": gate}
+    return out
+
+
+def _quiet_run(mod, argv, name):
+    """mod.main(argv) on the card with its output kept from the log;
+    raises on a non-finite run or a skipped step."""
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv)
+    secs = time.monotonic() - t0
+    if res["train_skipped_steps"] or res["train_skipped_batches"]:
+        raise AssertionError(f"{name}: skipped steps or batches: {res}")
+    if not all(np.isfinite(res[k]) for k in
+               ("train_loss", "eval_loss", "eval_metric")):
+        raise AssertionError(f"{name}: non-finite result: {res}")
+    return res, secs
 
 
 def phase_quality() -> dict:
@@ -1050,10 +1313,21 @@ def main(argv=None) -> int:
     record["train"] = phase_train(store, table, node_types, dev)
     record["loop"] = phase_loop(store, table, node_types, dev)
     record["loop"]["graph_vs_eager"] = check_graph_vs_eager(
-        store, table, node_types, dev)
+        lambda k: flagship_estimator(store, table, node_types, dev,
+                                     steps_per_loop=k),
+        flagship_estimator(store, table, node_types, dev).train_input_fn())
     record["loop_extra"] = [phase_loop(store, table, node_types, dev, k)
                             for k in args.extra_loop_k]
+    # the unsupervised family on the same graph: negatives over every
+    # node's unit weight, as bench.py builds them (bench.py:411-419)
+    neg = DeviceNodeSampler.from_arrays(np.ones(FULL_NODES, np.float32),
+                                        device=dev)
+    record["unsup"] = phase_unsup(store, table, neg, dev)
+    record["walk"] = phase_walk(table, neg, dev)
+    record["embedding_backward"] = probe_embedding_backward(table, dev)
+    del neg
     record["quality"] = phase_quality()
+    record["unsup_quality"] = phase_unsup_quality()
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     record["serve"] = phase_serve(ids, emb, dev)
     main_case = record["kernels"]["cases"][0]
@@ -1071,6 +1345,16 @@ def main(argv=None) -> int:
         "loop_replays": record["loop"]["replays"],
         "loop_device_launches":
             record["loop"]["gather_mean_device_launches"],
+        "unsup_launches": record["unsup"]["k1"]["gather_mean_launches"],
+        "unsup_loop_host_launches":
+            record["unsup"]["k32"]["gather_mean_host_launches"],
+        "unsup_loop_launches_per_replay":
+            record["unsup"]["k32"]["gather_mean_launches_per_replay"],
+        "unsup_loop_replays": record["unsup"]["k32"]["replays"],
+        "unsup_loop_device_launches":
+            record["unsup"]["k32"]["gather_mean_device_launches"],
+        "walk_device_launches":
+            record["walk"]["gather_mean_device_launches"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

@@ -1,13 +1,16 @@
 """Parameters between the JAX package and the port.
 
-A flax param tree of Dense layers (as numpy), e.g. the reference
-DeviceSampledGraphSage's
+A flax param tree of Dense layers and Embedding tables (as numpy), e.g.
+the reference DeviceSampledGraphSage's
 
     encoder/enc/agg_{d}/{self,nbr}/{kernel,bias},  out/{kernel,bias}
 
-maps to the port's state_dict keys by joining the path with "." and
-renaming kernel → weight. Flax kernels are [in, out]; the port's
-weights are [out, in], so kernels are transposed both ways.
+DeviceSampledUnsupervisedSage's encoder/agg_{d}/... and ctx_emb/table,
+or DeviceSampledSkipGram's emb/table and ctx/table, maps to the port's
+state_dict keys by joining the path with "." and renaming kernel →
+weight. Flax kernels are [in, out]; the port's weights are [out, in],
+so kernels are transposed both ways. Tables [rows, dim] keep their
+layout.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                                  f"convert, got shape {arr.shape}")
             out[".".join(scope + ["weight"])] = torch.from_numpy(
                 np.ascontiguousarray(arr.T))
-        elif name == "bias":
-            out[".".join(scope + ["bias"])] = torch.from_numpy(arr.copy())
+        elif name in ("bias", "table"):
+            out[".".join(scope + [name])] = torch.from_numpy(arr.copy())
         else:
             raise ValueError(f"{'/'.join(path)}: unknown param {name!r}")
     return out
@@ -56,7 +59,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
         arr = t.detach().cpu().numpy()
         if name == "weight":
             name, arr = "kernel", np.ascontiguousarray(arr.T)
-        elif name != "bias":
+        elif name not in ("bias", "table"):
             raise ValueError(f"{key}: unknown param {name!r}")
         node = tree
         for s in scope:

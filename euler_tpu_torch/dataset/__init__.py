@@ -2,7 +2,7 @@
 
 `get_dataset(name)` builds the named citation stand-in. The shapes and
 calibrated difficulty knobs are a copy of euler_tpu/dataset/__init__.py
-`_CITATION_SHAPES` (cora, citeseer, pubmed), fed to the same numpy
+`_CITATION_SHAPES` (cora, citeseer, pubmed, ppi), fed to the same numpy
 draws (synthetic.synthetic_citation), so the port's "cora" has the
 reference's features, labels, split and edges. The reference first
 looks for prepared files under $EULER_TPU_DATA_DIR; the port has no
@@ -27,6 +27,8 @@ _CITATION_SHAPES = {
     "pubmed": dict(n=19717, d=500, num_classes=3, signal=1.1,
                    confuse_frac=0.25, informative_dims=32,
                    intra_degree=3.6, inter_degree=0.9),
+    "ppi": dict(n=14755, d=50, num_classes=121, signal=1.0,
+                confuse_frac=0.2, informative_dims=24),
 }
 
 

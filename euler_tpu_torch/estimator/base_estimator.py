@@ -365,7 +365,12 @@ class BaseEstimator:
     def _emergency_checkpoint(self, err: BaseException) -> None:
         """Best-effort checkpoint before an unrecoverable input error
         re-raises: the run dies, the progress doesn't. Never masks the
-        original error."""
+        original error. Nothing is saved before the first batch of the
+        first train() has arrived (no state yet: nothing trained and no
+        checkpoint restored), as the reference saves nothing while its
+        state is None."""
+        if self._restore_pending:
+            return
         step = self.step
         try:
             self.save_checkpoint(step)

@@ -16,8 +16,9 @@ What a replay reads is fixed at capture:
 - K sampling and K dropout generators, made once and registered with
   the graph. torch reads a registered generator's seed and offset when
   the graph replays, so re-seeding one with the seed a fresh generator
-  would get (`sample_stream_seed(sample_seed)`, seed_words(seed + 1,
-  step, 0xD0)) makes the replayed step draw the bits of the eager step.
+  would get (`sample_stream_seed(sample_seed, word)` with the model's
+  `stream_word`; seed_words(seed + 1, step, 0xD0)) makes the replayed
+  step draw the bits of the eager step.
   One generator per step: sharing one across the K steps would shift
   which uniforms a step gets;
 - the parameters, the optimizer's state, the guard's skip count and the
@@ -147,10 +148,12 @@ class GraphedLoop:
 
     def _seed(self, est, batches) -> None:
         step0 = est.step
+        # the model's stream word, as its eager step seeds its stream
+        word = type(est.model).stream_word
         for k, b in enumerate(batches):
             if "sample_seed" in b:
                 self._sample_gens[k].manual_seed(
-                    sample_stream_seed(b["sample_seed"]))
+                    sample_stream_seed(b["sample_seed"], word))
             if est.uses_dropout:
                 self._dropout_gens[k].manual_seed(
                     est.dropout_seed(step0 + k))

@@ -1,16 +1,20 @@
-"""Supervised GraphSAGE on device-resident tables (counterpart of
-examples/graphsage/run_graphsage.py:19-132, its supervised
---device_sampler [--int8_features] branch, with the same defaults).
+"""GraphSAGE on device-resident tables (counterpart of
+examples/graphsage/run_graphsage.py:19-171, its --device_sampler
+branches, with the same defaults).
 
     python -m euler_tpu_torch.examples.run_graphsage --device_sampler \\
-        --int8_features [--dataset cora] [--seed 0] [--device cpu]
+        [--mode unsupervised] [--int8_features] [--dataset cora] \\
+        [--seed 0] [--device cpu]
 
-Prints the result dict of fit_citation (test_metric is the test split's
-micro-F1 at the best-val weights). --seed seeds the model's init, the
-root draws and dropout (the reference's estimator seed, default 0).
-The reference's other flags (--mode unsupervised, --aggregator,
---fused_sampler, --act_cache) belong to paths not ported yet (ROADMAP.md
-Queue A) and are not accepted.
+Supervised (the default mode) prints the result dict of fit_citation
+(test_metric is the test split's micro-F1 at the best-val weights).
+--mode unsupervised trains DeviceSampledUnsupervisedSage with a plain
+BaseEstimator on roots drawn over all nodes, train(max_steps) then
+evaluate(eval_steps), and prints the train_*/eval_* dict (eval_metric
+is the MRR). --seed seeds the model's init, the root draws and dropout
+(the reference's estimator seed, default 0). The reference's other
+flags (--aggregator, --fused_sampler, --act_cache) belong to paths not
+ported yet (ROADMAP.md Queue A) and are not accepted.
 """
 
 from __future__ import annotations
@@ -22,16 +26,25 @@ import numpy as np
 import torch
 
 from euler_tpu_torch.dataset import get_dataset
+from euler_tpu_torch.estimator.base_estimator import BaseEstimator
 from euler_tpu_torch.estimator.estimators import NodeEstimator
-from euler_tpu_torch.examples.common import fit_citation
-from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
+from euler_tpu_torch.examples.common import (
+    fit_citation, root_input_fn, train_then_evaluate,
+)
+from euler_tpu_torch.models.graphsage import (
+    DeviceSampledGraphSage, DeviceSampledUnsupervisedSage,
+)
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+from euler_tpu_torch.parallel.device_walk import DeviceNodeSampler
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
 from euler_tpu_torch.platform import resolve_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dataset", default="cora")
+    ap.add_argument("--mode", default="supervised",
+                    choices=["supervised", "unsupervised"])
     ap.add_argument("--fanouts", default="10,10")
     ap.add_argument("--hidden_dim", type=int, default=64)
     ap.add_argument("--device_sampler", action="store_true",
@@ -42,10 +55,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 feature table with a float32 per-column "
                          "scale")
     ap.add_argument("--batch_size", type=int, default=64)
+    ap.add_argument("--num_negs", type=int, default=5)
     ap.add_argument("--learning_rate", type=float, default=0.003)
     ap.add_argument("--dropout", type=float, default=0.6)
     ap.add_argument("--weight_decay", type=float, default=0.0)
     ap.add_argument("--max_steps", type=int, default=600)
+    ap.add_argument("--eval_steps", type=int, default=20,
+                    help="unsupervised: batches evaluated after training")
     ap.add_argument("--model_dir", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -66,17 +82,37 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"{data.neighbors.size} directed edges [synthetic]", flush=True)
     d = data.features.shape[1]
     feats = np.concatenate([data.features, np.zeros((1, d), np.float32)])
-    labels = np.concatenate([data.onehot_labels(),
-                             np.zeros((1, data.num_classes), np.float32)])
-    store = DeviceFeatureStore.from_arrays(
-        feats, labels, quantize="int8" if args.int8_features else None,
-        device=dev)
+    quantize = "int8" if args.int8_features else None
     sampler = DeviceNeighborTable.from_csr(data.offsets, data.neighbors,
                                            cap=args.sampler_cap, device=dev)
+    init = torch.Generator().manual_seed(args.seed)
+    if args.mode == "unsupervised":
+        store = DeviceFeatureStore.from_arrays(feats, quantize=quantize,
+                                               device=dev)
+        neg = DeviceNodeSampler.from_arrays(
+            np.ones(data.num_nodes, np.float32), device=dev)
+        model = DeviceSampledUnsupervisedSage(
+            sampler.pad_row, d, dim=args.hidden_dim, fanouts=fanouts,
+            num_negs=args.num_negs, generator=init)
+        est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
+                                        seed=args.seed),
+                            model_dir=args.model_dir or None, device=dev)
+        est.static_batch.update({"feature_table": store.features,
+                                 **sampler.tables, **neg.tables})
+        if store.feature_scale is not None:
+            est.static_batch["feature_scale"] = store.feature_scale
+        res = train_then_evaluate(
+            est, root_input_fn(data.num_nodes, args.batch_size, args.seed),
+            args.max_steps, args.eval_steps)
+        print(res, flush=True)
+        return res
+    labels = np.concatenate([data.onehot_labels(),
+                             np.zeros((1, data.num_classes), np.float32)])
+    store = DeviceFeatureStore.from_arrays(feats, labels, quantize=quantize,
+                                           device=dev)
     model = DeviceSampledGraphSage(
         data.num_classes, d, multilabel=False, dim=args.hidden_dim,
-        fanouts=fanouts, dropout=args.dropout,
-        generator=torch.Generator().manual_seed(args.seed))
+        fanouts=fanouts, dropout=args.dropout, generator=init)
     est = NodeEstimator(
         model, dict(batch_size=args.batch_size,
                     learning_rate=args.learning_rate,

@@ -1,0 +1,90 @@
+"""LINE with positives and negatives drawn on the device (counterpart of
+examples/line/run_line.py:15-86, its --device_sampler branch, with the
+same defaults and auto rules).
+
+    python -m euler_tpu_torch.examples.run_line --device_sampler \\
+        [--dataset cora] [--order 2] [--seed 0] [--device cpu]
+
+LINE as a walk_len-1 skip-gram (DeviceSampledSkipGram, window (0, 1)):
+each root's one weighted neighbor is its positive; order 1 shares the
+context table. A plain BaseEstimator trains on roots drawn over all
+nodes, train(max_steps) then evaluate(eval_steps); prints the
+train_*/eval_* dict (eval_metric is the MRR). Auto values (0): dim 256
+on pubmed else 128, lr 0.05 on pubmed else 0.025, max_steps 8000 on
+pubmed else max(500, 8·E / batch_size) with E the directed edges. The
+host-fed LINE model (edges sampled by the graph engine) waits for the
+engine binding.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from euler_tpu_torch.dataset import get_dataset
+from euler_tpu_torch.estimator.base_estimator import BaseEstimator
+from euler_tpu_torch.examples.common import root_input_fn, train_then_evaluate
+from euler_tpu_torch.examples.run_deepwalk import walk_tables
+from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
+from euler_tpu_torch.platform import resolve_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", default="cora")
+    ap.add_argument("--dim", type=int, default=0,
+                    help="0 = auto (256 on pubmed, 128 otherwise)")
+    ap.add_argument("--order", type=int, default=2, choices=[1, 2])
+    ap.add_argument("--num_negs", type=int, default=5)
+    ap.add_argument("--batch_size", type=int, default=128)
+    ap.add_argument("--learning_rate", type=float, default=0.0,
+                    help="0 = auto (0.05 on pubmed, 0.025 otherwise)")
+    ap.add_argument("--max_steps", type=int, default=0,
+                    help="0 = auto: 8000 on pubmed, ~8 epochs otherwise")
+    ap.add_argument("--eval_steps", type=int, default=20)
+    ap.add_argument("--device_sampler", action="store_true",
+                    help="positives and negatives drawn on the device "
+                         "(the only path ported)")
+    ap.add_argument("--sampler_cap", type=int, default=32)
+    ap.add_argument("--model_dir", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU; default CUDA")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    args = build_parser().parse_args(argv)
+    if not args.device_sampler:
+        raise NotImplementedError(
+            "the host-fed LINE model (edges sampled by the graph engine) "
+            "is not ported yet: ROADMAP.md Queue A, 'Engine binding'; "
+            "pass --device_sampler")
+    dev = resolve_device(args.device)
+    data = get_dataset(args.dataset)
+    is_pubmed = args.dataset == "pubmed"
+    args.dim = args.dim or (256 if is_pubmed else 128)
+    args.learning_rate = args.learning_rate or (0.05 if is_pubmed else 0.025)
+    if not args.max_steps:
+        args.max_steps = 8000 if is_pubmed else max(
+            500, int(8 * data.neighbors.size / args.batch_size))
+    tab, neg = walk_tables(data, args.sampler_cap, dev)
+    model = DeviceSampledSkipGram(
+        tab.pad_row, dim=args.dim, walk_len=1, left_win=0, right_win=1,
+        num_negs=args.num_negs, share_context=args.order == 1,
+        generator=torch.Generator().manual_seed(args.seed))
+    est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
+                                    seed=args.seed),
+                        model_dir=args.model_dir or None, device=dev)
+    est.static_batch.update({**tab.tables, **neg.tables})
+    res = train_then_evaluate(
+        est, root_input_fn(data.num_nodes, args.batch_size, args.seed),
+        args.max_steps, args.eval_steps)
+    print(res, flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

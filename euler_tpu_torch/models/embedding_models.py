@@ -1,0 +1,95 @@
+"""Skip-gram embeddings with the whole input path on the device
+(counterpart of euler_tpu/models/embedding_models.py:53-137,
+DeviceSampledSkipGram): DeepWalk, node2vec and LINE.
+
+The host-fed models of the same file (DeepWalk, LINE, fed by the graph
+engine's walks and edge samples) wait for the engine binding
+(ROADMAP.md Queue A, 'Engine binding').
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from euler_tpu_torch.models.graphsage import batch_stream
+from euler_tpu_torch.mp_utils.base import ModelOutput, ranking_loss
+from euler_tpu_torch.parallel.device_sampler import check_split_tables
+from euler_tpu_torch.parallel.device_walk import (
+    gen_pair_rows, sample_global_rows, walk_rows,
+)
+from euler_tpu_torch.utils.layers import Embedding
+
+
+class DeviceSampledSkipGram(nn.Module):
+    """Skip-gram with negative sampling over walks drawn on the device.
+
+    walk_len and the window (left_win, right_win) give DeepWalk; p and q
+    give node2vec's second-order bias; walk_len 1 with window (0, 1) is
+    LINE, second order with a separate context table (the default),
+    first order with share_context=True. Each root's walk
+    (device_walk.walk_rows over the neighbor table) gives its skip-gram
+    pairs (gen_pair_rows, in the reference's order), and each pair
+    num_negs negatives from the node sampler. The source embeds from
+    `emb` [num_rows + 1, dim], the positive and the negatives from `ctx`
+    (or `emb` with share_context). Pairs that touch the pad row (walks
+    that hit a dead end) are masked out of the loss and the MRR. The
+    output embedding is emb(roots).
+
+    The batch holds rows [roots int32], sample_seed and the tables
+    (nbr_table, cum_table, neg_rows, neg_cum). One stream, seeded from
+    (23, sample_seed), feeds in order the walk's steps and the
+    negatives; replayed uniforms replace them: batch["walk_uniforms"]
+    (one [B] tensor per step) and batch["neg_uniforms"] [B·P,
+    num_negs]. uniform_sampling (unit-weight tables) takes the
+    one-gather draw for the p = q = 1 steps. The fused/alias layouts
+    raise NotImplementedError."""
+
+    stream_word = 23
+
+    def __init__(self, num_rows: int, dim: int = 128, walk_len: int = 5,
+                 left_win: int = 1, right_win: int = 1, num_negs: int = 5,
+                 p: float = 1.0, q: float = 1.0, share_context: bool = False,
+                 uniform_sampling: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_rows = int(num_rows)
+        self.walk_len = int(walk_len)
+        self.left_win, self.right_win = int(left_win), int(right_win)
+        self.num_negs = int(num_negs)
+        self.p, self.q = float(p), float(q)
+        self.uniform_sampling = bool(uniform_sampling)
+        self.emb = Embedding(self.num_rows + 1, dim, generator=generator)
+        self.ctx = None if share_context else Embedding(
+            self.num_rows + 1, dim, generator=generator)
+
+    def sample(self, batch: Dict[str, Any]):
+        """(pairs [B·P, 2] rows (source, positive), negatives [B·P,
+        num_negs]) for this batch, the walks drawn before the
+        negatives."""
+        check_split_tables(batch)
+        roots = batch["rows"][0]
+        replays = [batch.get("walk_uniforms"), batch.get("neg_uniforms")]
+        gen = None if all(r is not None for r in replays) else \
+            batch_stream(batch, roots.device, self.stream_word)
+        walks = walk_rows(batch["nbr_table"], batch["cum_table"], roots,
+                          self.walk_len, generator=gen, uniforms=replays[0],
+                          p=self.p, q=self.q, uniform=self.uniform_sampling)
+        pairs = gen_pair_rows(walks, self.left_win, self.right_win)
+        pairs = pairs.reshape(-1, 2)
+        negs = sample_global_rows(batch["neg_rows"], batch["neg_cum"],
+                                  (pairs.shape[0], self.num_negs),
+                                  generator=gen, uniforms=replays[1])
+        return pairs, negs
+
+    def forward(self, batch: Dict[str, Any]) -> ModelOutput:
+        pairs, negs = self.sample(batch)
+        src_r, pos_r = pairs[:, 0], pairs[:, 1]
+        ctx_table = self.emb if self.ctx is None else self.ctx
+        src = self.emb(src_r)
+        ctx = ctx_table(torch.cat([pos_r[:, None], negs], dim=1))
+        pad = self.num_rows
+        loss, metric = ranking_loss(src, ctx, (src_r != pad) & (pos_r != pad))
+        return ModelOutput(self.emb(batch["rows"][0]), loss, "mrr", metric)

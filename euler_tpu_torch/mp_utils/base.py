@@ -1,5 +1,6 @@
 """Model contract: (embedding, loss, metric_name, metric) — counterpart
-of euler_tpu/mp_utils/base.py:24-96 (ModelOutput, SuperviseModel).
+of euler_tpu/mp_utils/base.py:24-142 (ModelOutput, SuperviseModel,
+UnsuperviseModel).
 
 A model takes a batch dict of tensors already on its device and returns
 a ModelOutput. Dropout (base.py:41-62) acts on the embedding before the
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from euler_tpu_torch.utils import metrics as M
-from euler_tpu_torch.utils.layers import Dense
+from euler_tpu_torch.utils.layers import Dense, Embedding
+from euler_tpu_torch.utils.losses import sigmoid_binary_cross_entropy
 
 
 class ModelOutput(NamedTuple):
@@ -88,3 +90,55 @@ class SuperviseModel(nn.Module):
                                           reduction="none")
             metric = M.micro_f1(logits, int_labels, mask=mask)
         return ModelOutput(emb, M.masked_mean(per_row, mask), "f1", metric)
+
+
+def ranking_loss(emb: torch.Tensor, ctx: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None):
+    """Negative-sampling loss and MRR of embeddings emb [B, D] against
+    contexts ctx [B, 1 + num_negs, D], the positive first: the sigmoid
+    BCE of the positive's logit against 1 plus that of the negatives'
+    against 0, each averaged over its row and then over the rows where
+    valid (0/1 [B]) is set (all rows when valid is None). Returns
+    (loss, mrr)."""
+    scores = torch.einsum("bd,bkd->bk", emb, ctx)
+    pos, neg = scores[:, :1], scores[:, 1:]
+    loss = (M.masked_mean(sigmoid_binary_cross_entropy(
+                pos, torch.ones_like(pos)).mean(-1), valid)
+            + M.masked_mean(sigmoid_binary_cross_entropy(
+                neg, torch.zeros_like(neg)).mean(-1), valid))
+    return loss, M.mrr(scores, valid)
+
+
+class UnsuperviseModel(nn.Module):
+    """Unsupervised embedding with negative sampling: a positive context
+    and num_negs sampled negatives per source, sigmoid BCE, MRR metric.
+
+    Subclasses define embed(batch) → [B, D]; the contexts batch["pos"]
+    [B] (or [B, 1]) and batch["negs"] [B, num_negs] are ids looked up in
+    one shared table, ctx_emb [max_id + 1, dim], unless a subclass
+    overrides context_embed(pos, negs). The batches come from the host
+    (the graph engine's pairs); those subclasses wait for the engine
+    binding (ROADMAP.md Queue A, 'Engine binding')."""
+
+    def __init__(self, dim: int, max_id: int, num_negs: int = 5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim = int(dim)
+        self.max_id = int(max_id)
+        self.num_negs = int(num_negs)
+        self.ctx_emb = Embedding(self.max_id + 1, self.dim,
+                                 generator=generator)
+
+    def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def context_embed(self, pos: torch.Tensor, negs: torch.Tensor):
+        return self.ctx_emb(pos), self.ctx_emb(negs)
+
+    def forward(self, batch: Dict[str, Any]) -> ModelOutput:
+        emb = self.embed(batch)
+        pos, negs = self.context_embed(batch["pos"], batch["negs"])
+        if pos.dim() == 2:
+            pos = pos[:, None, :]
+        loss, metric = ranking_loss(emb, torch.cat([pos, negs], dim=1))
+        return ModelOutput(emb, loss, "mrr", metric)

@@ -152,6 +152,15 @@ def _check_layout(fused: bool, alias: bool, shard_rows: bool) -> None:
             f"row-sharded tables are {_ROADMAP_SHARDED}")
 
 
+def check_split_tables(batch) -> None:
+    """A model's batch must carry the split nbr/cum tables: the fused
+    and alias layouts raise."""
+    if batch.get("nbrcum_table") is not None \
+            or batch.get("alias_table") is not None:
+        raise NotImplementedError(
+            f"fused/alias tables are {_ROADMAP_LAYOUTS}")
+
+
 class DeviceNeighborTable:
     """Neighbor rows + cumulative weights on one device.
 
@@ -316,3 +325,11 @@ def sample_fanout_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                          uniform=uniform)
         layers.append(cur)
     return layers
+
+
+def slot_weights(cum_rows: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative-weight rows [n, C] → per-slot edge weights
+    [n, C]: the inverse of the table's cumsum (counterpart of
+    euler_tpu/parallel/device_sampler.py:slot_weights)."""
+    return torch.diff(cum_rows, dim=1,
+                      prepend=torch.zeros_like(cum_rows[:, :1]))

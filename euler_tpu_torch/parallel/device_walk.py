@@ -1,0 +1,197 @@
+"""Device-resident random walks, skip-gram pairs and global node draws
+(counterpart of euler_tpu/parallel/device_walk.py): the input path of
+the device-sampled unsupervised family (unsupervised GraphSAGE,
+DeepWalk, node2vec, LINE).
+
+A walk is walk_len chained one-neighbor draws over the neighbor table
+(parallel/device_sampler.py); pairs are fixed index arithmetic over the
+walk's columns; negatives are an inverse-CDF draw over a node-weight
+cumsum. As in device_sampler, every draw is uniforms → pick: the
+uniforms come from the caller's torch.Generator, or are passed in (a
+replay), and given the same uniforms the picks are bit-exact with the
+JAX package's.
+
+Dead ends stay at the table's pad row; the models mask pairs that
+touch it out of the loss and the metric.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from euler_tpu_torch.parallel.device_sampler import sample_hop, slot_weights
+from euler_tpu_torch.platform import DeviceLike, resolve_device
+
+# float32 holds every integer up to 2^24 exactly: a cumsum of unit
+# weights over more nodes than that no longer tells neighbors apart
+_EXACT_UNIT_CUMSUM_ROWS = 1 << 24
+
+
+class DeviceNodeSampler:
+    """Weighted draws of table rows over all nodes (negatives, root
+    pools): a row pool and its inclusive float32 cumulative weights on
+    one device (counterpart of the reference's DeviceNodeSampler, which
+    reads both from the graph engine; the port has no engine and builds
+    them from arrays).
+
+    With unit weights the float32 cumsum is exact up to 2^24 nodes
+    (16.7M; bench.py's graph has 2.45M); past that, neighboring rows
+    share a cumsum value and the later one is never drawn, in the
+    reference too."""
+
+    def __init__(self):
+        raise TypeError("use DeviceNodeSampler.from_arrays")
+
+    @classmethod
+    def from_arrays(cls, node_weights: np.ndarray,
+                    node_types: Optional[np.ndarray] = None,
+                    node_type: int = -1,
+                    device: DeviceLike = None) -> "DeviceNodeSampler":
+        """node_weights [N] (row i is node i); node_type >= 0 keeps only
+        the rows whose node_types entry equals it."""
+        dev = resolve_device(device)
+        w = np.asarray(node_weights, np.float32).ravel()
+        rows = np.arange(len(w), dtype=np.int32)
+        if node_type >= 0:
+            if node_types is None:
+                raise ValueError("node_type >= 0 needs node_types")
+            keep = np.asarray(node_types).ravel() == node_type
+            rows, w = rows[keep], w[keep]
+        if len(rows) == 0:
+            raise ValueError("the node sampler's pool is empty")
+        self = cls.__new__(cls)
+        self.device = dev
+        self.rows = torch.from_numpy(rows).to(dev)
+        self.cum = torch.from_numpy(np.cumsum(w, dtype=np.float32)).to(dev)
+        return self
+
+    @property
+    def tables(self):
+        """Tensors to merge into a model's static batch."""
+        return {"neg_rows": self.rows, "neg_cum": self.cum}
+
+
+def _uniforms(shape, generator: Optional[torch.Generator],
+              uniforms: Optional[torch.Tensor], device) -> torch.Tensor:
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("a draw needs uniforms or a generator")
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=torch.float32)
+    if tuple(uniforms.shape) != tuple(shape):
+        raise ValueError(f"uniforms must be {list(shape)}, got "
+                         f"{list(uniforms.shape)}")
+    return uniforms
+
+
+def sample_global_rows(pool_rows: torch.Tensor, pool_cum: torch.Tensor,
+                       shape: Tuple[int, ...],
+                       generator: Optional[torch.Generator] = None,
+                       uniforms: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Weighted draw of `shape` rows from a (pool, cum) node sampler:
+    u·total, the left-side searchsorted (jnp.searchsorted's side), a
+    clip to the pool, a take."""
+    u = _uniforms(shape, generator, uniforms, pool_cum.device)
+    idx = torch.searchsorted(pool_cum, u.reshape(-1) * pool_cum[-1])
+    idx = idx.clamp(0, pool_rows.shape[0] - 1)
+    return pool_rows[idx].reshape(shape)
+
+
+def walk_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
+              roots: torch.Tensor, walk_len: int,
+              generator: Optional[torch.Generator] = None,
+              uniforms: Optional[Sequence[torch.Tensor]] = None,
+              p: float = 1.0, q: float = 1.0,
+              uniform: bool = False) -> torch.Tensor:
+    """[B] roots → [B, walk_len + 1] row walks, column 0 the roots.
+
+    uniforms: optional one [B] tensor per step (a replay); else each
+    step draws [B] uniforms from `generator`, in step order.
+
+    The first step, and every step when p == q == 1, is one neighbor
+    draw (sample_hop with count 1; uniform=True takes the one-gather
+    unit-weight draw). Otherwise node2vec's second-order bias scales
+    each candidate's slot weight by 1/p when it returns to the previous
+    node, 1 when it is a kept neighbor of the previous node, 1/q else
+    (C x C compares over the capped rows), then draws by inverse CDF
+    over the biased row; a row of total weight 0 stays at its pad. That
+    path always reads the cum table: it needs raw slot weights.
+
+    Its row cumsum may add in another order than XLA's, so with
+    replayed uniforms a pick can differ from the reference's where u
+    falls on a boundary that the two orders round differently; weights
+    that float32 sums exactly in any order (unit slots with p = 0.5,
+    q = 2) give the same picks."""
+    if uniforms is not None and len(uniforms) != walk_len:
+        raise ValueError(f"need one uniforms tensor per step ({walk_len}), "
+                         f"got {len(uniforms)}")
+    B = roots.shape[0]
+    C = nbr_table.shape[1]
+
+    def step_u(i):
+        return _uniforms((B,), generator,
+                         None if uniforms is None else uniforms[i],
+                         roots.device)
+
+    cols = [roots]
+    cur = sample_hop(nbr_table, cum_table, roots, 1,
+                     uniforms=step_u(0).reshape(B, 1), uniform=uniform)
+    cols.append(cur)
+    prev = roots
+    for i in range(1, walk_len):
+        u = step_u(i)
+        if p == 1.0 and q == 1.0:
+            nxt = sample_hop(nbr_table, cum_table, cur, 1,
+                             uniforms=u.reshape(B, 1), uniform=uniform)
+        else:
+            cand = nbr_table[cur.long()]                      # [B, C]
+            w = slot_weights(cum_table[cur.long()])           # [B, C]
+            prev_nbr = nbr_table[prev.long()]                 # [B, C]
+            is_prev = cand == prev[:, None]
+            in_prev_nbr = (cand[:, :, None]
+                           == prev_nbr[:, None, :]).any(-1)
+            # pad candidates keep weight 0 whatever their bias
+            bias = torch.where(is_prev, 1.0 / p,
+                               torch.where(in_prev_nbr, 1.0, 1.0 / q))
+            bcum = torch.cumsum(w * bias, dim=1)
+            total = bcum[:, -1]
+            col = (bcum <= (u * total)[:, None]).sum(-1).clamp(0, C - 1)
+            nxt = torch.gather(cand, 1, col[:, None])[:, 0]
+            # a dead end (or the pad row) has every slot at the pad
+            nxt = torch.where(total > 0, nxt, cand[:, 0])
+        cols.append(nxt)
+        prev, cur = cur, nxt
+    return torch.stack(cols, dim=1)
+
+
+def gen_pair_offsets(walk_cols: int, left_win: int,
+                     right_win: int) -> List[Tuple[int, int]]:
+    """(center, context) column pairs of an L-column walk, clipped at
+    its ends, in the reference's order (gen_pair)."""
+    out = []
+    for i in range(walk_cols):
+        for off in range(-left_win, right_win + 1):
+            j = i + off
+            if off == 0 or j < 0 or j >= walk_cols:
+                continue
+            out.append((i, j))
+    return out
+
+
+def gen_pair_rows(walks: torch.Tensor, left_win: int,
+                  right_win: int) -> torch.Tensor:
+    """[B, L] walks → [B, P, 2] skip-gram pairs, in the reference's
+    pair order, so models trained on either path are interchangeable."""
+    offs = gen_pair_offsets(walks.shape[1], left_win, right_win)
+    if not offs:
+        return walks.new_zeros((walks.shape[0], 0, 2))
+    # column slices, not an index tensor: nothing is copied from the
+    # host, so a CUDA graph can capture it
+    src = torch.stack([walks[:, i] for i, _ in offs], dim=1)
+    dst = torch.stack([walks[:, j] for _, j in offs], dim=1)
+    return torch.stack([src, dst], dim=-1)
+

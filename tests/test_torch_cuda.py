@@ -417,3 +417,128 @@ def test_cuda_optimizer_steps_capture(name):
     for k in sa:
         for n in sa[k]:
             assert torch.equal(sa[k][n], sb[k][n]), (k, n)
+
+
+# -- the device-sampled unsupervised family ----------------------------------
+
+def _unsup_setup(kind, dev="cuda"):
+    """(model factory, static tables, root count) on a 60,000-node
+    products-like graph with unit weights: "unsup" is
+    DeviceSampledUnsupervisedSage at the full-width configuration (100
+    int8 features with a bf16 scale, dim 128, fanouts [15, 10], 5
+    negatives); "skipgram" is DeepWalk at bench.py --walk's (walk_len 5,
+    window 1/1, 5 negatives, dim 128)."""
+    from euler_tpu_torch.dataset.synthetic import products_like
+    from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
+    from euler_tpu_torch.models.graphsage import DeviceSampledUnsupervisedSage
+    from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+    from euler_tpu_torch.parallel.device_walk import DeviceNodeSampler
+    from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+
+    n = 60_000
+    g = products_like(n, 50, 100, 16)
+    tab = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=32,
+                                       device=dev)
+    neg = DeviceNodeSampler.from_arrays(np.ones(n, np.float32), device=dev)
+    static = {**tab.tables, **neg.tables}
+    if kind == "unsup":
+        feats = np.concatenate([g.features, np.zeros((1, 100), np.float32)])
+        store = DeviceFeatureStore.from_arrays(
+            feats, quantize="int8", scale_dtype=torch.bfloat16, device=dev)
+        static.update(feature_table=store.features,
+                      feature_scale=store.feature_scale)
+
+        def model():
+            return DeviceSampledUnsupervisedSage(
+                tab.pad_row, 100, dim=128, fanouts=(15, 10),
+                uniform_sampling=tab.uniform_rows,
+                generator=torch.Generator().manual_seed(0))
+    else:
+        def model():
+            return DeviceSampledSkipGram(
+                tab.pad_row, dim=128, walk_len=5,
+                uniform_sampling=tab.uniform_rows,
+                generator=torch.Generator().manual_seed(0))
+    return model, static, n
+
+
+def _unsup_estimator(model, static, dev="cuda", **cfg):
+    from euler_tpu_torch.estimator.base_estimator import BaseEstimator
+
+    est = BaseEstimator(model, {"learning_rate": 0.01, "checkpoint_steps": 0,
+                                "log_steps": 1 << 30, **cfg}, device=dev)
+    est.static_batch.update(static)
+    return est
+
+
+@pytest.mark.cuda
+def test_cuda_unsup_sage_launches_gather_mean_and_matches_the_cpu():
+    """DeviceSampledUnsupervisedSage on the card launches gather_mean
+    once per forward, and with the same weights and replayed uniforms
+    draws the CPU path's rows exactly and gives its embedding and loss
+    within 2^-7 of the largest value: the neighbor means are bf16, and
+    the kernel's f32 sum may round to the other side of a bf16 value
+    than the plain version's (one bf16 rounding)."""
+    _need_card()
+    make, static, n = _unsup_setup("unsup")
+    rng = np.random.default_rng(3)
+    b = 512
+    roots = rng.integers(0, n, b).astype(np.int32)
+    batch = {"rows": [torch.from_numpy(roots)], "sample_seed": 1,
+             "sample_uniforms": [torch.from_numpy(rng.random(
+                 (b * m, k), dtype=np.float32)) for m, k in ((1, 15),
+                                                             (15, 10))],
+             "pos_uniforms": torch.from_numpy(rng.random((b, 1),
+                                                         dtype=np.float32)),
+             "neg_uniforms": torch.from_numpy(rng.random((b, 5),
+                                                         dtype=np.float32))}
+    model = make()
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = model.to(dev)
+        tables = {k: v.to(dev) for k, v in static.items()}
+        bb = {k: ([x.to(dev) for x in v] if isinstance(v, list)
+                  else v.to(dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in batch.items()}
+        before = gather_mean.launches
+        with torch.no_grad():
+            out = m({**bb, **tables})
+            drawn = m.sample({**bb, **tables})
+        assert gather_mean.launches - before == (1 if dev == "cuda" else 0)
+        outs.append((out.embedding.float().cpu(), float(out.loss),
+                     [x.cpu() for x in (*drawn[0], *drawn[1:])]))
+    (ea, la, ra), (eb, lb, rb) = outs
+    assert all(torch.equal(x, y) for x, y in zip(ra, rb))
+    assert torch.isfinite(ea).all()
+    assert float((ea - eb).abs().max()) <= 2 ** -7 * float(eb.abs().max())
+    assert la == pytest.approx(lb, rel=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["unsup", "skipgram"])
+def test_cuda_graph_windows_match_eager_steps_unsupervised(kind):
+    """3 windows of K = 8 and a tail of 2 (the first window eager on the
+    capture stream, then two replays that re-seed each step's generator
+    with the model's stream word, 29 or 23) against K = 1 on the same
+    batches: the same losses, parameters and Adam moments, bit for bit.
+    The embedding tables' gradients are dense [rows, dim] tensors from
+    F.embedding's backward; bit for bit here also shows that backward
+    is deterministic on the card. gather_mean is recorded 8 times per
+    window in the unsupervised model, never in the skip-gram."""
+    _need_card()
+    from euler_tpu_torch.examples.common import root_input_fn
+
+    make, static, n = _unsup_setup(kind)
+    k, steps = 8, 26
+    feed = root_input_fn(n, 4096, 0)()
+    batches = [next(feed) for _ in range(steps)]
+    graphed = _unsup_estimator(make(), static, steps_per_loop=k)
+    eager = _unsup_estimator(make(), static)
+    rg = graphed.train(iter(batches), max_steps=steps)
+    re_ = eager.train(iter(batches), max_steps=steps)
+    loop = graphed._graphed
+    assert (loop.captures, loop.replays) == (1, 2)
+    assert loop.launches_per_replay == (k if kind == "unsup" else 0)
+    assert rg["losses"] == re_["losses"]
+    assert np.isfinite(rg["losses"]).all()
+    _assert_same_state(graphed, eager)

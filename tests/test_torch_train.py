@@ -662,6 +662,32 @@ def test_input_path_matches_the_reference(tmp_path, case):
     assert snap[f"estimator={est._obs_name}"] == health["input_failures"]
 
 
+def test_first_batch_error_writes_no_emergency_checkpoint(tmp_path):
+    """A fresh estimator with a model_dir whose input_fn raises
+    ValueError at its first next(): the error re-raises and nothing is
+    saved, since nothing was trained or restored (the reference saves
+    nothing while its state is None). The same files on disk (none) and
+    the same input_health in both packages."""
+    _, feats, labels = _graph()
+    _, tab, store = _tables(feats, labels)
+    jest, jstatic = _jax_setup(feats, labels, "float32", tab)
+    jest = JaxBaseEstimator(jest.model, {"checkpoint_steps": 0},
+                            model_dir=str(tmp_path / "jax"))
+    jest.static_batch = jstatic
+    est = _cpu_estimator(_model(), tab, store, model_dir=str(tmp_path / "pt"))
+    seen = []
+    for e, d in ((jest, tmp_path / "jax"), (est, tmp_path / "pt")):
+        with pytest.raises(ValueError, match="bad batch"):
+            e.train(_scripted_input(["value"], None), max_steps=2)
+        seen.append((sorted(str(p.relative_to(d)) for p in d.rglob("*"))
+                     if d.exists() else [], e.input_health))
+    assert seen[0] == seen[1]
+    assert seen[1] == ([], {"input_failures": 1, "input_retries": 0,
+                            "skipped_batches": 0,
+                            "emergency_checkpoint_step": None,
+                            "last_input_error": "bad batch"})
+
+
 @pytest.mark.parametrize("steps_per_loop", [1, 4])
 def test_feeder_workers_give_the_same_batches_and_results(steps_per_loop):
     """feeder_workers = 2 in device-sampler mode (no batch factory: the
