@@ -10,8 +10,9 @@ The GraphSAGE path at the width of bench.py's flagship configuration
 per-column scale, neighbor cap 32), DeviceSampledGraphSage with dim 128
 and fanouts [15, 10] and random seeded weights, root batches of 32768;
 then the unsupervised family on the same graph (unsupervised GraphSAGE
-and the DeepWalk skip-gram of bench.py --walk). Phases, in order; any
-failure raises and the exit code is not 0:
+and the DeepWalk skip-gram of bench.py --walk); then the serving stack
+over bundles exported from the trained flagship (2,450,000 x 256 f32).
+Phases, in order; any failure raises and the exit code is not 0:
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off
   2. build    nvcc builds every kernel under euler_tpu_torch/csrc; ptxas
@@ -32,7 +33,10 @@ failure raises and the exit code is not 0:
               (bench.py:883-911), then 10 event-timed steps; edges/s,
               one profiled step, launches == steps, a finite falling
               loss, no skipped step; one remat=True step against the
-              plain step (same loss, gradients, 2 launches)
+              plain step (same loss, gradients, 2 launches); then
+              export v1: export_bundle from that estimator (the sweep,
+              gather_mean once per forward, 75; save with sha256,
+              index off), and a verified load
   7. loop     the same training at steps_per_loop = 32 (bench.py's K,
               bench.py:41-44), fed by bench.py's prefetch thread (depth
               3): K + 2 warm-up steps (the first window eager, then the
@@ -44,7 +48,8 @@ failure raises and the exit code is not 0:
               per window x replays == steps. Then the graph against
               eager steps at the same shapes: 3 windows of 32 from the
               same weights and batches at K = 32 and at K = 1 give the
-              same losses, parameters and Adam moments, bit for bit
+              same losses, parameters and Adam moments, bit for bit;
+              export v2 from the K = 32 estimator, as after phase 6
   8. unsup    unsupervised GraphSAGE (DeviceSampledUnsupervisedSage,
               5 negatives drawn over every node) at the flagship's
               width on the same tables, in a plain BaseEstimator: K = 1
@@ -65,9 +70,22 @@ failure raises and the exit code is not 0:
               unsupervised runners: DeepWalk and LINE on cora against
               their RESULTS.md rows (floor 0.95), unsupervised GraphSAGE
               on ppi for seeds 0, 1, 2 against the JAX package's own
-              runs (floor 0.5); each gate printed, met or not
+              10-seed mean within 2 standard errors (floor 0.5); each
+              gate printed, met or not
  11. small    a small input through the card and through the CPU path
- 12. serve    embed / score requests against direct indexing
+ 12. serve    the training tables freed, then through the TCP stack on
+              the card: InferenceServer loads v1 (verified) and uploads
+              its table; embed exact, score within its float32 bound,
+              16 exact knn (8 ids, k 10) byte-identical to brute_force;
+              latency legs (8 threads x 200 requests x 8 ids) batch-1
+              vs micro-batched (64, 2 ms) for embed and score: p50,
+              p99, p999, req/s, shed, lost (0); a swap to v2 under
+              embed traffic (0 lost, answers after the flip v2's, the
+              swap's time and its worst request); save_sharded(2) of v1
+              and two shard replicas on the card behind a dir:
+              registry, whose scatter-gather knn is byte-identical to
+              brute_force over the unsharded table. Bundles are written
+              under build/chip_smoke_bundles and removed at the end
  13. result   the kernels JSON line, then {"ok": true, "device": ...}
 
 Without CUDA it exits 1 and prints no result. --out PATH also writes
@@ -83,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -91,6 +110,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -118,7 +138,9 @@ from euler_tpu_torch.parallel.device_walk import (
     DeviceNodeSampler, gen_pair_offsets,
 )
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
-from euler_tpu_torch.serving.engine import EmbeddingEngine
+from euler_tpu_torch.estimator.retry import RetryPolicy
+from euler_tpu_torch.serving import InferenceServer, ModelBundle, ServingClient
+from euler_tpu_torch.tools.knn import brute_force
 
 FULL_NODES = 2_450_000
 AVG_DEGREE, FEAT_DIM, NUM_CLASSES, CAP = 50, 100, 16, 32
@@ -145,11 +167,25 @@ UNSUP_NEGS, UNSUP_EQ_K = 5, 8
 WALK_LEN, WALK_NEGS, WALK_K = 5, 5, 8
 # quality: RESULTS.md deepwalk-dev | cora | mrr | 0.995 and line-dev |
 # cora | mrr | 0.986; unsupervised GraphSAGE on ppi has no row: the JAX
-# package's own --device_sampler runner, mean eval MRR over engine
-# seeds 0-2 (tests/oracle_unsup_ppi.py: 0.5955, 0.5830, 0.5606). The
-# floors catch broken training; the gates are printed, met or not.
+# package's own --device_sampler runner, mean eval MRR over engine seeds
+# 0-9 on the CPU (tests/oracle_unsup_ppi.py --seeds 0 ... 9: 0.5834,
+# standard deviation over seeds 0.0114), against the port's runner with
+# --device cpu --seed 0-9 (standard deviation 0.0168). The gate: the
+# card's mean over QUALITY_SEEDS within 2 standard errors of the
+# difference, sqrt(sd_port^2 / 3 + sd_ref^2 / 10). The floors catch
+# broken training; the gates are printed, met or not.
 DEEPWALK_ROW, LINE_ROW, UNSUP_FLOOR = 0.995, 0.986, 0.95
-PPI_ORACLE, PPI_FLOOR = 0.5797, 0.5
+PPI_ORACLE, PPI_REF_SD, PPI_PORT_SD, PPI_FLOOR = 0.5834, 0.0114, 0.0168, 0.5
+# serving (tools/bench_serve.py:194-208, serve_smoke's shape): 8 client
+# threads, 8 ids a request, batch-1 (max_batch 1, flush_ms 0) against
+# micro-batched (64, 2 ms), nothing injected; 200 requests a thread so
+# that p99 is resolved; 16 exact knn requests (k 10); embed/score checks
+# of 64 ids; the swap drill runs until 400 answers were sent after the
+# flip
+SERVE_THREADS, SERVE_IDS, SERVE_REQS, SERVE_K = 8, 8, 200, 10
+SERVE_LEGS = ((1, 0.0), (64, 2.0))
+SERVE_KNN_REQS, SERVE_CHECK_REQS, SERVE_AFTER_SWAP = 16, 16, 400
+SERVE_JOIN_S = 300.0
 
 
 def log(msg: str) -> None:
@@ -620,17 +656,17 @@ def profile_device(fn, what: str, top_n: int = 10) -> dict:
                                      if "gather_mean" in k)}
 
 
-def phase_train(store, table, node_types, dev: torch.device) -> dict:
+def phase_train(store, table, node_types, dev: torch.device) -> tuple:
     """Train the flagship model through NodeEstimator on the sweep's
     tables, as bench.py times it (_drive_steps), then the index rule's
-    cost and the remat check."""
+    cost and the remat check. Returns (record, the estimator)."""
     est = flagship_estimator(store, table, node_types, dev)
     it = est.train_input_fn()
     r = _drive_steps(est, it, "train")
     r["index_rule"] = time_index_rule(est, est.model, it,
                                       r["profile"]["device_busy_ms"])
     r["remat"] = check_remat(est, est.model, it, dev)
-    return r
+    return r, est
 
 
 def _drive_steps(est, it, what: str, work: str = "edges",
@@ -810,16 +846,17 @@ def flagship_estimator(store, table, node_types, dev, **cfg):
         node_types, store, table, device=dev)
 
 
-def phase_loop(store, table, node_types, dev, k: int = LOOP_K) -> dict:
+def phase_loop(store, table, node_types, dev, k: int = LOOP_K) -> tuple:
     """NodeEstimator.train at steps_per_loop = k (32) as bench.py drives it:
     the prefetch thread (depth 3) builds each batch and copies its roots
     to the card; K + 2 warm-up steps; 3 timed windows on the host clock
-    with a synchronize at the window edges only."""
+    with a synchronize at the window edges only. Returns (record, the
+    estimator)."""
     est = flagship_estimator(store, table, node_types, dev,
                              steps_per_loop=k)
     it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH)
     try:
-        return _drive_loop(est, it, k)
+        return _drive_loop(est, it, k), est
     finally:
         it.close()
 
@@ -1120,8 +1157,9 @@ def phase_unsup_quality() -> dict:
     """The port's unsupervised runners on the card with the reference's
     defaults: DeepWalk and LINE on the cora stand-in against their
     RESULTS.md rows, unsupervised GraphSAGE on the ppi stand-in for
-    seeds 0-2 against the JAX package's own runs (its spread over seeds
-    is wider than the gate). Fails on a non-finite run, a skipped step,
+    seeds 0-2 against the JAX package's own 10-seed mean, within 2
+    standard errors of the difference. Fails on a non-finite run, a
+    skipped step,
     or an MRR below its floor; prints each gate and whether it was
     met."""
     out = {}
@@ -1149,15 +1187,17 @@ def phase_unsup_quality() -> dict:
         log(f"quality: unsupervised GraphSAGE ppi seed {seed}: eval MRR "
             f"{mrr[-1]:.4f} ({secs:.1f}s)")
     mean = float(np.mean(mrr))
-    gate = abs(mean - PPI_ORACLE) <= QUALITY_BAND
+    se = float(np.sqrt(PPI_PORT_SD ** 2 / len(mrr) + PPI_REF_SD ** 2 / 10))
+    gate = abs(mean - PPI_ORACLE) <= 2 * se
     log(f"quality: unsupervised GraphSAGE ppi mean eval MRR {mean:.4f} over "
         f"seeds {list(QUALITY_SEEDS)} (floor {PPI_FLOOR}; the reference's "
-        f"own mean {PPI_ORACLE} +- {QUALITY_BAND}, "
+        f"own 10-seed mean {PPI_ORACLE} +- 2 standard errors {2 * se:.4f}, "
         f"tests/oracle_unsup_ppi.py: {'met' if gate else 'not met'})")
     if not mean >= PPI_FLOOR:
         raise AssertionError(f"ppi mean eval MRR {mean} < {PPI_FLOOR}")
     out["graphsage unsup ppi"] = {"eval_mrr": mrr, "mean": mean,
-                                  "oracle": PPI_ORACLE, "gate_met": gate}
+                                  "oracle": PPI_ORACLE, "two_se": 2 * se,
+                                  "gate_met": gate}
     return out
 
 
@@ -1247,35 +1287,368 @@ def phase_small_vs_cpu(dev: torch.device) -> dict:
     return {"max_abs_err": err, "tol": 1e-4}
 
 
-def phase_serve(ids: np.ndarray, emb: np.ndarray, dev: torch.device) -> dict:
-    eng = EmbeddingEngine(ids, emb, device=dev)
-    rng = np.random.default_rng(3)
-    unknown = np.uint64(int(ids[-1]) + 1_000_000_007)
+def phase_export(est, out_dir: str, version: str, what: str) -> tuple:
+    """export_bundle from a trained flagship estimator: the embedding
+    sweep over every node (gather_mean once per forward), the files with
+    their sha256, then a verified load. index=False at this width: the
+    reference's IVF build is host k-means whose per-centroid mask loop
+    rereads the whole table 64 times an iteration for 10 iterations,
+    minutes of host time and none of the card's (ROADMAP performance
+    queue). Returns (record, the ModelBundle)."""
+    forwards = -(-len(est.split_ids(est.infer_node_type)) // est.batch_size)
+    torch.cuda.synchronize()
+    gather_mean.launches = 0
     t0 = time.monotonic()
-    requests = 0
-    for _ in range(4):
-        q = rng.choice(ids, 256).astype(np.uint64)
-        q[7] = unknown
-        got = eng.embed(q)
-        want = emb[q.astype(np.int64).clip(0, len(ids) - 1)]
-        want[7] = 0.0
-        if not np.array_equal(got, want):
-            raise AssertionError("embed disagrees with direct indexing")
-        src = rng.choice(ids, 256).astype(np.uint64)
-        dst = rng.choice(ids, 256).astype(np.uint64)
-        dst[0] = unknown
-        s = eng.score(src, dst)
-        ref = (emb[src.astype(np.int64)]
-               * emb[dst.astype(np.int64).clip(0, len(ids) - 1)]).sum(-1)
-        ref[0] = 0.0
-        if not np.allclose(s, ref, rtol=1e-5, atol=1e-4):
-            raise AssertionError("score disagrees with row-wise dots")
-        requests += 2
-    secs = time.monotonic() - t0
-    log(f"serve: {requests} requests (embed/score x256 ids, one unknown "
-        f"id each) agree with direct indexing; {secs / requests * 1e3:.2f} "
-        f"ms/request")
-    return {"requests": requests, "ms_per_request": secs / requests * 1e3}
+    bundle = est.export_bundle(out_dir, index=False, version=version)
+    t_export = time.monotonic() - t0
+    launches = gather_mean.launches
+    if launches != forwards:
+        raise AssertionError(f"{what}: gather_mean launched {launches} "
+                             f"times for {forwards} sweep forwards")
+    if bundle.embeddings.shape != (FULL_NODES, 2 * DIM) or \
+            not np.isfinite(bundle.embeddings).all():
+        raise AssertionError(f"{what}: embeddings {bundle.embeddings.shape} "
+                             "or non-finite")
+    if not np.array_equal(bundle.ids, est.feature_store.ids):
+        raise AssertionError(f"{what}: bundle ids are not the store's")
+    t0 = time.monotonic()
+    loaded = ModelBundle.load(out_dir, verify=True)
+    t_verify = time.monotonic() - t0
+    if not (np.array_equal(loaded.ids, bundle.ids)
+            and np.array_equal(loaded.embeddings, bundle.embeddings)):
+        raise AssertionError(f"{what}: the verified load differs")
+    del loaded
+    nbytes = sum(os.path.getsize(os.path.join(out_dir, f))
+                 for f in os.listdir(out_dir))
+    r = {"version": version, "global_step": bundle.meta["global_step"],
+         "forwards": forwards, "gather_mean_launches": launches,
+         "rows": bundle.count, "dim": bundle.dim, "bundle_bytes": nbytes,
+         "export_save_seconds": t_export, "verify_load_seconds": t_verify}
+    log(f"export {what}: {bundle.count} ids x {bundle.dim} f32 at step "
+        f"{r['global_step']}, gather_mean launches {launches} == "
+        f"{forwards} forwards; export_bundle (sweep + host copy + save + "
+        f"sha256) {t_export:.2f}s, verified load {t_verify:.2f}s; bundle "
+        f"{nbytes} bytes; IVF index off at this width (host k-means, see "
+        f"the phase's docstring)")
+    return r, bundle
+
+
+def lat_summary(lats_s: list) -> dict:
+    """Counted order statistics of a sorted list of seconds, in ms."""
+    def pct(p):
+        return lats_s[min(int(len(lats_s) * p), len(lats_s) - 1)] * 1e3 \
+            if lats_s else None
+
+    return {"p50_ms": pct(0.50), "p99_ms": pct(0.99), "p999_ms": pct(0.999),
+            "max_ms": lats_s[-1] * 1e3 if lats_s else None}
+
+
+def _closed_loop(port: int, ids: np.ndarray, verb: str, threads: int,
+                 reqs: int, check=None, until=None) -> dict:
+    """SERVE_THREADS-style closed-loop clients, one ServingClient each,
+    SERVE_IDS random ids per request (tools/bench_serve.py:run_leg's
+    shape): `reqs` requests a thread, or while until() is false. check
+    (q, answer) holds each answer. Latencies at the client, retries
+    included; lost = sent - answered - errors (must be 0)."""
+    mu = threading.Lock()
+    lats, spans, errors, bad, sent = [], [], [0], [], [0]
+    pol = RetryPolicy(deadline_s=30.0, call_timeout_s=20.0)
+
+    def worker(widx: int):
+        rng = np.random.default_rng(widx)
+        with ServingClient(endpoints=f"hosts:127.0.0.1:{port}",
+                           retry_policy=pol) as cli:
+            i = 0
+            while (i < reqs) if until is None else not until():
+                i += 1
+                q = ids[rng.integers(0, len(ids), SERVE_IDS)]
+                with mu:
+                    sent[0] += 1
+                t0 = time.monotonic()
+                try:
+                    out = cli.score(q, q[::-1].copy()) if verb == "score" \
+                        else cli.embed(q)
+                except Exception as e:  # an explicit status: counted
+                    with mu:
+                        errors[0] += 1
+                        bad.append(repr(e))
+                    continue
+                t1 = time.monotonic()
+                with mu:
+                    lats.append(t1 - t0)
+                    spans.append((t0, t1))
+                if check is not None:
+                    err = check(q, out, t0)
+                    if err:
+                        with mu:
+                            bad.append(err)
+
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    t_wall = time.monotonic()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(SERVE_JOIN_S)
+    wall = time.monotonic() - t_wall
+    if any(t.is_alive() for t in ts):
+        raise AssertionError(f"{verb}: client threads still running after "
+                             f"{SERVE_JOIN_S}s")
+    n = len(lats)
+    lats.sort()
+    return {"verb": verb, "threads": threads, "requests": n,
+            "errors": errors[0], "lost": sent[0] - n - errors[0],
+            "reqs_per_s": n / wall, "wall_s": wall, **lat_summary(lats),
+            "spans": spans, "bad": bad[:5], "n_bad": len(bad)}
+
+
+def serve_leg(bundle, dev, verb: str, max_batch: int, flush_ms: float,
+              ids: np.ndarray) -> dict:
+    """One latency leg against a fresh replica over the in-memory bundle
+    (its table uploaded anew): batch-1 (max_batch 1, flush_ms 0) or
+    micro-batched; nothing injected, the card's apply is the cost."""
+    srv = InferenceServer(bundle, device=dev, service=f"leg_{verb}",
+                          replica=max_batch, max_batch=max_batch,
+                          flush_ms=flush_ms)
+    try:
+        r = _closed_loop(srv.port, ids, verb, SERVE_THREADS, SERVE_REQS)
+        health = srv.health()
+        shapes = srv.padded_shapes_seen()
+    finally:
+        srv.stop()
+    del r["spans"]
+    r.update(mode="batch1" if max_batch == 1 else f"flush{flush_ms:g}ms",
+             max_batch=max_batch, flush_ms=flush_ms, shed=health["shed"],
+             padded_shapes=shapes)
+    if r["lost"] or r["errors"] or r["n_bad"]:
+        raise AssertionError(f"serve leg {verb} {r['mode']}: {r}")
+    if max(shapes.values()) > len(srv.ladder):
+        raise AssertionError(f"{verb}: padded shapes {shapes} > ladder "
+                             f"{srv.ladder}")
+    log(f"serve leg {verb} {r['mode']} (max_batch {max_batch}, flush_ms "
+        f"{flush_ms:g}): {r['requests']} requests from {SERVE_THREADS} "
+        f"threads x {SERVE_IDS} ids, p50 {r['p50_ms']:.3f} ms, p99 "
+        f"{r['p99_ms']:.3f} ms, p999 {r['p999_ms']:.3f} ms, "
+        f"{r['reqs_per_s']:.1f} req/s, shed {r['shed']}, lost {r['lost']}")
+    return r
+
+
+def _resolve(bundle, q: np.ndarray) -> np.ndarray:
+    """The bundle's rows for ids q, zero rows for unknown ids."""
+    rows = np.searchsorted(bundle.ids, q).clip(0, bundle.count - 1)
+    out = bundle.embeddings[rows].copy()
+    out[bundle.ids[rows] != q] = 0.0
+    return out
+
+
+def phase_serve(v1, dir_v1: str, v2, dir_v2: str, root: str,
+                dev: torch.device) -> dict:
+    """The serving stack on the card through the real TCP path: v1's
+    bundle loaded (verified) by an InferenceServer; embed exact, score
+    within its bound, exact knn byte-identical to brute_force over the
+    table; batch-1 against micro-batched latency legs for embed and
+    score; a hot-swap to v2 under embed traffic (0 lost, answers after
+    the flip v2's); a 2-shard fleet of v1 (two replicas on the card, a
+    dir: registry) whose scatter-gather knn is byte-identical to
+    brute_force over the unsharded table."""
+    out = {}
+    rng = np.random.default_rng(5)
+    unknown = np.uint64(int(v1.ids[-1]) + 1_000_000_007)
+    knn_q = []
+    for _ in range(SERVE_KNN_REQS):
+        q = v1.ids[rng.integers(0, v1.count, SERVE_IDS)]
+        q[0] = unknown if len(knn_q) % 2 else q[0]
+        knn_q.append(q)
+    t0 = time.monotonic()
+    knn_want = [brute_force(v1.embeddings, v1.ids, _resolve(v1, q), SERVE_K)
+                for q in knn_q]
+    t_ref = time.monotonic() - t0
+    # -- load v1 from disk and check its answers -------------------------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    srv = InferenceServer(dir_v1, device=dev, service="serve_v1",
+                          max_batch=64, flush_ms=2.0)
+    t_load = time.monotonic() - t0
+    eng = srv._engine
+    loaded = {"load_seconds": t_load, "upload_seconds": eng.upload_seconds,
+              "table_device": str(eng.table.device),
+              "table_bytes": eng.table.numel() * eng.table.element_size(),
+              "device_bytes_after_load": torch.cuda.memory_allocated(),
+              "device_bytes_before_load": base}
+    if eng.table.device.type != dev.type:
+        raise AssertionError(f"served table on {eng.table.device}")
+    try:
+        with ServingClient(endpoints=f"hosts:127.0.0.1:{srv.port}") as cli:
+            bound = 0.0
+            for i in range(SERVE_CHECK_REQS):
+                q = v1.ids[rng.integers(0, v1.count, 64)]
+                q[i % 64] = unknown
+                want = _resolve(v1, q)
+                if not np.array_equal(cli.embed(q), want):
+                    raise AssertionError("embed disagrees with the bundle")
+                dst = q[rng.permutation(64)]
+                wd = _resolve(v1, dst)
+                got = cli.score(q, dst)
+                ref = np.einsum("ij,ij->i", want, wd)
+                # float32 sum of D products: |error| <= D u sum|a_i b_i|
+                # (u = 2^-24) for each side's order
+                tol = 2 * (2 * DIM) * 2.0 ** -24 * np.einsum(
+                    "ij,ij->i", np.abs(want), np.abs(wd))
+                err = np.abs(got - ref)
+                if not (err <= tol + 1e-30).all():
+                    raise AssertionError(f"score: {err.max()} > bound")
+                bound = max(bound, float((err / np.maximum(tol, 1e-30))
+                                         .max()))
+            t0 = time.monotonic()
+            for q, (w_nbr, w_sims) in zip(knn_q, knn_want):
+                nbr, sims = cli.knn(q, k=SERVE_K)
+                if not (np.array_equal(nbr, w_nbr)
+                        and np.array_equal(sims, w_sims)):
+                    raise AssertionError("knn is not byte-identical to "
+                                         "brute_force over the table")
+            t_knn = time.monotonic() - t0
+            info = cli.info()
+        loaded.update(knn_requests=SERVE_KNN_REQS,
+                      knn_seconds_per_request=t_knn / SERVE_KNN_REQS,
+                      brute_force_seconds_per_request=t_ref / SERVE_KNN_REQS,
+                      score_err_share_of_bound=bound,
+                      bundle_version=info["bundle_version"])
+    finally:
+        srv.stop()
+    del srv, eng
+    out["load"] = loaded
+    log(f"serve: v1 loaded (sha256-verified) in {t_load:.2f}s, table "
+        f"upload {loaded['upload_seconds']:.3f}s, "
+        f"{loaded['table_bytes']} bytes on {loaded['table_device']}; device "
+        f"bytes {base} -> {loaded['device_bytes_after_load']}; "
+        f"{SERVE_CHECK_REQS} embed requests (64 ids, one unknown) exact, "
+        f"score within {bound:.3g} of its bound; {SERVE_KNN_REQS} exact "
+        f"knn ({SERVE_IDS} ids, k {SERVE_K}) byte-identical to "
+        f"brute_force, {t_knn / SERVE_KNN_REQS * 1e3:.1f} ms/request "
+        f"(host numpy)")
+    # -- latency legs (tools/bench_serve.py:serve_smoke's shape) ----------
+    gc.collect()
+    out["legs"] = [serve_leg(v1, dev, verb, mb, fl, v1.ids)
+                   for verb in ("embed", "score")
+                   for mb, fl in SERVE_LEGS]
+    # -- hot-swap to v2 under embed traffic ---------------------------------
+    gc.collect()
+    srv = InferenceServer(v1, device=dev, service="serve_swap",
+                          max_batch=64, flush_ms=2.0)
+    flip = {"done": None}
+    after = [0]
+    mu = threading.Lock()
+
+    def check(q, got, t_sent):
+        v2_rows = np.array_equal(got, _resolve(v2, q))
+        if flip["done"] is not None and t_sent > flip["done"]:
+            with mu:
+                after[0] += 1
+            return None if v2_rows else "v1 rows after the flip"
+        return None if v2_rows or np.array_equal(got, _resolve(v1, q)) \
+            else "rows of neither version"
+
+    def until():
+        return flip["done"] is not None and after[0] >= SERVE_AFTER_SWAP
+
+    res, abort = {}, threading.Event()
+
+    def drive():
+        try:
+            res.update(_closed_loop(
+                srv.port, v1.ids, "embed", SERVE_THREADS, 0, check,
+                lambda: abort.is_set() or until()))
+        except BaseException as e:  # re-raised on the main thread
+            res["raised"] = e
+
+    traffic = threading.Thread(target=drive)
+    try:
+        traffic.start()
+        time.sleep(0.5)  # traffic under way before the swap
+        torch.cuda.synchronize()
+        before_swap = torch.cuda.memory_allocated()
+        with ServingClient(endpoints=f"hosts:127.0.0.1:{srv.port}") as adm:
+            t_a = time.monotonic()
+            (reply,) = adm.swap_fleet(dir_v2).values()
+            t_b = time.monotonic()
+        flip["done"] = t_b
+        traffic.join(SERVE_JOIN_S)
+        if traffic.is_alive():
+            raise AssertionError("swap traffic did not finish")
+        version, health = srv.bundle_version, srv.health()
+        shapes = srv.padded_shapes_seen()
+    finally:
+        abort.set()
+        srv.stop()
+        traffic.join(SERVE_JOIN_S)
+    if "raised" in res:
+        raise res["raised"]
+    during = [t1 - t0 for t0, t1 in res["spans"] if t1 >= t_a and t0 <= t_b]
+    swap = {"seconds": t_b - t_a, "reply": reply, "version": version,
+            "requests": res["requests"], "lost": res["lost"],
+            "errors": res["errors"], "bad": res["bad"],
+            "answers_after_flip": after[0],
+            "requests_during_swap": len(during),
+            "worst_ms_during_swap": max(during) * 1e3 if during else None,
+            "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+            "max_ms": res["max_ms"], "swaps": health["swaps"],
+            "device_bytes_before_swap": before_swap,
+            "padded_shapes": shapes}
+    out["swap"] = swap
+    if res["lost"] or res["errors"] or res["n_bad"] or version != "v2" \
+            or reply["previous_version"] != "v1" or health["swaps"] != 1:
+        raise AssertionError(f"hot-swap: {swap}")
+    if max(shapes.values()) > len(srv.ladder):
+        raise AssertionError(f"swap: padded shapes {shapes}")
+    log(f"serve swap v1 -> v2 under {SERVE_THREADS} embed threads: "
+        f"{swap['seconds']:.2f}s (verified load + upload beside v1 + warm), "
+        f"{res['requests']} requests, lost {res['lost']}, errors "
+        f"{res['errors']}; {len(during)} requests overlapped the swap, the "
+        f"worst {swap['worst_ms_during_swap']:.1f} ms; {after[0]} answers "
+        f"sent after the flip, all v2's rows; version {version}")
+    # -- a 2-shard fleet of v1 on the card ----------------------------------
+    gc.collect()
+    fleet_dir = os.path.join(root, "v1_fleet")
+    t0 = time.monotonic()
+    v1.save_sharded(fleet_dir, 2, index=False)
+    t_shard = time.monotonic() - t0
+    spec = f"dir:{os.path.join(root, 'registry')}"
+    t0 = time.monotonic()
+    srvs = [InferenceServer(fleet_dir, device=dev, registry=spec,
+                            service="fleet", shard=s, max_batch=64,
+                            flush_ms=2.0) for s in range(2)]
+    t_start = time.monotonic() - t0
+    try:
+        with ServingClient(registry=spec, service="fleet") as cli:
+            if cli.shards() != [0, 1]:
+                raise AssertionError(f"fleet shards {cli.shards()}")
+            t0 = time.monotonic()
+            for q, (w_nbr, w_sims) in zip(knn_q, knn_want):
+                nbr, sims = cli.knn(q, k=SERVE_K)
+                if not (np.array_equal(nbr, w_nbr)
+                        and np.array_equal(sims, w_sims)):
+                    raise AssertionError("fleet knn is not byte-identical "
+                                         "to brute_force")
+            t_fleet = time.monotonic() - t0
+            merges = cli.health()["fanout"]["merges"]
+        tables = [s._engine.table for s in srvs]
+        if any(t.device.type != dev.type for t in tables):
+            raise AssertionError("a shard's table is not on the card")
+        rows = [int(t.shape[0]) for t in tables]
+    finally:
+        for s in srvs:
+            s.stop()
+    out["fleet"] = {"shards": 2, "rows": rows,
+                    "save_sharded_seconds": t_shard,
+                    "start_seconds": t_start, "knn_requests": len(knn_q),
+                    "merges": merges,
+                    "knn_seconds_per_request": t_fleet / len(knn_q)}
+    log(f"serve fleet: save_sharded(2) {t_shard:.2f}s, 2 shard replicas "
+        f"({rows[0]} + {rows[1]} rows on the card) started in "
+        f"{t_start:.2f}s; {len(knn_q)} scatter-gather knn byte-identical "
+        f"to brute_force over the unsharded table, {merges} merges, "
+        f"{t_fleet / len(knn_q) * 1e3:.1f} ms/request")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1289,6 +1662,7 @@ def main(argv=None) -> int:
                     help="an earlier gather_mean.cu with the first kernel's "
                          "C entry, timed against the current one")
     args = ap.parse_args(argv)
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1309,14 +1683,25 @@ def main(argv=None) -> int:
     record["kernels"] = phase_kernels(store, deepest, dev, baseline)
     del deepest, probe
     record["slice"], ids, emb = phase_slice(inf, model)
+    del ids, emb
     record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    record["train"] = phase_train(store, table, node_types, dev)
-    record["loop"] = phase_loop(store, table, node_types, dev)
+    bundles = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_bundles")
+    shutil.rmtree(bundles, ignore_errors=True)
+    os.makedirs(bundles)
+    dir_v1, dir_v2 = (os.path.join(bundles, v) for v in ("v1", "v2"))
+    record["train"], est = phase_train(store, table, node_types, dev)
+    record["export_v1"], v1 = phase_export(est, dir_v1, "v1",
+                                           "v1 (phase 6's weights)")
+    record["loop"], est = phase_loop(store, table, node_types, dev)
+    record["export_v2"], v2 = phase_export(est, dir_v2, "v2",
+                                           "v2 (the K = 32 phase's weights)")
+    del est
     record["loop"]["graph_vs_eager"] = check_graph_vs_eager(
         lambda k: flagship_estimator(store, table, node_types, dev,
                                      steps_per_loop=k),
         flagship_estimator(store, table, node_types, dev).train_input_fn())
-    record["loop_extra"] = [phase_loop(store, table, node_types, dev, k)
+    record["loop_extra"] = [phase_loop(store, table, node_types, dev, k)[0]
                             for k in args.extra_loop_k]
     # the unsupervised family on the same graph: negatives over every
     # node's unit weight, as bench.py builds them (bench.py:411-419)
@@ -1329,7 +1714,16 @@ def main(argv=None) -> int:
     record["quality"] = phase_quality()
     record["unsup_quality"] = phase_unsup_quality()
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
-    record["serve"] = phase_serve(ids, emb, dev)
+    # the training tables go before the bundles' tables go on the card
+    del store, table, node_types, inf, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve: {torch.cuda.memory_allocated()} device bytes allocated "
+        f"after freeing the training tables")
+    try:
+        record["serve"] = phase_serve(v1, dir_v1, v2, dir_v2, bundles, dev)
+    finally:
+        shutil.rmtree(bundles, ignore_errors=True)
     main_case = record["kernels"]["cases"][0]
     kernels = {"kernels": [{
         "name": "gather_mean", "route": "cuda",
@@ -1355,6 +1749,8 @@ def main(argv=None) -> int:
             record["unsup"]["k32"]["gather_mean_device_launches"],
         "walk_device_launches":
             record["walk"]["gather_mean_device_launches"],
+        "export_launches": record["export_v1"]["gather_mean_launches"],
+        "export_v2_launches": record["export_v2"]["gather_mean_launches"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],
@@ -1362,6 +1758,8 @@ def main(argv=None) -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "cases": record["kernels"]["cases"]}]}
+    record["seconds"] = time.monotonic() - t_start
+    log(f"chip_smoke: {record['seconds']:.1f}s from start to the result")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

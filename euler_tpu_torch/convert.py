@@ -66,3 +66,13 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
             node = node.setdefault(s, {})
         node[name] = arr
     return tree
+
+
+def flax_param_paths(state_dict: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    """The port's state_dict keyed as the reference's export_bundle keys
+    its params: `jax.tree_util.keystr` of each leaf's path in the flax
+    tree, e.g. "['encoder']['enc']['agg_0']['self']['kernel']" (Dense
+    kernels [in, out])."""
+    return {"".join(f"[{k!r}]" for k in path): leaf
+            for path, leaf in _flatten(state_dict_to_flax(state_dict))}

@@ -56,7 +56,7 @@ import torch
 
 from euler_tpu_torch import obs as _obs
 from euler_tpu_torch.estimator.graphed_loop import GraphedLoop
-from euler_tpu_torch.estimator.infer import eval_mode
+from euler_tpu_torch.estimator.infer import eval_mode, iter_embeddings
 from euler_tpu_torch.estimator.prefetch import ParallelPrefetcher
 from euler_tpu_torch.estimator.retry import retryable_error
 from euler_tpu_torch.platform import (
@@ -695,6 +695,79 @@ class BaseEstimator:
         w = w / w.sum()
         return {"loss": float(np.dot(losses, w)),
                 "metric": float(np.dot(metrics, w))}
+
+    def run_eval(self, batch: Dict[str, Any]):
+        """One forward in eval mode (no dropout, no autograd) of a batch
+        moved to the device and merged with the tables."""
+        with eval_mode(self.model), torch.inference_mode():
+            return self.model({**_to_device(batch, self.device),
+                               **self.static_batch})
+
+    def infer(self, input_fn, steps: int = 100,
+              id_key: str = "infer_ids") -> Dict[str, str]:
+        """Writes embedding_0.npy / ids_0.npy under model_dir (every
+        batch's rows, pad rows included, as the reference writes them:
+        euler_tpu/estimator/base_estimator.py:844-877)."""
+        it = input_fn() if callable(input_fn) else input_fn
+        self._maybe_restore()
+        embs, ids = [], []
+        for v, emb in iter_embeddings(self.run_eval,
+                                      itertools.islice(it, steps), id_key):
+            embs.append(emb.cpu().numpy())
+            if v is not None:
+                ids.append(v)
+        out_dir = self.model_dir or "."
+        os.makedirs(out_dir, exist_ok=True)
+        emb_path = os.path.join(out_dir, "embedding_0.npy")
+        np.save(emb_path, np.concatenate(embs) if embs else np.zeros((0,)))
+        id_path = os.path.join(out_dir, "ids_0.npy")
+        if ids:
+            np.save(id_path, np.concatenate(ids))
+        return {"embedding": emb_path, "ids": id_path}
+
+    def export_bundle(self, out_dir: str, input_fn=None,
+                      steps: int = 1_000_000, nlist: int = 64,
+                      nprobe: int = 8, index: bool = True,
+                      shards: int = 1, version: Optional[str] = None,
+                      extra_meta: Optional[Dict[str, Any]] = None):
+        """Export a versioned serving bundle (euler_tpu_torch.serving;
+        the reference's files, euler_tpu/estimator/base_estimator.py:
+        879-930): the parameters under the reference's flax tree paths
+        (Dense kernels [in, out], convert.state_dict_to_flax), the
+        node-embedding matrix from an `embed_all` pass over `input_fn`
+        (default: this estimator's infer_input_fn sweep), and an IVFFlat
+        index over it (only unsharded, with >= 2 ids). `shards > 1`
+        writes the partitioned fleet layout instead; `version` stamps
+        the bundle_version the hot-swap protocol reports (default: the
+        training step). The model spec is the model's `export_spec()`:
+        the reference model's class name and its scalar fields. Returns
+        the ModelBundle (already written to out_dir)."""
+        from euler_tpu_torch.convert import flax_param_paths
+        from euler_tpu_torch.serving.export import ModelBundle, embed_all
+        from euler_tpu_torch.tools.knn import IVFFlatIndex
+
+        ids, emb = embed_all(self, input_fn, steps)
+        params = flax_param_paths(self.model.state_dict())
+        spec = self.model.export_spec() if hasattr(
+            self.model, "export_spec") else {
+            "model_class": type(self.model).__name__}
+        meta = {"global_step": int(self.step), **(extra_meta or {})}
+        if version is not None:
+            meta["bundle_version"] = str(version)
+        index_state = None
+        if index and shards == 1 and len(ids) >= 2:
+            # the global index only serves the unsharded layout;
+            # save_sharded trains one per shard instead
+            idx = IVFFlatIndex(nlist=nlist, nprobe=nprobe)
+            idx.train_add(emb, ids)
+            index_state = idx.state_dict()
+        bundle = ModelBundle(params, emb, ids, index_state, spec, meta)
+        if shards > 1:
+            bundle.save_sharded(out_dir, shards, nlist=nlist,
+                                nprobe=nprobe, index=index)
+        else:
+            bundle.save(out_dir)
+        return bundle
 
     def train_and_evaluate(self, train_input_fn, eval_input_fn,
                            max_steps: int = 1000, eval_steps: int = 50,

@@ -1,6 +1,7 @@
 """The inference half of the estimator (counterpart of
 euler_tpu/estimator/base_estimator.py:809-877, estimators.py:140-155 and
-:234-253, and euler_tpu/serving/export.py:405-440 `embed_all`).
+:234-253, and the loop of euler_tpu/serving/export.py:405-459
+`embed_all`, which serving/export.py and BaseEstimator.infer share).
 
 A deterministic sweep over root ids in fixed batches: the final batch
 is padded by repeating its last id, with a metric_mask zeroing the pad
@@ -19,7 +20,9 @@ class.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import (
+    Any, Callable, Dict, Iterable, Iterator, Optional, Tuple,
+)
 
 import numpy as np
 import torch
@@ -105,23 +108,50 @@ class NodeInferencer:
 
     def embed_all(self, input_fn=None) -> Tuple[np.ndarray, np.ndarray]:
         """(ids [N] uint64 sorted unique, embeddings [N, D] float32) over
-        input_fn's batches (default: the sweep over every node).
-
-        The batches' embeddings stay on the device until the sweep ends;
-        the kept rows are gathered there and copied to the host once."""
+        input_fn's batches (default: the sweep over every node)."""
         it = self.infer_input_fn() if input_fn is None else (
             input_fn() if callable(input_fn) else input_fn)
-        embs, ids = [], []
-        for batch in it:
-            emb = self.run(batch).embedding
-            v = np.asarray(batch["infer_ids"]).ravel()
-            if v.shape[0] != emb.shape[0]:
-                raise ValueError(f"batch carries {v.shape[0]} ids for "
-                                 f"{emb.shape[0]} embedding rows")
-            embs.append(emb.to(torch.float32))
-            ids.append(v.astype(np.uint64))
-        if not embs:
-            raise ValueError("input_fn yielded no batches")
-        uniq, first = np.unique(np.concatenate(ids), return_index=True)
-        keep = torch.from_numpy(first).to(embs[0].device)
-        return uniq, torch.cat(embs)[keep].cpu().numpy()
+        return embed_batches(self.run, it)
+
+
+def iter_embeddings(run: Callable[[Dict[str, Any]], ModelOutput],
+                    batches: Iterable[Dict[str, Any]],
+                    id_key: str = "infer_ids"
+                    ) -> Iterator[Tuple[Optional[np.ndarray], torch.Tensor]]:
+    """(ids, float32 embedding on the device) per batch: `run` is one
+    eval-mode forward; ids come from batch[id_key], else batch["ids"]
+    (a list holds them first), cut to the embedding's rows; None when
+    the batch carries neither."""
+    for batch in batches:
+        emb = run(batch).embedding.to(torch.float32)
+        key = id_key if id_key in batch else (
+            "ids" if "ids" in batch else None)
+        v = None
+        if key is not None:
+            v = batch[key]
+            v = v[0] if isinstance(v, list) else v
+            v = np.asarray(v).ravel()[: emb.shape[0]]
+        yield v, emb
+
+
+def embed_batches(run, batches) -> Tuple[np.ndarray, np.ndarray]:
+    """(ids [N] uint64 sorted unique, embeddings [N, D] float32), each
+    id's first row kept (dedup by first occurrence drops exactly a
+    padded sweep's pad rows). The batches' embeddings stay on the device
+    until the sweep ends; the kept rows are gathered there and copied to
+    the host once."""
+    embs, ids = [], []
+    for v, emb in iter_embeddings(run, batches):
+        if v is None:
+            raise ValueError("export batches must carry infer_ids (or "
+                             "ids) aligned with the embedding output")
+        if v.shape[0] != emb.shape[0]:
+            raise ValueError(f"batch carries {v.shape[0]} ids for "
+                             f"{emb.shape[0]} embedding rows")
+        embs.append(emb)
+        ids.append(v.astype(np.uint64))
+    if not embs:
+        raise ValueError("input_fn yielded no batches")
+    uniq, first = np.unique(np.concatenate(ids), return_index=True)
+    keep = torch.from_numpy(first).to(embs[0].device)
+    return uniq, torch.cat(embs)[keep].cpu().numpy()

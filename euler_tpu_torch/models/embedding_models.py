@@ -64,6 +64,19 @@ class DeviceSampledSkipGram(nn.Module):
         self.emb = Embedding(self.num_rows + 1, dim, generator=generator)
         self.ctx = None if share_context else Embedding(
             self.num_rows + 1, dim, generator=generator)
+        self._spec = {"num_rows": self.num_rows, "dim": int(dim),
+                      "walk_len": self.walk_len, "left_win": self.left_win,
+                      "right_win": self.right_win, "num_negs": self.num_negs,
+                      "p": self.p, "q": self.q,
+                      "share_context": bool(share_context),
+                      "table_mesh": None,
+                      "uniform_sampling": self.uniform_sampling}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass fields
+        (euler_tpu/models/embedding_models.py:53-90), as export_bundle
+        records them."""
+        return {"model_class": "DeviceSampledSkipGram", **self._spec}
 
     def sample(self, batch: Dict[str, Any]):
         """(pairs [B·P, 2] rows (source, positive), negatives [B·P,

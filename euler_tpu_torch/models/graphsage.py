@@ -166,6 +166,18 @@ class DeviceSampledGraphSage(SuperviseModel):
         self.fanouts = tuple(int(k) for k in fanouts)
         self.uniform_sampling = bool(uniform_sampling)
         self.remat = bool(remat)
+        self._spec = {"num_classes": self.num_classes,
+                      "multilabel": self.multilabel, "dropout": self.dropout,
+                      "table_mesh": None, "dim": int(dim),
+                      "aggregator": aggregator, "encoder": encoder,
+                      "remat": self.remat,
+                      "uniform_sampling": self.uniform_sampling}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass fields
+        (euler_tpu/models/graphsage.py:121-143), as export_bundle records
+        them; table_mesh is None (replicated tables)."""
+        return {"model_class": "DeviceSampledGraphSage", **self._spec}
 
     def sample_rows(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
         """[roots, hop1, ..., hopL] int32 rows for this batch."""
@@ -229,6 +241,16 @@ class DeviceSampledUnsupervisedSage(nn.Module):
                                    concat=False, generator=generator)
         self.ctx_emb = Embedding(self.num_rows + 1, dim,
                                  generator=generator)
+        self._spec = {"num_rows": self.num_rows, "dim": int(dim),
+                      "aggregator": aggregator, "num_negs": self.num_negs,
+                      "table_mesh": None,
+                      "uniform_sampling": self.uniform_sampling}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass fields
+        (euler_tpu/models/graphsage.py:404-424), as export_bundle records
+        them."""
+        return {"model_class": "DeviceSampledUnsupervisedSage", **self._spec}
 
     def sample(self, batch: Dict[str, Any]):
         """(fanout rows [roots, hop1, ...], positives [B], negatives

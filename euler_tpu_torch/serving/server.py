@@ -1,0 +1,706 @@
+"""InferenceServer: one serving-fleet replica over one bundle shard
+(copy of euler_tpu/serving/server.py:148-788 over the port's engine,
+wire, batcher and obs; the port imports nothing of euler_tpu). The
+embedding table lives on the server's device (`device=None` means
+CUDA and raises without a card; the CPU only when asked).
+
+Serves over the framed-TCP conventions (wire.py):
+
+  embed(ids)        [n, D] float32 embedding rows
+  knn(ids, k)       per-query top-k neighbor ids + inner-product scores
+                    (exact brute-force by default — byte-identical to
+                    tools/knn.brute_force over the served shard — or
+                    the shard's IVFFlat index with exact=False)
+  knn_vec(vecs, k)  same, but queries arrive as raw float32 vectors —
+                    the fleet fan-out verb: the client resolves each
+                    query id's embedding at its OWNING shard, then
+                    broadcasts the vectors to every shard, so a shard
+                    never mistakes another shard's id for an unknown
+  score(src, dst)   inner product per (src, dst) pair
+  swap(bundle_dir)  admin: zero-downtime versioned hot-swap (below)
+
+Every data verb funnels through a per-verb dynamic MicroBatcher:
+concurrent requests coalesce into one flush (flush at max_batch rows or
+flush_ms), padded to a fixed bucket ladder so the device applies see
+only ladder shapes. Past max_queue queued rows, admission
+control replies an explicit SHED status instead of queueing — overload
+degrades loudly and boundedly, never as silent latency growth. A
+request whose deadline_ms expires while queued also gets SHED.
+
+**Fleet**: a replica serves ONE contiguous shard of a partitioned
+bundle (export.save_sharded) and registers
+``serve_<service>_<shard>_<replica>__<host>_<port>`` in the same
+registry the graph shards heartbeat into — shards and replicas-per-
+shard are discoverable exactly like graph shards. kNN sims are
+computed PER REQUEST (not coalesced across a flush): per-request GEMM
+keeps each answer's bits independent of what else happened to share
+the flush, which is what lets the client's scatter-gather merge be
+byte-identical to a single-index brute-force reference. The flush
+still amortizes the per-dispatch cost — that cost is per flush, not
+per request.
+
+**Zero-downtime hot-swap**: all bundle-scoped state (arrays, the
+device table, the lazy IVF index) lives in an EmbeddingEngine
+(engine.py). swap() loads bundle vN+1 BESIDE vN — its table uploaded
+to the device on a side stream and synchronized before the flip, so no
+flush can read a half-copied table (at full width both tables are on
+the device at once) — warms the new engine's applies over the whole
+bucket ladder and rebuilds its index off-path, then atomically flips
+the serving pointer (one reference assignment). A
+flush in progress keeps the engine it started with; queued requests
+pick up whichever engine their flush starts under — every in-flight
+request completes with a status either way, no request is dropped.
+``bundle_version`` is exposed in info()/health()/healthz and every
+completed swap increments serving_swap_total.
+
+Unknown ids (not in the served shard) embed as zero rows and score 0 —
+counted in serving_unknown_ids_total, never an error.
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import struct
+import threading
+import time
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+
+from euler_tpu_torch import obs as _obs
+from euler_tpu_torch.platform import DeviceLike, resolve_device
+from euler_tpu_torch.serving import wire
+from euler_tpu_torch.serving.batcher import (
+    MicroBatcher,
+    ShedError,
+    bucket_ladder,
+)
+from euler_tpu_torch.serving.engine import EmbeddingEngine
+from euler_tpu_torch.serving.export import ModelBundle, bundle_shard_count
+from euler_tpu_torch.tools.knn import brute_force
+
+__all__ = ["InferenceServer"]
+
+_DEFAULT_DEADLINE_S = 30.0
+
+
+class InferenceServer:
+    """One serving replica over one bundle (shard) — see module
+    docstring.
+
+    bundle: a ModelBundle, a bundle directory, or a SHARDED bundle
+      directory (export.save_sharded) — pass `shard` to pick which
+      shard this replica serves; loads verify checksums.
+    registry: optional registry spec ("tcp:host:port", "dir:/path", or
+      a plain directory) to register in for discovery.
+    service / shard / replica: the discovery identity.
+    max_batch / flush_ms / max_queue: MicroBatcher knobs (rows).
+    inject_apply_latency_ms: fixed sleep per flushed apply — models the
+      per-dispatch cost on CPU-bound test containers (chaos/bench only).
+    inject_scan_ms_per_krow: sleep per flushed KNN apply scaled by the
+      served corpus size (ms per 1000 rows) — models the corpus-
+      proportional device scan a brute-force search costs, which is the
+      cost sharding divides (chaos/bench only).
+    inject_stall_ms / inject_stall_p / inject_seed: per-replica
+      STRAGGLER injection — each flushed apply independently stalls
+      inject_stall_ms with probability inject_stall_p (seeded) — the
+      GC-pause / noisy-neighbor tail the hedging A/B measures against
+      (chaos/bench only).
+    device: where the embedding table lives and the gather/score
+      applies run (None → CUDA, raising without a card; "cpu" only when
+      asked). Every batcher thread names it explicitly.
+    """
+
+    def __init__(self, bundle: Union[ModelBundle, str],
+                 host: str = "127.0.0.1", port: int = 0,
+                 registry: Optional[str] = None, service: str = "default",
+                 shard: Optional[int] = None, replica: int = 0,
+                 max_batch: int = 256,
+                 flush_ms: float = 2.0, max_queue: int = 0,
+                 heartbeat_s: float = 1.0,
+                 inject_apply_latency_ms: float = 0.0,
+                 inject_scan_ms_per_krow: float = 0.0,
+                 inject_stall_ms: float = 0.0,
+                 inject_stall_p: float = 0.1,
+                 inject_seed: int = 0, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if isinstance(bundle, str):
+            bundle = self._load_bundle(bundle, shard)
+        elif shard is not None and int(shard) != bundle.shard:
+            raise ValueError(
+                f"shard={shard} but the bundle object is shard "
+                f"{bundle.shard}")
+        self.service = service
+        self.replica = int(replica)
+        self._inject_s = float(inject_apply_latency_ms) / 1000.0
+        self._scan_s_per_row = float(inject_scan_ms_per_krow) / 1e6
+        self._stall_s = float(inject_stall_ms) / 1000.0
+        self._stall_p = float(inject_stall_p)
+        self._stall_mu = threading.Lock()  # batcher workers share the rng
+        import random as _random
+
+        self._stall_rng = _random.Random(inject_seed)
+        self.ladder = bucket_ladder(max_batch)
+        self._swap_mu = threading.Lock()
+        engine = EmbeddingEngine(bundle, self.device, self.ladder)
+        # warm every ladder bucket BEFORE accepting traffic: a first
+        # call's set-up would otherwise land inside a client's
+        # per-attempt timeout
+        engine.warm()
+        self._engine = engine
+
+        # -- metrics / health ----------------------------------------------
+        reg = _obs.default_registry()
+        lab = {"service": service, "shard": str(engine.shard),
+               "replica": str(self.replica)}
+        self._ctr_requests = reg.counter(
+            "serving_requests_total", "serving requests by verb",
+            ("service", "shard", "replica", "verb"))
+        self._hist_request_ms = reg.histogram(
+            "serving_request_ms", "end-to-end in-server request latency",
+            ("service", "shard", "replica", "verb"))
+        # per-request phase breakdown — the serving-tier analogue of the
+        # graph server's native queue/decode/execute/serialize
+        # histograms: queue = admission→flush pickup in the micro-
+        # batcher, execute = the flush run serving this request
+        self._hist_phase_ms = reg.histogram(
+            "serving_phase_ms",
+            "per-request serving phase time (queue = batcher wait, "
+            "execute = micro-batch flush run)",
+            ("service", "shard", "replica", "verb", "phase"))
+        self._ctr_deadline = reg.counter(
+            "serving_deadline_shed_total",
+            "admitted requests whose deadline expired in queue (SHED "
+            "replied)", ("service", "shard", "replica")).labels(**lab)
+        self._ctr_unknown = reg.counter(
+            "serving_unknown_ids_total",
+            "queried ids absent from the served shard (served as zeros)",
+            ("service", "shard", "replica")).labels(**lab)
+        self._ctr_errors = reg.counter(
+            "serving_errors_total", "requests answered with ERROR status",
+            ("service", "shard", "replica")).labels(**lab)
+        self._ctr_swap = reg.counter(
+            "serving_swap_total",
+            "completed zero-downtime bundle hot-swaps",
+            ("service", "shard", "replica")).labels(**lab)
+        self._g_connections = reg.gauge(
+            "serving_connections", "live client connections",
+            ("service", "shard", "replica")).labels(**lab)
+        self._lab = lab
+
+        name = f"{service}.{engine.shard}.{self.replica}"
+        self._batchers = {
+            "embed": MicroBatcher(self._run_embed, max_batch=max_batch,
+                                  flush_ms=flush_ms, max_queue=max_queue,
+                                  name=f"{name}.embed"),
+            "knn": MicroBatcher(self._run_knn, max_batch=max_batch,
+                                flush_ms=flush_ms, max_queue=max_queue,
+                                name=f"{name}.knn"),
+            "score": MicroBatcher(self._run_score, max_batch=max_batch,
+                                  flush_ms=flush_ms, max_queue=max_queue,
+                                  name=f"{name}.score"),
+        }
+
+        # -- listener ------------------------------------------------------
+        self._stopping = threading.Event()
+        self._draining = threading.Event()  # drain(): stop heartbeating
+        # serializes registry put/remove between the heartbeat thread
+        # and drain()/stop(): without it an in-flight heartbeat put can
+        # land AFTER drain's remove and resurrect a permanently stale
+        # entry pointing at a stopped server
+        self._reg_mu = threading.Lock()
+        self._conn_mu = threading.Lock()
+        self._conns: List[Tuple[threading.Thread, socket.socket]] = []
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        # same-port restart (the chaos kill/restart cycle): a predecessor
+        # replica's connections may still be draining — retry the bind
+        # briefly instead of failing the restart
+        bind_deadline = time.monotonic() + 5.0
+        while True:
+            try:
+                self._listener.bind((host, port))
+                break
+            except OSError:
+                if port == 0 or time.monotonic() >= bind_deadline:
+                    raise
+                time.sleep(0.1)
+        self._listener.listen(64)
+        self.host = host
+        self.port = self._listener.getsockname()[1]
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name=f"serve-{name}", daemon=True)
+        self._accept_thread.start()
+
+        # -- discovery -----------------------------------------------------
+        self.registry = registry
+        self._entry = wire.serve_entry_name(service, engine.shard,
+                                            self.replica, self.host,
+                                            self.port)
+        self._hb_thread = None
+        if registry:
+            wire.registry_put(registry, self._entry)
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, args=(float(heartbeat_s),),
+                name=f"serve-hb-{name}", daemon=True)
+            self._hb_thread.start()
+        self._obs_name = (f"serving_{service}_{engine.shard}_"
+                          f"{self.replica}_{self.port}")
+        _obs.register_health(self._obs_name, self.health)
+
+    # -- bundle / engine ---------------------------------------------------
+    @staticmethod
+    def _load_bundle(path: str, shard: Optional[int]) -> ModelBundle:
+        n = bundle_shard_count(path)
+        if n > 1:
+            return ModelBundle.load_shard(path, int(shard or 0))
+        if shard not in (None, 0):
+            raise ValueError(
+                f"shard={shard} requested but {path} is unsharded")
+        return ModelBundle.load(path, verify=True)
+
+    @property
+    def bundle(self) -> ModelBundle:
+        return self._engine.bundle
+
+    @property
+    def shard(self) -> int:
+        return self._engine.shard
+
+    @property
+    def bundle_version(self) -> str:
+        return self._engine.version
+
+    def swap(self, bundle: Union[ModelBundle, str]) -> Dict:
+        """Zero-downtime versioned hot-swap: load the new bundle (same
+        shard identity as the one served — a replica never changes
+        shards mid-life), upload its table, warm its applies over the whole bucket
+        ladder and rebuild its index OFF the serving path, then
+        atomically flip the serving pointer. In-flight requests
+        complete against whichever engine their flush started under;
+        no request ends without a status. Returns the new identity."""
+        with self._swap_mu:
+            cur = self._engine
+            if isinstance(bundle, str):
+                n = bundle_shard_count(bundle)
+                if cur.num_shards > 1:
+                    if n != cur.num_shards:
+                        raise ValueError(
+                            f"swap bundle has {n} shard(s) but this "
+                            f"replica serves shard {cur.shard} of "
+                            f"{cur.num_shards}")
+                    bundle = ModelBundle.load_shard(bundle, cur.shard)
+                else:
+                    if n > 1:
+                        raise ValueError(
+                            f"swap bundle has {n} shards but this "
+                            "replica serves an unsharded bundle")
+                    bundle = ModelBundle.load(bundle, verify=True)
+            elif (bundle.shard, bundle.num_shards) != (cur.shard,
+                                                       cur.num_shards):
+                raise ValueError(
+                    f"swap bundle is shard {bundle.shard}/"
+                    f"{bundle.num_shards} but this replica serves "
+                    f"{cur.shard}/{cur.num_shards}")
+            if bundle.dim != cur.bundle.dim and cur.bundle.count \
+                    and bundle.count:
+                raise ValueError(
+                    f"swap bundle dim {bundle.dim} != served dim "
+                    f"{cur.bundle.dim}")
+            engine = EmbeddingEngine(bundle, self.device, self.ladder)
+            engine.warm()                   # off-path: vN still serving
+            self._engine = engine           # the atomic flip
+            self._ctr_swap.inc()
+            return {"bundle_version": engine.version,
+                    "previous_version": cur.version,
+                    "shard": engine.shard, "count": bundle.count,
+                    "dim": bundle.dim}
+
+    # -- applies (run on the batcher workers) ------------------------------
+    def _maybe_inject(self, eng: EmbeddingEngine, scan: bool) -> None:
+        s = self._inject_s
+        if scan:
+            # corpus-proportional scan cost: the share a shard pays is
+            # its corpus share — the cost partitioning divides
+            s += self._scan_s_per_row * eng.ids.size
+        if self._stall_s > 0:
+            # per-replica straggler: an occasional seeded stall on this
+            # flush — the tail the hedging A/B is gated against
+            with self._stall_mu:
+                stalled = self._stall_rng.random() < self._stall_p
+            if stalled:
+                s += self._stall_s
+        if s > 0:
+            time.sleep(s)
+
+    def _run_embed(self, payloads: List[np.ndarray]) -> List[np.ndarray]:
+        """One bucketed gather on the device over every request's ids."""
+        eng = self._engine
+        self._maybe_inject(eng, scan=False)
+        flat = np.concatenate(payloads) if payloads else \
+            np.zeros(0, np.uint64)
+        out, n_unknown = eng.embed(flat)
+        if n_unknown:
+            self._ctr_unknown.inc(n_unknown)
+        results, at = [], 0
+        for p in payloads:
+            results.append(out[at:at + p.size])
+            at += p.size
+        return results
+
+    def _run_knn(self, payloads: List[Tuple[np.ndarray, int, bool]]
+                 ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Top-k per request. Queries are either uint64 ids (resolved
+        against this shard, unknown → zero vector) or a float32 [n, D]
+        vector matrix (the fleet fan-out verb). Sims are computed with
+        one GEMM PER REQUEST: a request's bits must not depend on what
+        else coalesced into the flush (BLAS picks different kernels by
+        batch shape), or the fleet merge could never be byte-identical
+        to the single-index reference. The flush still amortizes the
+        per-dispatch (injected) cost."""
+        eng = self._engine
+        self._maybe_inject(eng, scan=True)
+        results = []
+        for q, k, exact in payloads:
+            if isinstance(q, np.ndarray) and q.dtype == np.float32:
+                # dim checked even for empty/zero-dim query matrices —
+                # a (n, 0) frame would otherwise raise inside the GEMM
+                if q.ndim != 2 or (eng.bundle.dim
+                                   and q.shape[1] != eng.bundle.dim):
+                    # a malformed request fails ALONE: raising here
+                    # would set the exception on every future coalesced
+                    # into this flush
+                    results.append(ValueError(
+                        f"knn_vec queries {q.shape} do not match "
+                        f"served dim {eng.bundle.dim}"))
+                    continue
+                queries = q
+            else:
+                rows, valid, n_unknown = eng.lookup_rows(q)
+                if n_unknown:
+                    self._ctr_unknown.inc(n_unknown)
+                queries = eng.emb[rows].copy() if eng.ids.size else \
+                    np.zeros((q.size, eng.bundle.dim), np.float32)
+                queries[~valid] = 0.0
+            k_eff = max(1, min(int(k), max(eng.ids.size, 1)))
+            if exact or eng.ids.size == 0:
+                nbr, sims = brute_force(eng.emb, eng.ids, queries, k_eff)
+            else:
+                nbr, sims = eng.get_index().search(queries, k_eff)
+            results.append((nbr.astype(np.uint64),
+                            sims.astype(np.float32)))
+        return results
+
+    def _run_score(self, payloads: List[Tuple[np.ndarray, np.ndarray]]
+                   ) -> List[np.ndarray]:
+        """One bucketed row-dot on the device over every request's
+        pairs."""
+        eng = self._engine
+        self._maybe_inject(eng, scan=False)
+        src = np.concatenate([p[0] for p in payloads]) if payloads \
+            else np.zeros(0, np.uint64)
+        dst = np.concatenate([p[1] for p in payloads]) if payloads \
+            else np.zeros(0, np.uint64)
+        out, n_unknown = eng.score(src, dst)
+        if n_unknown:
+            self._ctr_unknown.inc(n_unknown)
+        results, at = [], 0
+        for p in payloads:
+            results.append(out[at:at + p[0].size])
+            at += p[0].size
+        return results
+
+    def padded_shapes_seen(self) -> Dict[str, int]:
+        """Distinct padded row counts each apply of the SERVING engine has
+        run at (the port's counterpart of the reference's jit_cache_sizes,
+        for steady-state assertions): stays <= len(ladder) per apply —
+        including right after a hot-swap, whose engine was warmed before
+        the flip."""
+        eng = self._engine
+        return {k: len(v) for k, v in eng.padded_shapes.items()}
+
+    # -- network -----------------------------------------------------------
+    def _accept_loop(self) -> None:
+        while not self._stopping.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return  # listener closed by stop()
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._conn_mu:
+                if self._stopping.is_set():
+                    # raced stop(): it already swapped the conn list out,
+                    # so nothing would ever shut this connection down
+                    try:
+                        conn.close()
+                    except OSError:
+                        pass
+                    return
+                # reap finished connection threads (heartbeat-style
+                # short-lived health probes would otherwise accumulate)
+                self._conns = [(t, s) for t, s in self._conns
+                               if t.is_alive()]
+                t = threading.Thread(target=self._serve_conn, args=(conn,),
+                                     daemon=True)
+                self._conns.append((t, conn))
+            self._g_connections.set(len(self._conns))
+            t.start()
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        try:
+            while not self._stopping.is_set():
+                try:
+                    msg_type, body = wire.read_frame(conn)
+                except (wire.WireError, OSError):
+                    return  # client went away / stop() shut us down
+                try:
+                    reply = self._dispatch(msg_type, body)
+                except ShedError as e:
+                    reply = struct_status(wire.STATUS_SHED, str(e))
+                except Exception as e:  # semantic/internal: explicit ERROR
+                    self._ctr_errors.inc()
+                    reply = struct_status(
+                        wire.STATUS_ERROR, f"{type(e).__name__}: {e}")
+                try:
+                    wire.write_frame(conn, msg_type, reply)
+                except OSError:
+                    return
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _dispatch(self, msg_type: int, body: bytes) -> bytes:
+        verb = {wire.MSG_EMBED: "embed", wire.MSG_KNN: "knn",
+                wire.MSG_KNN_VEC: "knn_vec", wire.MSG_SCORE: "score",
+                wire.MSG_HEALTH: "health", wire.MSG_INFO: "info",
+                wire.MSG_SWAP: "swap"}.get(msg_type)
+        if verb is None:
+            raise ValueError(f"unknown serving msg_type {msg_type}")
+        self._ctr_requests.labels(verb=verb, **self._lab).inc()
+        t0 = time.monotonic()
+        # One tracer span per request: this process's exported trace
+        # file carries the serving requests on the same wall-clock
+        # timeline as the train loop. Queue/execute phase attrs are
+        # attached in _wait once the batcher stamps them.
+        sp = _obs.span("serving_request", verb=verb,
+                       shard=self._lab["shard"],
+                       replica=self._lab["replica"])
+        sp.__enter__()
+        try:
+            if msg_type == wire.MSG_HEALTH:
+                return struct.pack("<I", wire.STATUS_OK) + \
+                    wire.pack_str(json.dumps(self.health()))
+            if msg_type == wire.MSG_INFO:
+                eng = self._engine
+                lo, hi = eng.id_range()
+                info = {"service": self.service, "shard": eng.shard,
+                        "num_shards": eng.num_shards,
+                        "replica": self.replica,
+                        "bundle_version": eng.version,
+                        "id_lo": lo, "id_hi": hi,
+                        "dim": eng.bundle.dim, "count": eng.bundle.count,
+                        "model_spec": eng.bundle.model_spec}
+                return struct.pack("<I", wire.STATUS_OK) + \
+                    wire.pack_str(json.dumps(info))
+            if msg_type == wire.MSG_SWAP:
+                r = wire.Reader(body)
+                out = self.swap(r.str_())
+                return struct.pack("<I", wire.STATUS_OK) + \
+                    wire.pack_str(json.dumps(out))
+            r = wire.Reader(body)
+            deadline_ms = r.u32()
+            timeout = (deadline_ms / 1000.0) if deadline_ms \
+                else _DEFAULT_DEADLINE_S
+            if msg_type == wire.MSG_EMBED:
+                n = r.u32()
+                ids = r.array(np.uint64, n)
+                fut = self._batchers["embed"].submit(ids, rows=n)
+                emb = self._wait(fut, timeout, verb=verb, span=sp)
+                return (struct.pack("<III", wire.STATUS_OK, n,
+                                    emb.shape[1] if emb.ndim == 2 else 0)
+                        + np.ascontiguousarray(emb, np.float32).tobytes())
+            if msg_type in (wire.MSG_KNN, wire.MSG_KNN_VEC):
+                k = r.u32()
+                exact = bool(r.u8())
+                n = r.u32()
+                if msg_type == wire.MSG_KNN:
+                    q = r.array(np.uint64, n)
+                else:
+                    dim = r.u32()
+                    q = r.array(np.float32, n * dim).reshape(n, dim)
+                fut = self._batchers["knn"].submit((q, k, exact), rows=n)
+                res = self._wait(fut, timeout, verb=verb, span=sp)
+                if isinstance(res, Exception):
+                    raise res  # per-request validation failure
+                nbr, sims = res
+                return (struct.pack("<III", wire.STATUS_OK, n,
+                                    nbr.shape[1] if nbr.size else 0)
+                        + np.ascontiguousarray(nbr, np.uint64).tobytes()
+                        + np.ascontiguousarray(sims, np.float32).tobytes())
+            # MSG_SCORE
+            n = r.u32()
+            src = r.array(np.uint64, n)
+            dst = r.array(np.uint64, n)
+            fut = self._batchers["score"].submit((src, dst), rows=n)
+            scores = self._wait(fut, timeout, verb=verb, span=sp)
+            return (struct.pack("<II", wire.STATUS_OK, n)
+                    + np.ascontiguousarray(scores, np.float32).tobytes())
+        finally:
+            self._hist_request_ms.labels(verb=verb, **self._lab).observe(
+                (time.monotonic() - t0) * 1000.0)
+            sp.__exit__(None, None, None)
+
+    def _wait(self, fut, timeout: float, verb: str = "", span=None):
+        from concurrent.futures import TimeoutError as FutTimeout
+
+        try:
+            result = fut.result(timeout=max(timeout, 0.001))
+        except FutTimeout:
+            # the flush may still land later; its result is discarded.
+            # The client gets an EXPLICIT shed, never a hang.
+            self._ctr_deadline.inc()
+            if span is not None:
+                span.set(shed=True)
+            raise ShedError("deadline expired while queued") from None
+        # phase breakdown: the batcher stamped queue wait (admission →
+        # flush pickup) and the flush run time onto the future before
+        # resolving it — record both into the registry and onto the
+        # request span so trace_dump --merge shows where serving time
+        # went without any Python in the batcher's measurement path
+        if verb:
+            q_ms = getattr(fut, "queue_wait_ms", None)
+            e_ms = getattr(fut, "exec_ms", None)
+            if q_ms is not None:
+                self._hist_phase_ms.labels(
+                    verb=verb, phase="queue", **self._lab).observe(q_ms)
+            if e_ms is not None:
+                self._hist_phase_ms.labels(
+                    verb=verb, phase="execute", **self._lab).observe(e_ms)
+            if span is not None and q_ms is not None:
+                span.set(queue_ms=round(q_ms, 3),
+                         exec_ms=round(e_ms, 3) if e_ms is not None
+                         else None)
+        return result
+
+    # -- discovery heartbeat ----------------------------------------------
+    def _heartbeat_loop(self, interval_s: float) -> None:
+        while not self._stopping.wait(interval_s):
+            with self._reg_mu:
+                # flag re-checked UNDER the lock drain()/stop() remove
+                # under: once they removed, no put can land after
+                if self._draining.is_set() or self._stopping.is_set():
+                    continue
+                try:
+                    wire.registry_put(self.registry, self._entry)
+                except (OSError, wire.WireError):
+                    pass  # registry outage: entry goes stale, not fatal
+
+    def drain(self, grace_s: float = 1.0,
+              queue_timeout_s: float = 5.0) -> None:
+        """Graceful scale-down (the autoscaler's down path, riding the
+        registry discovery machinery): deregister (and stop heartbeating,
+        so the entry cannot come back) → clients re-resolve away within
+        their registry TTL → wait `grace_s` plus for the admission
+        queues to empty (bounded) → stop. In-flight requests complete
+        with a status; new connections during the grace window are
+        still served — no request ends without a status."""
+        self._draining.set()
+        if self.registry:
+            with self._reg_mu:  # after this remove, no put can land
+                wire.registry_remove(self.registry, self._entry)
+        time.sleep(max(grace_s, 0.0))
+        deadline = time.monotonic() + max(queue_timeout_s, 0.0)
+        while time.monotonic() < deadline:
+            if all(b.queue_depth == 0 for b in self._batchers.values()):
+                break
+            time.sleep(0.05)
+        self.stop()
+
+    # -- introspection -----------------------------------------------------
+    def health(self) -> Dict:
+        """Counter surface (also served via obs /healthz): request /
+        shed / unknown-id / error / swap totals, per-verb queue depths,
+        shard + bundle identity."""
+        eng = self._engine
+        shed = 0
+        queues = {}
+        for verb, b in self._batchers.items():
+            queues[verb] = b.queue_depth
+            shed += int(b._ctr_shed.value)
+        reqs = {
+            verb: int(self._ctr_requests.labels(
+                verb=verb, **self._lab).value)
+            for verb in ("embed", "knn", "knn_vec", "score", "health",
+                         "info", "swap")}
+        return {
+            "service": self.service, "shard": eng.shard,
+            "num_shards": eng.num_shards, "replica": self.replica,
+            "port": self.port, "bundle_version": eng.version,
+            "requests": reqs,
+            "shed": shed + int(self._ctr_deadline.value),
+            "deadline_shed": int(self._ctr_deadline.value),
+            "unknown_ids": int(self._ctr_unknown.value),
+            "errors": int(self._ctr_errors.value),
+            "swaps": int(self._ctr_swap.value),
+            "queue_rows": queues,
+            "bundle": {"count": eng.bundle.count, "dim": eng.bundle.dim},
+        }
+
+    # -- lifecycle ---------------------------------------------------------
+    def stop(self) -> None:
+        """Shut the replica down: deregister, close the listener and
+        every live connection (in-flight clients see a transport error
+        — an explicit failure they fail over on, never a hang), drain
+        the batchers."""
+        if self._stopping.is_set():
+            return
+        self._stopping.set()
+        if self.registry:
+            with self._reg_mu:  # same contract as drain(): no put after
+                wire.registry_remove(self.registry, self._entry)
+        try:
+            # shutdown BEFORE close: close() alone does not unblock a
+            # thread parked in accept(), leaving the port in LISTEN
+            # (same order the C++ RegistryServer::Stop uses)
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        with self._conn_mu:
+            conns, self._conns = self._conns, []
+        for _, s in conns:
+            try:
+                # RST on close (SO_LINGER 0): clients see an immediate,
+                # explicit connection reset — and no FIN_WAIT socket
+                # blocks a same-port replica restart
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                             struct.pack("ii", 1, 0))
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self._accept_thread.join(timeout=5.0)
+        for t, _ in conns:
+            t.join(timeout=5.0)
+        for b in self._batchers.values():
+            b.close(drain=False)
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=5.0)
+        _obs.unregister_health(self._obs_name)
+        self._g_connections.set(0)
+
+    def __enter__(self) -> "InferenceServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+def struct_status(status: int, message: str) -> bytes:
+    """Non-OK reply body: u32 status + reason string."""
+    return struct.pack("<I", status) + wire.pack_str(message)

@@ -542,3 +542,75 @@ def test_cuda_graph_windows_match_eager_steps_unsupervised(kind):
     assert rg["losses"] == re_["losses"]
     assert np.isfinite(rg["losses"]).all()
     _assert_same_state(graphed, eager)
+
+
+# -- serving (serving/engine.py, serving/server.py) -------------------------
+
+def _serving_bundle(seed=0, n=3000, d=64, version="v1"):
+    from euler_tpu_torch.serving import ModelBundle
+
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n, d)).astype(np.float32)
+    ids = np.arange(n, dtype=np.uint64) * 2 + 1
+    return ModelBundle({}, emb, ids, meta={"bundle_version": version})
+
+
+@pytest.mark.cuda
+def test_cuda_engine_table_is_on_the_card_and_matches_the_cpu():
+    """The engine's table lives on the card; embed equals the CPU
+    engine's exactly (a gather), score within rtol/atol 1e-5 (the card
+    and the CPU sum the 64 products in other orders); both pad to the
+    ladder alike."""
+    _need_card()
+    from euler_tpu_torch.serving.engine import EmbeddingEngine
+
+    b = _serving_bundle()
+    card = EmbeddingEngine(b, "cuda", ladder=(8, 16, 32))
+    cpu = EmbeddingEngine(b, "cpu", ladder=(8, 16, 32))
+    card.warm()
+    assert card.table.device.type == "cuda"
+    assert card.table.shape == b.embeddings.shape
+    rng = np.random.default_rng(1)
+    for n in (1, 7, 32, 77):
+        q = rng.choice(b.ids, n).astype(np.uint64)
+        q[0] = np.uint64(2)  # unknown
+        got, unknown = card.embed(q)
+        want, _ = cpu.embed(q)
+        assert unknown == 1 and got.flags.writeable
+        np.testing.assert_array_equal(got, want)
+        dst = np.roll(q, 1)
+        np.testing.assert_allclose(card.score(q, dst)[0],
+                                   cpu.score(q, dst)[0], rtol=1e-5,
+                                   atol=1e-5)
+    assert card.padded_shapes == {"gather": {8, 16, 32},
+                                  "score": {8, 16, 32}}
+
+
+@pytest.mark.cuda
+def test_cuda_server_swaps_tables_on_the_card(tmp_path):
+    """An InferenceServer on the card: embed answers v1's rows, then a
+    swap over the wire puts v2's table on the card beside v1's and flips;
+    answers are v2's, the old table is freed, shapes stay in the ladder."""
+    _need_card()
+    from euler_tpu_torch.serving import InferenceServer, ServingClient
+
+    v1, v2 = _serving_bundle(0), _serving_bundle(1, version="v2")
+    d2 = v2.save(str(tmp_path / "v2"))
+    srv = InferenceServer(v1, service="cuda_swap", max_batch=32)
+    try:
+        with ServingClient(endpoints=f"hosts:127.0.0.1:{srv.port}") as cli:
+            q = v1.ids[[0, 5, 2999]]
+            np.testing.assert_array_equal(cli.embed(q),
+                                          v1.embeddings[[0, 5, 2999]])
+            assert srv._engine.table.device.type == "cuda"
+            before = torch.cuda.memory_allocated()
+            reply = cli.swap_fleet(d2)
+            assert list(reply.values())[0]["bundle_version"] == "v2"
+            np.testing.assert_array_equal(cli.embed(q),
+                                          v2.embeddings[[0, 5, 2999]])
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() <= before
+            assert srv.bundle_version == "v2"
+            assert max(srv.padded_shapes_seen().values()) <= len(srv.ladder)
+    finally:
+        srv.stop()

@@ -151,13 +151,34 @@ def test_feeder_copy_delivers_in_the_reference_order(workers):
 
 def test_retry_rule_copy_matches_the_reference():
     """estimator/retry.py against euler_tpu/graph/remote.py: the same
-    transport markers, and the same verdict on every non-engine error
-    (the port has no EngineError yet)."""
+    transport markers, the same verdict on every non-engine error, and on
+    engine errors (the port's EngineError against euler_tpu/core/lib.py's)
+    the same verdict for the same text: retried only when it carries a
+    transport marker, whatever its case; the subclasses (a deadline
+    exceeded, the serving client's overload) judged alike."""
+    from euler_tpu.core.lib import EngineError as RefEngineError
     from euler_tpu.graph import remote
+    from euler_tpu.serving.client import ServerOverloaded as RefOverloaded
     from euler_tpu_torch.estimator import retry
+    from euler_tpu_torch.serving.client import ServerOverloaded
 
     assert retry.TRANSPORT_MARKERS == remote._TRANSPORT_MARKERS
     for exc in (ConnectionError("reset"), ConnectionResetError(),
                 TimeoutError(), OSError("disk"), ValueError("bad"),
                 RuntimeError("failed after retries"), KeyError("x")):
         assert retry.retryable_error(exc) == remote.retryable_error(exc)
+    texts = [m for m in remote._TRANSPORT_MARKERS] + [
+        "rpc to h:1 FAILED AFTER RETRIES", "Connection Refused by peer",
+        "unknown feature 'last_send_time'", "parse error", "",
+        "serving error from h:1: ValueError: bad dim"]
+    pairs = [(retry.EngineError, RefEngineError),
+             (retry.RetryDeadlineExceeded, remote.RetryDeadlineExceeded),
+             (ServerOverloaded, RefOverloaded)]
+    verdicts = []
+    for text in texts:
+        for port_cls, ref_cls in pairs:
+            got = retry.retryable_error(port_cls(text))
+            assert got == remote.retryable_error(ref_cls(text)), (text,
+                                                                   port_cls)
+            verdicts.append(got)
+    assert True in verdicts and False in verdicts

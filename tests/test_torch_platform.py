@@ -30,6 +30,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
     from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
     from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+    from euler_tpu_torch.serving import InferenceServer, ModelBundle
     from euler_tpu_torch.serving.engine import EmbeddingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -37,8 +38,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         DeviceFeatureStore.from_arrays(np.zeros((3, 2), np.float32))
     with pytest.raises(RuntimeError):
         DeviceNeighborTable.from_csr(np.array([0, 1]), np.array([0]))
+    bundle = ModelBundle({}, np.zeros((2, 2), np.float32),
+                         np.arange(2, dtype=np.uint64))
     with pytest.raises(RuntimeError):
-        EmbeddingEngine(np.arange(2, dtype=np.uint64), np.zeros((2, 2)))
+        EmbeddingEngine(bundle, None, (8,))
+    # a server without a card raises before it binds a socket, instead
+    # of serving from the host
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceServer(bundle)
 
 
 def _imported_roots(path: Path):
@@ -57,7 +64,11 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
     scanned = {str(f.relative_to(ROOT)) for f in files}
     for copy in ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
                  "obs/server.py", "estimator/prefetch.py",
-                 "estimator/retry.py", "estimator/graphed_loop.py"):
+                 "estimator/retry.py", "estimator/graphed_loop.py",
+                 "tools/knn.py", "serving/wire.py", "serving/batcher.py",
+                 "serving/export.py", "serving/engine.py",
+                 "serving/server.py", "serving/client.py",
+                 "serving/autoscale.py", "serving/__init__.py"):
         assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))
