@@ -10,7 +10,9 @@ The GraphSAGE path at the width of bench.py's flagship configuration
 per-column scale, neighbor cap 32), DeviceSampledGraphSage with dim 128
 and fanouts [15, 10] and random seeded weights, root batches of 32768;
 then the unsupervised family on the same graph (unsupervised GraphSAGE
-and the DeepWalk skip-gram of bench.py --walk); then the serving stack
+and the DeepWalk skip-gram of bench.py --walk); then the fused and alias
+table layouts and the activation cache (bench.py --fused_sampler,
+--alias_sampler, --act_cache) on the same graph; then the serving stack
 over bundles exported from the trained flagship (2,450,000 x 256 f32).
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -64,14 +66,40 @@ Phases, in order; any failure raises and the exit code is not 0:
               dense Adam's bytes against the step; the graph against
               eager steps at K = 8, bit for bit; then whether
               F.embedding's dense backward repeats bit for bit
+ 9a. layouts  the fused [N+1, 64] and alias [N+1, 32] layouts of the
+              phase-3 table (its host copy, not built again):
+              fuse_tables_host and build_alias_tables timed, bytes on
+              the card; 10^7 alias draws on a seeded weighted table at
+              count 32 and at count 1 against its weights (chi-squared,
+              p = 0.001), the card's picks equal to the CPU's for the
+              same uniforms
+ 9b. fused    the flagship over the fused table at K = 32 as phase 7
+              (edges/s, ms a step, launches == steps), the graph against
+              eager steps, and against the split tables' weighted draw
+              over the same batches, bit for bit
+ 9c. alias    the same over the alias layout (bench.py --alias_sampler)
+ 9d. cache    the activation cache at bench.py --act_cache's shape
+              (DeviceSampledScalableSage dim 128, one hop of 15, 2
+              layers, a bfloat16 cache over every row): K = 1 and K = 32
+              (nodes/s, edges/s at 2 x B x 15 a step, 2 gather_mean
+              launches a step), refresh_act_cache over all rows in
+              8192-row chunks (seconds, launches), the graph against
+              eager steps at K = 32 with the caches, bit for bit
+ 9e. alias family  unsupervised GraphSAGE and DeepWalk over the alias
+              layout, the graph against eager steps at K = 8
  10. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
               on the cora stand-in for seeds 0, 1, 2: mean test
               micro-F1 at least 0.79 (the RESULTS.md row is 0.811); the
               unsupervised runners: DeepWalk and LINE on cora against
               their RESULTS.md rows (floor 0.95), unsupervised GraphSAGE
               on ppi for seeds 0, 1, 2 against the JAX package's own
-              10-seed mean within 2 standard errors (floor 0.5); each
-              gate printed, met or not
+              10-seed mean within 2 standard errors (floor 0.5);
+              run_geniepath and run_graphsage --act_cache on cora for
+              seeds 0, 1, 2 against RESULTS.md's geniepath-dev 0.771
+              and graphsage-dev-cache 0.805 (floor 0.70), each failing
+              unless it lies within 0.01 of its row or within 2
+              standard errors of the JAX package's own 10-seed mean;
+              each gate printed, met or not
  11. small    a small input through the card and through the CPU path
  12. serve    the training tables freed, then through the TCP stack on
               the card: InferenceServer loads v1 (verified) and uploads
@@ -122,18 +150,23 @@ from euler_tpu_torch.estimator.base_estimator import BaseEstimator
 from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
 from euler_tpu_torch.estimator.prefetch import make_feeder
-from euler_tpu_torch.examples import run_deepwalk, run_graphsage, run_line
+from euler_tpu_torch.examples import (
+    run_deepwalk, run_geniepath, run_graphsage, run_line,
+)
 from euler_tpu_torch.examples.common import root_input_fn
 from euler_tpu_torch.kernels import _build
 from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
 from euler_tpu_torch.models.graphsage import (
-    DeviceSampledGraphSage, DeviceSampledUnsupervisedSage,
+    DeviceSampledGraphSage, DeviceSampledScalableSage,
+    DeviceSampledUnsupervisedSage, refresh_act_cache,
 )
 from euler_tpu_torch.ops import gather_mean as gather_mean_module
 from euler_tpu_torch.ops.gather_mean import (
     gather_mean, gather_mean_reference, launch_plan, take_rows,
 )
-from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+from euler_tpu_torch.parallel.device_sampler import (
+    DeviceNeighborTable, build_alias_tables, fuse_tables_host, sample_hop,
+)
 from euler_tpu_torch.parallel.device_walk import (
     DeviceNodeSampler, gen_pair_offsets,
 )
@@ -186,6 +219,29 @@ SERVE_THREADS, SERVE_IDS, SERVE_REQS, SERVE_K = 8, 8, 200, 10
 SERVE_LEGS = ((1, 0.0), (64, 2.0))
 SERVE_KNN_REQS, SERVE_CHECK_REQS, SERVE_AFTER_SWAP = 16, 16, 400
 SERVE_JOIN_S = 300.0
+# the alias and fused layouts (bench.py --alias_sampler / --fused_sampler,
+# bench.py:264-280): at least 10^7 alias draws on a seeded weighted table
+# against the cum weights (chi-squared, p = 0.001), the flagship at K = 32
+ALIAS_DRAWS, ALIAS_ROWS, CHI2_Z = 10_000_000, 64, 3.090
+# the activation cache (bench.py --act_cache, bench.py:840-849, :898-904):
+# DeviceSampledScalableSage dim 128, one hop of fanouts[0] = 15, 2 layers,
+# a bfloat16 cache; edges per step 2 * B * 15; refresh_act_cache over all
+# rows in 8192-row chunks
+CACHE_FANOUT, CACHE_LAYERS, CACHE_CHUNK = 15, 2, 8192
+CACHE_EDGES_PER_STEP = CACHE_LAYERS * BATCH * CACHE_FANOUT
+# quality: RESULTS.md geniepath-dev | cora | 0.771 and graphsage-dev-cache
+# | cora | 0.805 (run_geniepath, run_graphsage --act_cache). Neither the
+# reference's own runner nor the port's reaches its row today, so each is
+# also held to the JAX package's own 10-seed mean on the CPU with its
+# init moved by the seed as the port's --seed moves it
+# (tests/oracle_citation.py --vary_init --seeds 0 ... 9: mean, sd),
+# within 2 standard errors of the difference, sqrt(sd_port^2 / 3 +
+# sd_ref^2 / 10), sd_port over the port's runner with --device cpu
+# --seed 0-9. Both are printed, met or not; the run fails when neither
+# is met, or below the floor.
+GENIE_ROW, CACHE_ROW, SLICE7_FLOOR = 0.771, 0.805, 0.70
+GENIE_ORACLE, GENIE_REF_SD, GENIE_PORT_SD = 0.7430, 0.0251, 0.0277
+CACHE_ORACLE, CACHE_REF_SD, CACHE_PORT_SD = 0.7922, 0.0068, 0.0094
 
 
 def log(msg: str) -> None:
@@ -371,8 +427,9 @@ def phase_graph(dev: torch.device):
         feats, labels, quantize="int8", scale_dtype=torch.bfloat16,
         device=dev)
     del feats, labels
+    # the host tables stay for phase 13's fused and alias layouts
     table = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=CAP,
-                                         device=dev)
+                                         device=dev, keep_host=True)
     t_tables = time.monotonic() - t0
     edges = int(g.neighbors.size)
     node_types = g.node_types
@@ -415,14 +472,17 @@ def payload_bytes(table, rows, out_dtype) -> int:
 
 
 def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
-                  baseline=None) -> dict:
+                  baseline=None, cache_rows=None) -> dict:
     """gather_mean vs its plain version on the path's own deepest-hop
-    rows [n, k] and feature table, the cora runner's shapes and the
-    path's table one byte off alignment. Tolerances: float32 outputs
-    within 1e-5 of the largest value (summation order and the 1/k and
-    scale multiplies); bfloat16 outputs within 2^-7 of the largest (one
-    bf16 rounding). With a baseline kernel, old and new are timed in
-    turns (old, new, new, old) on every case."""
+    rows [n, k] and feature table, the cora runner's shapes, the path's
+    table one byte off alignment, and the activation cache's two reads
+    (cache_rows [B, 15]: layer 0 over the int8 feature table, layer 1
+    over a seeded bfloat16 cache [N+1, 128] with a float32 output).
+    Tolerances: float32 outputs within 1e-5 of the largest value
+    (summation order and the 1/k and scale multiplies); bfloat16 outputs
+    within 2^-7 of the largest (one bf16 rounding). With a baseline
+    kernel, old and new are timed in turns (old, new, new, old) on every
+    case it takes."""
     q, scale_bf16 = store.features, store.feature_scale
     scale_f32 = scale_bf16.float()
     table_f32 = q.float() * scale_f32
@@ -432,19 +492,28 @@ def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
     cq, cscale, crows = cora_case(dev)
     cases = [
         ("int8+bf16 scale", q, scale_bf16, rows,
-         lambda: q.to(torch.bfloat16) * scale_bf16),
-        ("int8+f32 scale", q, scale_f32, rows, lambda: table_f32),
-        ("f32 table", table_f32, None, rows, lambda: table_f32),
+         lambda: q.to(torch.bfloat16) * scale_bf16, None),
+        ("int8+f32 scale", q, scale_f32, rows, lambda: table_f32, None),
+        ("f32 table", table_f32, None, rows, lambda: table_f32, None),
         ("cora int8+f32 scale", cq, cscale, crows,
-         lambda: cq.float() * cscale),
+         lambda: cq.float() * cscale, None),
         ("int8+bf16 scale, table 1 byte off", shifted, scale_bf16, rows,
-         lambda: q.to(torch.bfloat16) * scale_bf16),
+         lambda: q.to(torch.bfloat16) * scale_bf16, None),
     ]
+    if cache_rows is not None:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cache = torch.randn((q.shape[0], DIM), generator=gen, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+        cases += [
+            ("act cache layer 0: int8+bf16 scale", q, scale_bf16, cache_rows,
+             lambda: q.to(torch.bfloat16) * scale_bf16, None),
+            ("act cache layer 1: bf16 cache -> f32", cache, None, cache_rows,
+             lambda: cache.float(), torch.float32)]
     results = []
-    for name, table, scale, r_, dense_fn in cases:
-        got = gather_mean(table, r_, scale)
+    for name, table, scale, r_, dense_fn, out_dtype in cases:
+        got = gather_mean(table, r_, scale, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        ref = gather_mean_reference(table, r_, scale)
+        ref = gather_mean_reference(table, r_, scale, out_dtype=out_dtype)
         err = max_abs_err(got, ref)
         big = float(ref.float().abs().max())
         tol = (2 ** -7 if got.dtype == torch.bfloat16 else 1e-5) * big
@@ -460,10 +529,12 @@ def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
         r = {"case": name, "n": r_.shape[0], "k": r_.shape[1],
              "D": table.shape[1], "N": table.shape[0],
              "max_abs_err": err, "tol": tol, "plan": plan._asdict(),
-             "ms": time_ms(lambda: gather_mean(table, r_, scale)),
+             "out_dtype": str(got.dtype).replace("torch.", ""),
+             "ms": time_ms(lambda: gather_mean(table, r_, scale,
+                                               out_dtype=out_dtype)),
              "launch_only_ms": time_ms(launch_only),
-             "plain_ms": time_ms(
-                 lambda: gather_mean_reference(table, r_, scale)),
+             "plain_ms": time_ms(lambda: gather_mean_reference(
+                 table, r_, scale, out_dtype=out_dtype)),
              "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
                  r_, dense, mode="mean"))}
         del dense
@@ -471,7 +542,7 @@ def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
         r["payload_bytes"] = payload_bytes(table, r_, got.dtype)
         r["payload_gbps"] = r["payload_bytes"] / r["ms"] / 1e6
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        if baseline is not None:
+        if baseline is not None and out_dtype is None:
             old = baseline_gather_mean(baseline, table, r_, scale)
             torch.cuda.synchronize()
             r["baseline_max_abs_err_vs_new"] = max_abs_err(old, got)
@@ -499,6 +570,8 @@ def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
         results.append(r)
         del got, ref
     del shifted
+    if cache_rows is not None:
+        del cache
     return {"cases": results, "plans": plan_sweep(q, scale_bf16, rows)}
 
 
@@ -670,13 +743,13 @@ def phase_train(store, table, node_types, dev: torch.device) -> tuple:
 
 
 def _drive_steps(est, it, what: str, work: str = "edges",
-                 work_per_step: int = 0) -> dict:
+                 work_per_step: int = 0, kernels_per_step: int = 1) -> dict:
     """est.train one step at a time, as bench.py times it: warm-up, then
     3 windows of steps on the host clock with a synchronize at the
     window edges only; then event-timed steps and one profiled step.
-    Fails unless gather_mean launched once per step, the loss is finite
-    and falling and no step was skipped. work_per_step: the flagship's
-    edges unless given."""
+    Fails unless gather_mean launched kernels_per_step times a step, the
+    loss is finite and falling and no step was skipped. work_per_step:
+    the flagship's edges unless given."""
     work_per_step = work_per_step or EDGES_PER_STEP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -721,9 +794,10 @@ def _drive_steps(est, it, what: str, work: str = "edges",
     launches = gather_mean.launches
     steps = est.step
     skipped = int(est.skipped_steps)
-    if launches != steps:
+    if launches != steps * kernels_per_step:
         raise AssertionError(f"{what}: gather_mean launched {launches} "
-                             f"times in {steps} training steps")
+                             f"times in {steps} training steps "
+                             f"({kernels_per_step} a step expected)")
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"{what}: non-finite training loss: {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -832,18 +906,33 @@ def check_remat(est, model, it, dev) -> dict:
             "peak_bytes": mr, "plain_peak_bytes": mp}
 
 
-def flagship_estimator(store, table, node_types, dev, **cfg):
+def with_layout(est, layout=None):
+    """The estimator's neighbor tables replaced by a layout's (the fused
+    table alone, or the split tables with the alias table): its static
+    batch, which its inferencer shares, holds the tables the model
+    reads."""
+    if layout is not None:
+        for k in ("nbr_table", "cum_table", "nbrcum_table", "alias_table"):
+            est.static_batch.pop(k, None)
+        est.static_batch.update(layout)
+    return est
+
+
+def flagship_estimator(store, table, node_types, dev, layout=None,
+                       uniform=None, **cfg):
     """The flagship model (random weights from seed 0) in a NodeEstimator
-    over the path's tables, with bench.py's training parameters."""
+    over the path's tables (or a layout's, with_layout), with bench.py's
+    training parameters. uniform: the model's uniform_sampling (default
+    the table's uniform_rows, bench.py's auto)."""
     model = DeviceSampledGraphSage(
         NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
-        uniform_sampling=table.uniform_rows,
+        uniform_sampling=table.uniform_rows if uniform is None else uniform,
         generator=torch.Generator().manual_seed(0))
-    return NodeEstimator(
+    return with_layout(NodeEstimator(
         model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
                     optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
                     train_node_type=-1, seed=0, **cfg),
-        node_types, store, table, device=dev)
+        node_types, store, table, device=dev), layout)
 
 
 def phase_loop(store, table, node_types, dev, k: int = LOOP_K) -> tuple:
@@ -999,13 +1088,32 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
     return r
 
 
+def _run_diffs(a, b) -> dict:
+    """Largest differences between two training runs (est, losses):
+    losses, every state_dict entry (parameters and buffers, the
+    activation caches too) and Adam's state."""
+    (ea, la), (eb, lb) = a, b
+    diffs = {"losses": float(np.max(np.abs(np.subtract(la, lb))))}
+    sd_a = ea.model.state_dict()
+    for name, p in eb.model.state_dict().items():
+        diffs[name] = max_abs_err(sd_a[name], p)
+    sa, sb = (e.optimizer.state_dict()["state"] for e in (ea, eb))
+    for i in sb:
+        for n in sb[i]:
+            diffs[f"adam[{i}].{n}"] = max_abs_err(sa[i][n], sb[i][n])
+    return diffs
+
+
 def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
-                         what: str = "flagship") -> dict:
+                         what: str = "flagship", against=None) -> dict:
     """LOOP_EQ_WINDOWS windows of k steps at K = k (the first eager on
     the capture stream, the rest graph replays) and at K = 1, from the
-    same weights on the same batches: losses, parameters and Adam's
-    moments and steps equal bit for bit. make_estimator(K) builds the
-    estimator; feed gives the batches."""
+    same weights on the same batches: losses, parameters, buffers and
+    Adam's moments and steps equal bit for bit. make_estimator(K) builds
+    the estimator; feed gives the batches. against: an optional (label,
+    make_estimator) whose run at K = k on the same batches must equal
+    the graph run bit for bit too (the fused layout against the split
+    tables' weighted draw)."""
     steps = LOOP_EQ_WINDOWS * k
     batches = [next(feed) for _ in range(steps)]
     runs = []
@@ -1013,30 +1121,38 @@ def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
         est = make_estimator(spl)
         res = est.train(iter(batches), max_steps=steps)
         runs.append((est, res["losses"]))
-    (eg, lg), (ee, le) = runs
-    diffs = {"losses": float(np.max(np.abs(np.subtract(lg, le))))}
-    for name, p in ee.model.state_dict().items():
-        diffs[name] = max_abs_err(eg.model.state_dict()[name], p)
-    sg, se = (e.optimizer.state_dict()["state"] for e in (eg, ee))
-    for i in se:
-        for n in se[i]:
-            diffs[f"adam[{i}].{n}"] = max_abs_err(sg[i][n], se[i][n])
+    diffs = _run_diffs(*runs)
     worst = max(diffs.values())
+    eg = runs[0][0]
     replays = eg._graphed.replays
     log(f"graph vs eager ({what}): {steps} steps at K = {k} ({replays} "
         f"replays) and K = 1 from the same weights and batches: largest "
-        f"difference "
-        f"{worst:.3g} over losses, {len(ee.model.state_dict())} parameters "
-        f"and {sum(len(v) for v in se.values())} Adam state tensors "
-        f"(bit for bit: {worst == 0.0})")
+        f"difference {worst:.3g} over losses, {len(diffs) - 1} state "
+        f"tensors (parameters, buffers, Adam) (bit for bit: "
+        f"{worst == 0.0})")
     if not (worst == 0.0 and replays == LOOP_EQ_WINDOWS - 1):
         raise AssertionError(f"{what}: graph replay differs from the eager "
                              f"steps: {diffs}")
-    return {"steps": steps, "steps_per_loop": k, "replays": replays,
-            "max_abs_diff": worst, "diffs": diffs}
+    out = {"steps": steps, "steps_per_loop": k, "replays": replays,
+           "gather_mean_launches_per_replay": eg._graphed.launches_per_replay,
+           "max_abs_diff": worst, "diffs": diffs}
+    if against is not None:
+        label, make = against
+        est = make(k)
+        res = est.train(iter(batches), max_steps=steps)
+        d2 = _run_diffs(runs[0], (est, res["losses"]))
+        w2 = max(d2.values())
+        log(f"{what} vs {label}: {steps} steps at K = {k} from the same "
+            f"weights and batches: largest difference {w2:.3g} (bit for "
+            f"bit: {w2 == 0.0})")
+        if w2 != 0.0:
+            raise AssertionError(f"{what} differs from {label}: {d2}")
+        out[f"vs_{label}"] = {"max_abs_diff": w2, "diffs": d2}
+    return out
 
 
-def unsup_estimator(store, table, neg, dev, **cfg) -> BaseEstimator:
+def unsup_estimator(store, table, neg, dev, layout=None,
+                    **cfg) -> BaseEstimator:
     """DeviceSampledUnsupervisedSage at the flagship's width (dim 128,
     fanouts [15, 10], 5 negatives, random weights from seed 0) in a
     plain BaseEstimator over the path's tables, Adam at lr 0.01."""
@@ -1050,7 +1166,7 @@ def unsup_estimator(store, table, neg, dev, **cfg) -> BaseEstimator:
     est.static_batch.update({"feature_table": store.features,
                              "feature_scale": store.feature_scale,
                              **table.tables, **neg.tables})
-    return est
+    return with_layout(est, layout)
 
 
 def phase_unsup(store, table, neg, dev) -> dict:
@@ -1076,7 +1192,8 @@ def phase_unsup(store, table, neg, dev) -> dict:
     return r
 
 
-def skipgram_estimator(table, neg, dev, **cfg) -> BaseEstimator:
+def skipgram_estimator(table, neg, dev, layout=None,
+                       **cfg) -> BaseEstimator:
     """DeepWalk as bench.py --walk trains it (bench.py:392-503):
     DeviceSampledSkipGram, dim 128, walk_len 5, window 1/1, 5
     negatives, the unit-weight draw, Adam at lr 0.01, seed 0."""
@@ -1088,7 +1205,7 @@ def skipgram_estimator(table, neg, dev, **cfg) -> BaseEstimator:
                                     log_steps=1 << 30, checkpoint_steps=0,
                                     seed=0, **cfg), device=dev)
     est.static_batch.update({**table.tables, **neg.tables})
-    return est
+    return with_layout(est, layout)
 
 
 def phase_walk(table, neg, dev) -> dict:
@@ -1150,6 +1267,316 @@ def probe_embedding_backward(table, dev) -> dict:
     del weight, up, grads
     log("embedding backward: two runs bit for bit: " + ", ".join(
         f"{k}: {v}" for k, v in out.items()))
+    return out
+
+
+def _chi2_crit(df: int, z: float = CHI2_Z) -> float:
+    """The chi-squared critical value at df degrees of freedom for the
+    upper-tail probability of the normal deviate z (3.090: p = 0.001),
+    by the Wilson-Hilferty cube approximation."""
+    return df * (1 - 2 / (9 * df) + z * (2 / (9 * df)) ** 0.5) ** 3
+
+
+def check_alias_draws(dev: torch.device) -> dict:
+    """The alias draw on the card against the table's weights: a seeded
+    table of ALIAS_ROWS rows x CAP slots (random weights, some zero, one
+    dead row, one zero-degree row), each slot a distinct id so a pick
+    names its column; ALIAS_DRAWS draws at count CAP (the row pick) and
+    again at count 1 (the flat pick). Chi-squared over the live cells
+    against w / sum(w) per row (df = cells - rows), p = 0.001; dead
+    rows give only the pad. Then the card's picks against the CPU's for
+    the same uniforms, bit for bit."""
+    rng = np.random.default_rng(11)
+    R, C = ALIAS_ROWS, CAP
+    pad = R
+    ids = (R + 1 + np.arange(R * C, dtype=np.int32)).reshape(R, C)
+    w = rng.uniform(0.0, 4.0, (R, C)).astype(np.float32)
+    w[rng.random((R, C)) < 0.1] = 0.0
+    w[0] = 0.0                       # dead: ids kept, total weight 0
+    nbr = np.full((R + 1, C), pad, np.int32)
+    nbr[:R] = ids
+    nbr[1] = pad                     # zero degree
+    w[1] = 0.0
+    cum = np.cumsum(np.concatenate([w, np.zeros((1, C), np.float32)]),
+                    axis=1, dtype=np.float32)
+    alias = build_alias_tables(nbr, cum_tab=cum)
+    tabs = [torch.from_numpy(x).to(dev) for x in (nbr, cum, alias)]
+    probs = w / np.maximum(w.sum(1, keepdims=True), 1e-30)
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for count in (C, 1):
+        n = ALIAS_DRAWS // count
+        rows = torch.arange(n, device=dev, dtype=torch.int32) % R
+        u = torch.rand((2, n, count), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        picks = sample_hop(*tabs[:2], rows, count, uniforms=u,
+                           alias_table=tabs[2])
+        torch.cuda.synchronize()
+        t_draw = time.monotonic() - t0
+        got = picks.view(n, count)
+        r = rows.long()[:, None].expand(n, count).reshape(-1)
+        flat = got.reshape(-1).long()
+        dead = (r == 0) | (r == 1)
+        if not bool((flat[dead] == pad).all()):
+            raise AssertionError("alias draw: a dead row gave a neighbor")
+        live = flat[~dead] - (R + 1)
+        if not bool(((live // C) == r[~dead]).all()):
+            raise AssertionError("alias draw: a pick left its row")
+        obs = torch.bincount(live, minlength=R * C).cpu().numpy().reshape(R, C)
+        per_row = np.bincount(r[~dead].cpu().numpy(), minlength=R)
+        exp = probs * per_row[:, None]
+        cells = exp > 0
+        if obs[~cells].any():
+            raise AssertionError("alias draw: a zero-weight slot was drawn")
+        stat = float(((obs[cells] - exp[cells]) ** 2 / exp[cells]).sum())
+        df = int(cells.sum()) - int((per_row > 0).sum())
+        crit = _chi2_crit(df)
+        cpu = sample_hop(*(t.cpu() for t in tabs[:2]), rows.cpu(), count,
+                         uniforms=u.cpu(), alias_table=tabs[2].cpu())
+        same = bool(torch.equal(cpu, picks.cpu()))
+        log(f"alias draws on the card: {n * count} at count {count} in "
+            f"{t_draw * 1e3:.1f} ms; chi-squared {stat:.1f} at df {df} "
+            f"(critical {crit:.1f} at p 0.001); picks equal to the CPU's "
+            f"for the same uniforms: {same}")
+        if not (stat <= crit and same):
+            raise AssertionError(f"alias draw at count {count}: chi2 {stat} "
+                                 f"> {crit} or card != CPU ({same})")
+        out[f"count_{count}"] = {"draws": n * count, "chi2": stat, "df": df,
+                                 "critical": crit, "draw_seconds": t_draw,
+                                 "cpu_equal": same}
+    return out
+
+
+def phase_layouts(table, dev: torch.device) -> tuple:
+    """The fused and alias layouts of the flagship's neighbor table,
+    built on the host from its own [N+1, 32] tables (kept from phase 3,
+    not built again): fuse_tables_host and build_alias_tables timed,
+    uploaded, their bytes on the card; then the alias draw's checks.
+    Returns (record, fused layout, alias layout) as static-batch
+    tables."""
+    nbr_h, cum_h = table.host_tables
+    t0 = time.monotonic()
+    fused = fuse_tables_host(nbr_h, cum_h)
+    t_fuse = time.monotonic() - t0
+    t0 = time.monotonic()
+    alias = build_alias_tables(nbr_h, cum_tab=cum_h)
+    t_alias = time.monotonic() - t0
+    table.host_tables = None
+    fused_dev = torch.from_numpy(fused).to(dev)
+    del fused
+    alias_dev = torch.from_numpy(alias).to(dev)
+    del alias
+    torch.cuda.synchronize()
+    r = {"fuse_tables_host_seconds": t_fuse,
+         "build_alias_tables_seconds": t_alias,
+         "fused_bytes": fused_dev.numel() * 4,
+         "alias_bytes": alias_dev.numel() * 4,
+         "alias_draws": check_alias_draws(dev)}
+    log(f"layouts: fuse_tables_host {t_fuse:.2f}s -> {r['fused_bytes']} "
+        f"bytes on the card; build_alias_tables {t_alias:.2f}s -> "
+        f"{r['alias_bytes']} bytes on the card ({table.pad_row + 1} x "
+        f"{table.cap})")
+    return (r, {"nbrcum_table": fused_dev},
+            {**table.tables, "alias_table": alias_dev})
+
+
+def phase_layout_flagship(store, table, node_types, dev, layout,
+                          what: str, against=None) -> dict:
+    """The flagship at K = 32 over a layout's tables as phase 7 drives
+    it (edges/s/GPU, ms a step, launches == steps), then the graph
+    against eager steps at K = 32 (and, for the fused layout, against
+    the split tables' weighted draw, bit for bit)."""
+    est = flagship_estimator(store, table, node_types, dev, layout=layout,
+                             steps_per_loop=LOOP_K)
+    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH)
+    try:
+        r = _drive_loop(est, it, LOOP_K, what=f"{what} loop")
+    finally:
+        it.close()
+    del est
+    r["graph_vs_eager"] = check_graph_vs_eager(
+        lambda k: flagship_estimator(store, table, node_types, dev,
+                                     layout=layout, steps_per_loop=k),
+        flagship_estimator(store, table, node_types, dev).train_input_fn(),
+        what=f"{what} flagship", against=against)
+    return r
+
+
+def cache_estimator(store, table, node_types, dev, **cfg):
+    """DeviceSampledScalableSage at bench.py --act_cache's shape (dim
+    128, one hop of 15, 2 layers, a bfloat16 cache over every table row,
+    uniform sampling on the unit-weight table as bench.py's auto; random
+    weights from seed 0) in a NodeEstimator with bench.py's training
+    parameters."""
+    model = DeviceSampledScalableSage(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM,
+        fanout=CACHE_FANOUT, num_layers=CACHE_LAYERS,
+        max_id=int(store.features.shape[0]) - 1,
+        cache_dtype=torch.bfloat16, uniform_sampling=table.uniform_rows,
+        generator=torch.Generator().manual_seed(0))
+    return NodeEstimator(
+        model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
+                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
+                    train_node_type=-1, seed=0, **cfg),
+        node_types, store, table, device=dev)
+
+
+def phase_act_cache(store, table, node_types, dev) -> dict:
+    """The activation cache at bench.py --act_cache's shape: K = 1 as
+    phase 6 drives the flagship and K = 32 as phase 7, two gather_mean
+    launches a step (layer 0's int8 feature rows, layer 1's bfloat16
+    cache rows read as float32); nodes/s and edges/s with bench.py's
+    2 x B x 15 edges a step; the graph against eager steps at K = 32,
+    the caches included, bit for bit; then refresh_act_cache over every
+    row in 8192-row chunks: seconds, launches (2 a chunk), the pad row
+    zero and the rows it wrote."""
+    r = {"k1": _drive_steps(cache_estimator(store, table, node_types, dev),
+                            cache_estimator(store, table, node_types,
+                                            dev).train_input_fn(),
+                            "act cache", work_per_step=CACHE_EDGES_PER_STEP,
+                            kernels_per_step=CACHE_LAYERS)}
+    r["k1"]["nodes_per_s"] = r["k1"]["roots_per_s"]
+    est = cache_estimator(store, table, node_types, dev,
+                          steps_per_loop=LOOP_K)
+    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH)
+    try:
+        r["k32"] = _drive_loop(est, it, LOOP_K, what="act cache loop",
+                               work_per_step=CACHE_EDGES_PER_STEP,
+                               kernels_per_step=CACHE_LAYERS)
+    finally:
+        it.close()
+    r["k32"]["nodes_per_s"] = r["k32"]["roots_per_s"]
+    chunks = -(-(int(store.features.shape[0]) - 1) // CACHE_CHUNK)
+    torch.cuda.synchronize()
+    gather_mean.launches = 0
+    t0 = time.monotonic()
+    refresh_act_cache(est, chunk=CACHE_CHUNK)
+    torch.cuda.synchronize()
+    t_refresh = time.monotonic() - t0
+    launches = gather_mean.launches
+    h = est.model.encoder.cache_1.h
+    written = int((h.float().abs().sum(1) > 0).sum())
+    if launches != CACHE_LAYERS * chunks or h[-1].any() \
+            or not torch.isfinite(h.float()).all():
+        raise AssertionError(f"refresh_act_cache: {launches} launches for "
+                             f"{chunks} chunks, pad row {h[-1]}")
+    r["refresh"] = {"seconds": t_refresh, "chunks": chunks,
+                    "gather_mean_launches": launches, "rows_written": written,
+                    "cache_bytes": h.numel() * h.element_size()}
+    log(f"act cache: refresh_act_cache over {h.shape[0] - 1} rows in "
+        f"{chunks} chunks of {CACHE_CHUNK}: {t_refresh:.2f}s, gather_mean "
+        f"launches {launches}, rows written {written}, pad row zero; cache "
+        f"{r['refresh']['cache_bytes']} bytes ({h.dtype})")
+    r["kernel_vs_plain"] = cache_forward_vs_plain(est)
+    del est, h
+    r["graph_vs_eager"] = check_graph_vs_eager(
+        lambda k: cache_estimator(store, table, node_types, dev,
+                                  steps_per_loop=k),
+        cache_estimator(store, table, node_types, dev).train_input_fn(),
+        what="act cache")
+    return r
+
+
+def cache_forward_vs_plain(est) -> dict:
+    """One eval forward of the activation-cache model over the refreshed
+    caches, its two neighbor means (layer 0's int8 feature rows, layer
+    1's bfloat16 cache rows) through the kernel and through
+    gather_mean_reference, with the same sampled rows: the embeddings
+    agree within 2^-7 of their largest magnitude (layer 0's mean is
+    stored as bfloat16)."""
+    from euler_tpu_torch.estimator.infer import eval_mode
+
+    model = est.model
+    batch = {**base_estimator._to_device(next(est.train_input_fn()),
+                                         est.device), **est.static_batch}
+    with eval_mode(model), torch.inference_mode():
+        emb_k = model.embed(batch)
+        emb_p = model.embed(batch, neighbor_mean=gather_mean_reference)
+    _check_finite("act cache embedding", emb_k, (BATCH, DIM))
+    err = max_abs_err(emb_k, emb_p)
+    tol = 2 ** -7 * float(emb_p.abs().max())
+    log(f"act cache: kernel vs plain forward over the refreshed caches: "
+        f"err {err:.3g} (tol {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"act cache kernel forward vs plain forward: "
+                             f"{err} > {tol}")
+    return {"max_abs_err": err, "tol": tol}
+
+
+def phase_alias_unsup(store, table, neg, alias, dev) -> dict:
+    """Unsupervised GraphSAGE and the DeepWalk skip-gram over the alias
+    layout at K = 8 (bench.py --alias_sampler; the walk's p = q = 1
+    steps take the alias draw): a few windows, the graph against eager
+    steps, bit for bit."""
+    r = {
+        "unsup": check_graph_vs_eager(
+            lambda k: unsup_estimator(store, table, neg, dev, layout=alias,
+                                      steps_per_loop=k),
+            root_input_fn(FULL_NODES, BATCH, 2)(), k=UNSUP_EQ_K,
+            what="unsupervised GraphSAGE, alias"),
+        "walk": check_graph_vs_eager(
+            lambda k: skipgram_estimator(table, neg, dev, layout=alias,
+                                         steps_per_loop=k),
+            root_input_fn(FULL_NODES, BATCH, 3)(), k=WALK_K,
+            what="DeepWalk, alias")}
+    # one gather_mean launch a step for the mean aggregator's deepest
+    # hop; the skip-gram reads no feature table
+    for name, want in (("unsup", UNSUP_EQ_K), ("walk", 0)):
+        got = r[name]["gather_mean_launches_per_replay"]
+        if got != want:
+            raise AssertionError(f"{name} over the alias layout: {got} "
+                                 f"gather_mean launches a replay, not {want}")
+    return r
+
+
+def phase_slice7_quality() -> dict:
+    """geniepath-dev cora (run_geniepath) and graphsage-dev-cache cora
+    (run_graphsage --act_cache) on the card for seeds 0-2, the runners'
+    defaults: each mean against its RESULTS.md row +- 0.01 and against
+    the JAX package's own 10-seed mean within 2 standard errors, each
+    printed met or not; fails on a skipped step, a mean below
+    SLICE7_FLOOR, or a mean that meets neither gate."""
+    out = {}
+    for name, mod, argv, row, (oracle, ref_sd, port_sd) in (
+            ("geniepath cora", run_geniepath, ["--device_sampler"],
+             GENIE_ROW, (GENIE_ORACLE, GENIE_REF_SD, GENIE_PORT_SD)),
+            ("graphsage act cache cora", run_graphsage,
+             ["--device_sampler", "--act_cache"], CACHE_ROW,
+             (CACHE_ORACLE, CACHE_REF_SD, CACHE_PORT_SD))):
+        f1 = []
+        for seed in QUALITY_SEEDS:
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv + ["--seed", str(seed)])
+            secs = time.monotonic() - t0
+            if res["train_skipped_steps"] != 0:
+                raise AssertionError(f"{name} seed {seed}: skipped steps")
+            f1.append(float(res["test_metric"]))
+            log(f"quality: {name} seed {seed}: test micro-F1 {f1[-1]:.4f} "
+                f"(best step {res['best_step']}, {secs:.1f}s)")
+        mean = float(np.mean(f1))
+        gate = abs(mean - row) <= QUALITY_BAND
+        two_se = 2 * float(np.sqrt(port_sd ** 2 / len(f1) + ref_sd ** 2 / 10))
+        gate_se = abs(mean - oracle) <= two_se
+        log(f"quality: {name} mean test micro-F1 {mean:.4f} over seeds "
+            f"{list(QUALITY_SEEDS)} (floor {SLICE7_FLOOR}; RESULTS.md row "
+            f"{row} +- {QUALITY_BAND}: {'met' if gate else 'not met'}; the "
+            f"reference's own 10-seed mean {oracle} +- 2 standard errors "
+            f"{two_se:.4f}, tests/oracle_citation.py --vary_init: "
+            f"{'met' if gate_se else 'not met'})")
+        if not mean >= SLICE7_FLOOR:
+            raise AssertionError(f"{name} mean micro-F1 {mean} < "
+                                 f"{SLICE7_FLOOR}")
+        if not (gate or gate_se):
+            raise AssertionError(
+                f"{name} mean micro-F1 {mean}: neither within "
+                f"{QUALITY_BAND} of RESULTS.md's {row} nor within "
+                f"{two_se} of the reference's 10-seed mean {oracle}")
+        out[name] = {"test_micro_f1": f1, "mean": mean, "row": row,
+                     "gate_met": gate, "oracle": oracle, "two_se": two_se,
+                     "gate_two_se_met": gate_se}
     return out
 
 
@@ -1680,8 +2107,14 @@ def main(argv=None) -> int:
              **inf.static_batch}
     with torch.inference_mode():
         deepest = model.sample_rows(probe)[-1].view(BATCH * FANOUTS[0], -1)
-    record["kernels"] = phase_kernels(store, deepest, dev, baseline)
-    del deepest, probe
+        # the activation cache's one hop of 15 over the same roots
+        cache_rows = sample_hop(
+            table.neighbors, table.cum_weights, probe["rows"][0],
+            CACHE_FANOUT, torch.Generator(device=dev).manual_seed(1),
+            uniform=table.uniform_rows).view(BATCH, CACHE_FANOUT)
+    record["kernels"] = phase_kernels(store, deepest, dev, baseline,
+                                      cache_rows)
+    del deepest, probe, cache_rows
     record["slice"], ids, emb = phase_slice(inf, model)
     del ids, emb
     record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
@@ -1710,8 +2143,22 @@ def main(argv=None) -> int:
     record["unsup"] = phase_unsup(store, table, neg, dev)
     record["walk"] = phase_walk(table, neg, dev)
     record["embedding_backward"] = probe_embedding_backward(table, dev)
-    del neg
+    # slice 7: the fused and alias layouts of the same table, the
+    # flagship over each, the activation cache, the unsupervised family
+    # over the alias layout
+    record["layouts"], fused, alias = phase_layouts(table, dev)
+    record["fused"] = phase_layout_flagship(
+        store, table, node_types, dev, fused, "fused",
+        against=("split weighted", lambda k: flagship_estimator(
+            store, table, node_types, dev, uniform=False,
+            steps_per_loop=k)))
+    record["alias"] = phase_layout_flagship(store, table, node_types, dev,
+                                            alias, "alias")
+    record["act_cache"] = phase_act_cache(store, table, node_types, dev)
+    record["alias_unsup"] = phase_alias_unsup(store, table, neg, alias, dev)
+    del neg, fused, alias
     record["quality"] = phase_quality()
+    record["slice7_quality"] = phase_slice7_quality()
     record["unsup_quality"] = phase_unsup_quality()
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     # the training tables go before the bundles' tables go on the card
@@ -1751,6 +2198,26 @@ def main(argv=None) -> int:
             record["walk"]["gather_mean_device_launches"],
         "export_launches": record["export_v1"]["gather_mean_launches"],
         "export_v2_launches": record["export_v2"]["gather_mean_launches"],
+        "fused_loop_device_launches":
+            record["fused"]["gather_mean_device_launches"],
+        "fused_loop_launches_per_replay":
+            record["fused"]["gather_mean_launches_per_replay"],
+        "alias_loop_device_launches":
+            record["alias"]["gather_mean_device_launches"],
+        "alias_loop_launches_per_replay":
+            record["alias"]["gather_mean_launches_per_replay"],
+        "act_cache_launches": record["act_cache"]["k1"][
+            "gather_mean_launches"],
+        "act_cache_loop_device_launches":
+            record["act_cache"]["k32"]["gather_mean_device_launches"],
+        "act_cache_loop_launches_per_replay":
+            record["act_cache"]["k32"]["gather_mean_launches_per_replay"],
+        "act_cache_refresh_launches":
+            record["act_cache"]["refresh"]["gather_mean_launches"],
+        "alias_unsup_launches_per_replay":
+            record["alias_unsup"]["unsup"]["gather_mean_launches_per_replay"],
+        "alias_walk_launches_per_replay":
+            record["alias_unsup"]["walk"]["gather_mean_launches_per_replay"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

@@ -1,16 +1,27 @@
 """Parameters between the JAX package and the port.
 
-A flax param tree of Dense layers and Embedding tables (as numpy), e.g.
-the reference DeviceSampledGraphSage's
+A flax param tree of Dense layers, Embedding tables and other vectors
+(as numpy), e.g. the reference DeviceSampledGraphSage's
 
     encoder/enc/agg_{d}/{self,nbr}/{kernel,bias},  out/{kernel,bias}
 
+(the gcn encoder's encoder/enc/w_{d}/kernel, the genie encoder's
+proj, depth_fc_{d}, att_{d}/{key,query}, w_{d}_{h} and
+depth_lstm/OptimizedLSTMCell_0/{ii,if,ig,io,hi,hf,hg,ho}),
 DeviceSampledUnsupervisedSage's encoder/agg_{d}/... and ctx_emb/table,
-or DeviceSampledSkipGram's emb/table and ctx/table, maps to the port's
+DeviceSampledSkipGram's emb/table and ctx/table, or
+DeviceSampledScalableSage's encoder/w_{l}, maps to the port's
 state_dict keys by joining the path with "." and renaming kernel →
 weight. Flax kernels are [in, out]; the port's weights are [out, in],
-so kernels are transposed both ways. Tables [rows, dim] keep their
-layout.
+so kernels are transposed both ways. Tables [rows, dim] and other
+vectors (AttLayer's query) keep their layout.
+
+The scalable models' `cache` collection (encoder/cache_{l}/h, float32
+or bfloat16 rows) is the port's buffers encoder.cache_{l}.h: it comes
+in with the params when the flax variables {"params", "cache"} are
+given, and goes out through `state_dict_to_flax_variables`. The params
+alone (`state_dict_to_flax`, `flax_param_paths`) leave it out, as the
+reference's export_bundle does.
 """
 
 from __future__ import annotations
@@ -19,6 +30,27 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+_CACHE_LEAF = "h"
+
+
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    """numpy → torch, a bfloat16 array (ml_dtypes) by its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch → numpy, a bfloat16 tensor as ml_dtypes.bfloat16 (jax's
+    numpy bfloat16), by its bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -30,8 +62,11 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax params (optionally wrapped as {"params": ...}) → state_dict."""
-    if set(params) == {"params"}:
+    """flax params (optionally wrapped as {"params": ...}, or the
+    variables {"params": ..., "cache": ...}) → state_dict."""
+    cache = {}
+    if "params" in params and set(params) <= {"params", "cache"}:
+        cache = params.get("cache") or {}
         params = params["params"]
     out = {}
     for path, leaf in _flatten(params):
@@ -43,29 +78,46 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                                  f"convert, got shape {arr.shape}")
             out[".".join(scope + ["weight"])] = torch.from_numpy(
                 np.ascontiguousarray(arr.T))
-        elif name in ("bias", "table"):
+        elif name in ("bias", "table", "query"):
             out[".".join(scope + [name])] = torch.from_numpy(arr.copy())
         else:
             raise ValueError(f"{'/'.join(path)}: unknown param {name!r}")
+    for path, leaf in _flatten(cache):
+        if path[-1] != _CACHE_LEAF:
+            raise ValueError(f"cache/{'/'.join(path)}: unknown entry")
+        out[".".join(path)] = _to_torch(np.asarray(leaf))
     return out
 
 
-def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
-                       ) -> Dict[str, Any]:
-    """The port's state_dict → a nested flax param dict of numpy."""
-    tree: Dict[str, Any] = {}
+def state_dict_to_flax_variables(state_dict: Mapping[str, torch.Tensor]
+                                 ) -> Dict[str, Any]:
+    """The port's state_dict → flax variables {"params": ..., and
+    "cache": ... when the model has activation caches}, nested dicts of
+    numpy."""
+    tree: Dict[str, Any] = {"params": {}}
     for key, t in state_dict.items():
         *scope, name = key.split(".")
-        arr = t.detach().cpu().numpy()
-        if name == "weight":
-            name, arr = "kernel", np.ascontiguousarray(arr.T)
-        elif name not in ("bias", "table"):
-            raise ValueError(f"{key}: unknown param {name!r}")
-        node = tree
+        if name == _CACHE_LEAF:
+            node, arr = tree.setdefault("cache", {}), _to_numpy(t)
+        else:
+            node, arr = tree["params"], t.detach().cpu().numpy()
+            if name == "weight":
+                name, arr = "kernel", np.ascontiguousarray(arr.T)
+            elif name not in ("bias", "table", "query"):
+                raise ValueError(f"{key}: unknown param {name!r}")
         for s in scope:
             node = node.setdefault(s, {})
         node[name] = arr
     return tree
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+    """The port's state_dict → a nested flax param dict of numpy (the
+    activation caches left out)."""
+    return state_dict_to_flax_variables(
+        {k: v for k, v in state_dict.items()
+         if k.rsplit(".", 1)[-1] != _CACHE_LEAF})["params"]
 
 
 def flax_param_paths(state_dict: Mapping[str, torch.Tensor]

@@ -4,7 +4,8 @@
 //   int8 table + scale:  out[i, c] = (sum_j table[rows[i, j], c]) * (1/k * scale[c])
 //                        (out in scale's dtype: float32 or bfloat16)
 //   float32 / bfloat16:  out[i, c] = (sum_j table[rows[i, j], c]) * (1/k)
-//                        (out in the table's dtype)
+//                        (out in the table's dtype, or float32 for a
+//                        bfloat16 table)
 // The sum is taken in float32, in j order, and rounded to the output
 // type once.
 //
@@ -304,14 +305,17 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
-// synchronise and allocates nothing: `out` is [n, d] in the output dtype.
-// The plan (vec_bytes, lanes, rows_per_block, grid x col_blocks) comes
-// from launch_plan in euler_tpu_torch/ops/gather_mean.py. Returns
+// synchronise and allocates nothing: `out` is [n, d] in the output dtype,
+// the scale's for an int8 table, the table's for a float one, or float32
+// for a bfloat16 table (an activation cache read as float32 rows, summed
+// in float32 and stored without a bfloat16 rounding). The plan
+// (vec_bytes, lanes, rows_per_block, grid x col_blocks) comes from
+// launch_plan in euler_tpu_torch/ops/gather_mean.py. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue, with
 // nothing launched, for a dtype combination the kernel does not take or
 // a plan it cannot run on these pointers and widths.
 extern "C" int gather_mean_launch(const void* table, int table_dtype, const void* rows,
-                                  const void* scale, int scale_dtype, void* out,
+                                  const void* scale, int scale_dtype, void* out, int out_dtype,
                                   long long n, int k, long long d, long long num_rows,
                                   int vec_bytes, int lanes, int rows_per_block,
                                   long long grid, int col_blocks, void* stream) {
@@ -324,12 +328,15 @@ extern "C" int gather_mean_launch(const void* table, int table_dtype, const void
   const Args a{table,     rows,  scale,          out,  n,         k,  d,
                num_rows, vec_bytes, lanes, rows_per_block, grid, col_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (table_dtype == kInt8 && scale_dtype == kFloat32) return dispatch<I8, F32, F32>(a, s);
-  if (table_dtype == kInt8 && scale_dtype == kBFloat16)
+  if (table_dtype == kInt8 && scale_dtype == kFloat32 && out_dtype == kFloat32)
+    return dispatch<I8, F32, F32>(a, s);
+  if (table_dtype == kInt8 && scale_dtype == kBFloat16 && out_dtype == kBFloat16)
     return dispatch<I8, BF16, BF16>(a, s);
-  if (table_dtype == kFloat32 && scale_dtype == kNone)
+  if (table_dtype == kFloat32 && scale_dtype == kNone && out_dtype == kFloat32)
     return dispatch<F32, NoScale, F32>(a, s);
-  if (table_dtype == kBFloat16 && scale_dtype == kNone)
+  if (table_dtype == kBFloat16 && scale_dtype == kNone && out_dtype == kBFloat16)
     return dispatch<BF16, NoScale, BF16>(a, s);
+  if (table_dtype == kBFloat16 && scale_dtype == kNone && out_dtype == kFloat32)
+    return dispatch<BF16, NoScale, F32>(a, s);
   return cudaErrorInvalidValue;
 }

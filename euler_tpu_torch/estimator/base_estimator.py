@@ -166,6 +166,10 @@ class BaseEstimator:
         self._one = torch.ones((), device=self.device)
         # device tensors merged into every batch (the tables)
         self.static_batch: Dict[str, Any] = {}
+        # called with this estimator before every interleaved and final
+        # evaluation of train_and_evaluate (e.g.
+        # models.graphsage.refresh_act_cache)
+        self.pre_eval_hook: Optional[Callable] = None
         self._restore_pending = True
         self._graphed = None  # graphed_loop.GraphedLoop, at the first window
         self._init_obs()
@@ -237,6 +241,7 @@ class BaseEstimator:
         self.optimizer.zero_grad(set_to_none=True)
         out.loss.backward()
         loss = out.loss.detach()
+        found_inf = None
         if self.nonfinite_guard:
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
@@ -250,6 +255,11 @@ class BaseEstimator:
             self.skipped_steps += found_inf.to(torch.int32)
         else:
             self.optimizer.step()
+        settle = getattr(self.model, "settle_cache_writes", None)
+        if settle is not None:
+            # the reference's extra_vars: a skipped step keeps the old
+            # activation caches, as it keeps the old parameters
+            settle(found_inf)
         return loss, out.metric.detach()
 
     def _train_step(self, batch: Dict[str, Any]):
@@ -299,7 +309,9 @@ class BaseEstimator:
 
     def save_checkpoint(self, step: int) -> None:
         """{model, optimizer, step, skipped_steps} as
-        model_dir/checkpoints/ckpt-<step>.pt; the last 3 are kept."""
+        model_dir/checkpoints/ckpt-<step>.pt; the last 3 are kept. The
+        model's state_dict holds its activation caches (the reference's
+        extra_vars) beside its parameters."""
         d = self._checkpoint_dir()
         if d is None:
             return
@@ -774,10 +786,14 @@ class BaseEstimator:
                            eval_every: int = 0,
                            keep_best: bool = False) -> Dict[str, Any]:
         """Train, evaluating every `eval_every` steps (0: once at the
-        end). keep_best snapshots the parameters at the best interleaved
-        eval metric and restores them before the final evaluation."""
+        end). keep_best snapshots the parameters and buffers (the
+        activation caches) at the best interleaved eval metric and
+        restores them before the final evaluation. pre_eval_hook runs
+        before each evaluation, as the reference runs it."""
         if eval_every <= 0:
             train_res = self.train(train_input_fn, max_steps)
+            if self.pre_eval_hook:
+                self.pre_eval_hook(self)
             eval_res = self.evaluate(eval_input_fn, eval_steps)
             return {**{f"train_{k}": v for k, v in train_res.items()},
                     **{f"eval_{k}": v for k, v in eval_res.items()}}
@@ -806,6 +822,8 @@ class BaseEstimator:
                     break  # train iterator exhausted at a segment edge
                 train_res = seg
                 step = seg["global_step"]
+                if self.pre_eval_hook:
+                    self.pre_eval_hook(self)
                 m = self.evaluate(eval_input_fn, eval_steps)["metric"]
                 if keep_best and (best_snap is None or m > best_metric):
                     best_metric, best_step = m, step
@@ -821,6 +839,10 @@ class BaseEstimator:
             self.model.load_state_dict(best_snap)
         if self.ckpt_steps:
             self.save_checkpoint(step)  # disk matches the reported weights
+        if self.pre_eval_hook:
+            # a restored-best snapshot's caches were refreshed before its
+            # evaluation; keep_best=False reaches here without a refresh
+            self.pre_eval_hook(self)
         eval_res = self.evaluate(eval_input_fn, eval_steps)
         out = {**{f"train_{k}": v for k, v in train_res.items()},
                **{f"eval_{k}": v for k, v in eval_res.items()}}

@@ -1,0 +1,105 @@
+"""Scalable GraphSAGE on device-resident tables: one sampled hop and the
+activation cache (counterpart of
+examples/scalable_sage/run_scalable_sage.py:16-86, its --device_sampler
+branch, with the same defaults).
+
+    python -m euler_tpu_torch.examples.run_scalable_sage --device_sampler \\
+        [--encoder gcn] [--dataset cora] [--no-cache_refresh] [--seed 0] \\
+        [--device cpu]
+
+Trains DeviceSampledScalableSage through NodeEstimator, the cache
+refreshed over all nodes before each evaluation unless
+--no-cache_refresh (models.graphsage.refresh_act_cache), and prints the
+result dict of fit_citation. --seed seeds the model's init, the root
+draws and dropout. Without --device_sampler the runner raises: the
+host-fed ScalableGraphSage needs the graph engine (ROADMAP.md Queue A,
+'Engine binding').
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from euler_tpu_torch.dataset import get_dataset
+from euler_tpu_torch.estimator.estimators import NodeEstimator
+from euler_tpu_torch.examples.common import fit_citation
+from euler_tpu_torch.models.graphsage import (
+    DeviceSampledScalableSage, refresh_act_cache,
+)
+from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+from euler_tpu_torch.platform import resolve_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", default="cora")
+    ap.add_argument("--hidden_dim", type=int, default=32)
+    ap.add_argument("--num_layers", type=int, default=2)
+    ap.add_argument("--fanout", type=int, default=10)
+    ap.add_argument("--batch_size", type=int, default=64)
+    ap.add_argument("--learning_rate", type=float, default=0.01)
+    ap.add_argument("--max_steps", type=int, default=200)
+    ap.add_argument("--eval_steps", type=int, default=20)
+    ap.add_argument("--model_dir", default="")
+    ap.add_argument("--encoder", default="sage", choices=["sage", "gcn"],
+                    help="sage (concat) or gcn (mean of self and "
+                         "neighbors)")
+    ap.add_argument("--device_sampler", action="store_true",
+                    help="sampling and the activation cache on the "
+                         "device (the only path ported)")
+    ap.add_argument("--sampler_cap", type=int, default=32)
+    ap.add_argument("--store_decay", type=float, default=0.9)
+    ap.add_argument("--cache_refresh", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="refresh the cache over all nodes before each "
+                         "evaluation")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU; default CUDA")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    args = build_parser().parse_args(argv)
+    if not args.device_sampler:
+        raise NotImplementedError(
+            "the host-fed ScalableGraphSage needs the graph engine, not "
+            "ported yet: ROADMAP.md Queue A, 'Engine binding'; pass "
+            "--device_sampler")
+    dev = resolve_device(args.device)
+    data = get_dataset(args.dataset)
+    print(f"dataset {args.dataset}: {data.num_nodes} nodes, "
+          f"{data.neighbors.size} directed edges [synthetic]", flush=True)
+    d = data.features.shape[1]
+    feats = np.concatenate([data.features, np.zeros((1, d), np.float32)])
+    labels = np.concatenate([data.onehot_labels(),
+                             np.zeros((1, data.num_classes), np.float32)])
+    store = DeviceFeatureStore.from_arrays(feats, labels, device=dev)
+    sampler = DeviceNeighborTable.from_csr(data.offsets, data.neighbors,
+                                           cap=args.sampler_cap, device=dev)
+    model = DeviceSampledScalableSage(
+        data.num_classes, d, multilabel=False, dim=args.hidden_dim,
+        fanout=args.fanout, num_layers=args.num_layers,
+        max_id=sampler.pad_row, store_decay=args.store_decay,
+        encoder=args.encoder,
+        generator=torch.Generator().manual_seed(args.seed))
+    est = NodeEstimator(
+        model, dict(batch_size=args.batch_size,
+                    learning_rate=args.learning_rate, seed=args.seed),
+        data.node_types, store, sampler, model_dir=args.model_dir or None,
+        device=dev)
+    if args.cache_refresh:
+        est.pre_eval_hook = refresh_act_cache
+    res = fit_citation(est, args.max_steps)
+    res.pop("train_losses", None)
+    print(res, flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

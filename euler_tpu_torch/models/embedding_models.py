@@ -16,7 +16,6 @@ from torch import nn
 
 from euler_tpu_torch.models.graphsage import batch_stream
 from euler_tpu_torch.mp_utils.base import ModelOutput, ranking_loss
-from euler_tpu_torch.parallel.device_sampler import check_split_tables
 from euler_tpu_torch.parallel.device_walk import (
     gen_pair_rows, sample_global_rows, walk_rows,
 )
@@ -42,10 +41,13 @@ class DeviceSampledSkipGram(nn.Module):
     (nbr_table, cum_table, neg_rows, neg_cum). One stream, seeded from
     (23, sample_seed), feeds in order the walk's steps and the
     negatives; replayed uniforms replace them: batch["walk_uniforms"]
-    (one [B] tensor per step) and batch["neg_uniforms"] [B·P,
-    num_negs]. uniform_sampling (unit-weight tables) takes the
-    one-gather draw for the p = q = 1 steps. The fused/alias layouts
-    raise NotImplementedError."""
+    (one [B] tensor per step, [2, B] for an alias step) and
+    batch["neg_uniforms"] [B·P, num_negs]. uniform_sampling (unit-weight
+    tables) takes the one-gather draw for the p = q = 1 steps; an
+    alias_table in the batch takes the alias draw there instead, as the
+    reference's does. The walk reads the split tables: a fused table
+    alone has no nbr_table, and the batch raises KeyError, as the
+    reference's does."""
 
     stream_word = 23
 
@@ -82,14 +84,14 @@ class DeviceSampledSkipGram(nn.Module):
         """(pairs [B·P, 2] rows (source, positive), negatives [B·P,
         num_negs]) for this batch, the walks drawn before the
         negatives."""
-        check_split_tables(batch)
         roots = batch["rows"][0]
         replays = [batch.get("walk_uniforms"), batch.get("neg_uniforms")]
         gen = None if all(r is not None for r in replays) else \
             batch_stream(batch, roots.device, self.stream_word)
         walks = walk_rows(batch["nbr_table"], batch["cum_table"], roots,
                           self.walk_len, generator=gen, uniforms=replays[0],
-                          p=self.p, q=self.q, uniform=self.uniform_sampling)
+                          p=self.p, q=self.q, uniform=self.uniform_sampling,
+                          alias_table=batch.get("alias_table"))
         pairs = gen_pair_rows(walks, self.left_win, self.right_win)
         pairs = pairs.reshape(-1, 2)
         negs = sample_global_rows(batch["neg_rows"], batch["neg_cum"],

@@ -1,13 +1,24 @@
 """GraphSAGE on device-resident tables (counterpart of
-euler_tpu/models/graphsage.py:21-47, 87-193, 404-488):
-`gather_feature_rows`, `_GatherEncode`, `DeviceSampledGraphSage` and
+euler_tpu/models/graphsage.py:21-47, 87-352, 404-488):
+`gather_feature_rows`, `_GatherEncode`, `DeviceSampledGraphSage`,
+`DeviceSampledScalableSage` with `refresh_act_cache`, and
 `DeviceSampledUnsupervisedSage`.
 
 The batch carries root rows and a sample seed; neighbor sampling, the
-feature gather and the label lookup read the device tables. The deepest
-hop's features are read only as neighbor means, so that layer goes
-through ops.gather_mean (one kernel launch per forward on CUDA) and the
-[n·k, D] gathered layer is never built.
+feature gather and the label lookup read the device tables. The
+neighbor tables come in the reference's three layouts (split, fused,
+and split with an alias table; parallel/device_sampler.py) and the
+models pick the draw as the reference does: a fused table selects the
+fused draw, an alias table wins over uniform_sampling.
+
+Wherever the reference reduces the deepest hop with a plain mean over
+gathered rows, that hop goes through ops.gather_mean (one kernel launch
+on CUDA) and its [n·k, D] layer is never built: the sage encoder with
+the mean aggregator, the gcn encoder ((x + k·mean) / (k + 1)), and both
+neighbor reads of the scalable model (the feature rows of layer 0, the
+cache rows of layer 1 and up). The genie encoder and the pool
+aggregators transform each neighbor before pooling, so they gather the
+deepest hop with take_rows.
 
 remat=True runs `_GatherEncode` under torch.utils.checkpoint, as the
 reference wraps it in nn.remat: the backward pass gathers the hop
@@ -19,6 +30,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -28,22 +40,16 @@ from euler_tpu_torch.mp_utils.base import (
 )
 from euler_tpu_torch.ops.gather_mean import gather_mean, take_rows
 from euler_tpu_torch.parallel.device_sampler import (
-    check_split_tables, sample_fanout_rows, sample_hop,
+    sample_hop, sample_hop_fused,
 )
 from euler_tpu_torch.parallel.device_walk import sample_global_rows
 from euler_tpu_torch.parallel.feature_store import dequantize_rows
 from euler_tpu_torch.platform import seed_words
-from euler_tpu_torch.utils.encoders import SageEncoder
+from euler_tpu_torch.utils.encoders import (
+    GCNEncoder, GenieEncoder, SageEncoder, ScalableGCNEncoder,
+    ScalableSageEncoder,
+)
 from euler_tpu_torch.utils.layers import Embedding
-
-_ROADMAP_FAMILIES = "ROADMAP.md Queue A, 'Other device-resident families'"
-
-
-def _check_mean(aggregator: str, model: str) -> None:
-    if aggregator.lower() != "mean":
-        raise NotImplementedError(
-            f"aggregator {aggregator!r} in {model} is not ported yet: "
-            f"{_ROADMAP_FAMILIES}")
 
 
 def gather_feature_rows(batch: Dict[str, Any],
@@ -90,31 +96,45 @@ def batch_stream(batch: Dict[str, Any], device: torch.device,
     return gen
 
 
-def encode_fanout(encoder: SageEncoder, table: torch.Tensor,
+def encode_fanout(encoder: nn.Module, table: torch.Tensor,
                   scale: Optional[torch.Tensor],
                   rows: Sequence[torch.Tensor],
                   neighbor_mean: Callable = gather_mean) -> torch.Tensor:
-    """The encoder over a fanout's rows [roots, hop1, ..., hopL]: hops
-    0..L-1 gathered from the feature table, hop L read only as its
-    neighbor mean, neighbor_mean(table, rows [n, k], scale): one
-    gather_mean launch on CUDA, and the [n·k, D] layer never exists."""
-    layers = gather_feature_rows(
-        {"feature_table": table, "feature_scale": scale}, rows[:-1])
-    n = rows[-2].shape[0]
-    deepest = rows[-1].reshape(n, -1)
-    return encoder(layers, nbr_mean=neighbor_mean(table, deepest, scale))
+    """The encoder over a fanout's rows [roots, hop1, ..., hopL]. A sage
+    encoder with the mean aggregator, or a gcn encoder, reads hop L only
+    as its neighbor mean, neighbor_mean(table, rows [n, k], scale): one
+    gather_mean launch on CUDA, and the [n·k, D] layer never exists.
+    Any other encoder gets every hop gathered with take_rows."""
+    batch = {"feature_table": table, "feature_scale": scale}
+    gcn = isinstance(encoder, GCNEncoder)
+    if not (gcn or (isinstance(encoder, SageEncoder)
+                    and encoder.aggregator == "mean")):
+        return encoder(gather_feature_rows(batch, rows))
+    layers = gather_feature_rows(batch, rows[:-1])
+    deepest = rows[-1].reshape(rows[-2].shape[0], -1)
+    m = neighbor_mean(table, deepest, scale)
+    if gcn:
+        return encoder(layers, nbr_mean=m, nbr_count=deepest.shape[1])
+    return encoder(layers, nbr_mean=m)
+
+
+_ENCODERS = {"sage": SageEncoder, "gcn": GCNEncoder, "genie": GenieEncoder}
 
 
 class _GatherEncode(nn.Module):
-    """gather + SageEncoder ("enc"), the reference's param scope
-    encoder/enc/agg_{d}/{self,nbr}."""
+    """gather + the fanout encoder ("enc": SageEncoder, GCNEncoder or
+    GenieEncoder), the reference's param scope encoder/enc/..."""
 
     def __init__(self, in_dim: int, dim: int, fanouts: Sequence[int],
-                 aggregator: str,
+                 aggregator: str, encoder: str = "sage",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.enc = SageEncoder(in_dim, dim, fanouts, aggregator,
-                               generator=generator)
+        if encoder == "sage":
+            self.enc = SageEncoder(in_dim, dim, fanouts, aggregator,
+                                   generator=generator)
+        else:
+            self.enc = _ENCODERS[encoder](in_dim, dim, fanouts,
+                                          generator=generator)
         self.out_dim = self.enc.out_dim
 
     def forward(self, table: torch.Tensor, scale: Optional[torch.Tensor],
@@ -126,21 +146,61 @@ class _GatherEncode(nn.Module):
         return encode_fanout(self.enc, table, scale, rows, neighbor_mean)
 
 
+def sample_one_hop(batch: Dict[str, Any], rows: torch.Tensor, count: int,
+                   generator: Optional[torch.Generator],
+                   uniforms: Optional[torch.Tensor],
+                   uniform_sampling: bool) -> torch.Tensor:
+    """One hop of the draw over whichever layout the batch holds, [n] →
+    [n * count], with the reference's precedence: nbrcum_table → the
+    fused draw; else the split tables, alias_table → the alias draw (it
+    wins over uniform_sampling)."""
+    fused = batch.get("nbrcum_table")
+    if fused is not None:
+        return sample_hop_fused(fused, rows, count, generator=generator,
+                                uniforms=uniforms)
+    atab = batch.get("alias_table")
+    return sample_hop(batch["nbr_table"], batch["cum_table"], rows, count,
+                      generator=generator, uniforms=uniforms,
+                      uniform=uniform_sampling and atab is None,
+                      alias_table=atab)
+
+
+def sample_layers(batch: Dict[str, Any], roots: torch.Tensor,
+                  fanouts: Sequence[int],
+                  generator: Optional[torch.Generator],
+                  uniforms: Optional[Sequence[torch.Tensor]],
+                  uniform_sampling: bool) -> List[torch.Tensor]:
+    """The fanout draw [roots, hop1, ...]: sample_one_hop hop by hop,
+    each hop drawing from `generator` in hop order or replaying its
+    uniforms tensor."""
+    if uniforms is not None and len(uniforms) != len(fanouts):
+        raise ValueError(f"need one uniforms tensor per hop "
+                         f"({len(fanouts)}), got {len(uniforms)}")
+    layers = [roots]
+    for h, k in enumerate(fanouts):
+        layers.append(sample_one_hop(
+            batch, layers[-1], int(k), generator,
+            None if uniforms is None else uniforms[h], uniform_sampling))
+    return layers
+
+
 class DeviceSampledGraphSage(SuperviseModel):
     """Fanout GraphSAGE whose sampling runs on the device.
 
     The batch holds rows [roots int32], sample_seed, and the tables
-    (nbr_table, cum_table, feature_table, optional feature_scale,
-    label_table). in_dim is the feature width (flax infers it at init).
-    An optional batch["sample_uniforms"] (one [n_h, k_h] float32 tensor
-    per hop) replays a draw instead of the seeded stream; an optional
-    batch["sample_generator"], already seeded as sample_seed_generator
-    seeds one, replaces the per-batch generator.
+    (nbr_table and cum_table with an optional alias_table, or
+    nbrcum_table; feature_table, optional feature_scale, label_table).
+    in_dim is the feature width (flax infers it at init). An optional
+    batch["sample_uniforms"] (one float32 tensor per hop: [n_h, k_h],
+    or [2, n_h, k_h] for the alias draw) replays a draw instead of the
+    seeded stream; an optional batch["sample_generator"], already
+    seeded as sample_seed_generator seeds one, replaces the per-batch
+    generator.
 
-    Ported: encoder 'sage' with the 'mean' aggregator over replicated
-    split tables, remat and dropout. The gcn/genie encoders, other
-    aggregators, and the fused/alias/row-sharded layouts raise
-    NotImplementedError."""
+    encoder: 'sage' (with the aggregator: mean, meanpool or maxpool;
+    'gcn' raises TypeError in SageEncoder, as the reference's does),
+    'gcn' or 'genie'. Row-sharded tables are not ported yet
+    (DeviceNeighborTable refuses them)."""
 
     stream_word = 17
 
@@ -151,14 +211,10 @@ class DeviceSampledGraphSage(SuperviseModel):
                  remat: bool = False, uniform_sampling: bool = False,
                  dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None):
-        if encoder not in ("sage", "gcn", "genie"):
+        if encoder not in _ENCODERS:
             raise ValueError(f"DeviceSampledGraphSage.encoder must be "
                              f"'sage', 'gcn' or 'genie', got {encoder!r}")
-        if encoder != "sage":
-            raise NotImplementedError(
-                f"encoder {encoder!r} is not ported yet: {_ROADMAP_FAMILIES}")
-        _check_mean(aggregator, "DeviceSampledGraphSage")
-        enc = _GatherEncode(in_dim, dim, fanouts, aggregator,
+        enc = _GatherEncode(in_dim, dim, fanouts, aggregator, encoder,
                             generator=generator)
         super().__init__(num_classes, multilabel, enc.out_dim,
                          dropout=dropout, generator=generator)
@@ -181,15 +237,12 @@ class DeviceSampledGraphSage(SuperviseModel):
 
     def sample_rows(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
         """[roots, hop1, ..., hopL] int32 rows for this batch."""
-        check_split_tables(batch)
         roots = batch["rows"][0]
         uniforms = batch.get("sample_uniforms")
         gen = None if uniforms is not None else batch_stream(
             batch, roots.device, self.stream_word)
-        return sample_fanout_rows(batch["nbr_table"], batch["cum_table"],
-                                  roots, self.fanouts, generator=gen,
-                                  uniforms=uniforms,
-                                  uniform=self.uniform_sampling)
+        return sample_layers(batch, roots, self.fanouts, gen, uniforms,
+                             self.uniform_sampling)
 
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
         args = (batch["feature_table"], batch.get("feature_scale"),
@@ -202,27 +255,160 @@ class DeviceSampledGraphSage(SuperviseModel):
         return self.encoder(*args)
 
 
+_SCALABLE = {"sage": ScalableSageEncoder, "gcn": ScalableGCNEncoder}
+
+
+class DeviceSampledScalableSage(SuperviseModel):
+    """Historical-activation GraphSAGE with sampling and the activation
+    cache on the device (counterpart of
+    euler_tpu/models/graphsage.py:196-264): one sampled hop of `fanout`
+    neighbors; layer 0 reads the neighbors' feature rows, layer l >= 1
+    their rows of the cache encoder.cache_{l}.h [max_id + 1, dim]
+    (float32, or cache_dtype=torch.bfloat16), both as one gather_mean
+    launch each on CUDA: num_layers launches a forward.
+
+    The caches are what the reference keeps in its `cache` collection:
+    module buffers, in the state_dict (checkpoints, keep_best), no
+    parameters. Training writes the batch's rows (`_ScalableCache`),
+    evaluate and infer only read them, and a step the nonfinite guard
+    skips leaves them as they were (the estimator calls
+    `settle_cache_writes`). `refresh_act_cache` writes every row.
+
+    The batch is DeviceSampledGraphSage's, with one hop: an optional
+    batch["sample_uniforms"] holds one tensor, [B, fanout] (or [2, B,
+    fanout] for the alias draw). Its stream word is 17, as the
+    reference's key(17)."""
+
+    stream_word = 17
+
+    def __init__(self, num_classes: int, in_dim: int,
+                 multilabel: bool = True, dim: int = 32, fanout: int = 10,
+                 num_layers: int = 2, max_id: int = 0,
+                 cache_dtype: Optional[torch.dtype] = None,
+                 store_decay: float = 0.9, encoder: str = "sage",
+                 uniform_sampling: bool = False, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        if encoder not in _SCALABLE:
+            raise ValueError(
+                f"DeviceSampledScalableSage.encoder must be 'sage' or "
+                f"'gcn', got {encoder!r}")
+        enc = _SCALABLE[encoder](in_dim, dim, num_layers, max_id,
+                                 store_decay=store_decay,
+                                 cache_dtype=cache_dtype or torch.float32,
+                                 generator=generator)
+        super().__init__(num_classes, multilabel, enc.out_dim,
+                         dropout=dropout, generator=generator)
+        self.encoder = enc
+        self.fanout = int(fanout)
+        self.uniform_sampling = bool(uniform_sampling)
+        # refresh_act_cache writes the caches outside training
+        self.refreshing = False
+        self._spec = {"num_classes": self.num_classes,
+                      "multilabel": self.multilabel, "dropout": self.dropout,
+                      "table_mesh": None, "dim": int(dim),
+                      "fanout": self.fanout, "num_layers": int(num_layers),
+                      "max_id": int(max_id), "store_decay": float(store_decay),
+                      "encoder": encoder,
+                      "uniform_sampling": self.uniform_sampling}
+        if cache_dtype is None:
+            # the reference records a None cache_dtype; a dtype is no
+            # scalar and is left out, as there
+            self._spec["cache_dtype"] = None
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass fields
+        (euler_tpu/models/graphsage.py:196-264), as export_bundle records
+        them."""
+        return {"model_class": "DeviceSampledScalableSage", **self._spec}
+
+    def sample_rows(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The one hop's neighbor rows [B, fanout] int32."""
+        roots = batch["rows"][0]
+        uniforms = batch.get("sample_uniforms")
+        gen = None if uniforms is not None else batch_stream(
+            batch, roots.device, self.stream_word)
+        nbr = sample_one_hop(batch, roots, self.fanout, gen,
+                             None if uniforms is None else uniforms[0],
+                             self.uniform_sampling)
+        return nbr.reshape(roots.shape[0], self.fanout)
+
+    def embed(self, batch: Dict[str, Any],
+              neighbor_mean: Callable = gather_mean) -> torch.Tensor:
+        roots = batch["rows"][0]
+        nbr = self.sample_rows(batch)
+        table, scale = batch["feature_table"], batch.get("feature_scale")
+        x = gather_feature_rows(batch, [roots])[0]
+        return self.encoder(roots, x, nbr, neighbor_mean(table, nbr, scale),
+                            write=self.training or self.refreshing,
+                            neighbor_mean=neighbor_mean)
+
+    def settle_cache_writes(self, skip: Optional[torch.Tensor]) -> None:
+        """After a training step's guard: skip (1.0 on a skipped step,
+        a device scalar; None without the guard) puts the step's cache
+        writes back."""
+        for cache in self.encoder.caches():
+            cache.settle(skip)
+
+
+def refresh_act_cache(est, n_rows: Optional[int] = None, chunk: int = 8192,
+                      seed: int = 1) -> None:
+    """Write every row of a DeviceSampledScalableSage estimator's caches:
+    the model's forward over all table rows in chunks, the caches
+    written, no dropout and no gradient; then the trailing pad row is
+    zeroed again, so padded neighbor slots keep reading zeros
+    (counterpart of euler_tpu/models/graphsage.py:refresh_act_cache).
+    Chunk i draws from sample_seed seed·1,000,003 + i; the last chunk's
+    tail repeats the last real row. Install as
+    `est.pre_eval_hook = refresh_act_cache`."""
+    from euler_tpu_torch.estimator.infer import eval_mode
+
+    model = est.model
+    if not isinstance(model, DeviceSampledScalableSage) \
+            or not model.encoder.caches():
+        return
+    if n_rows is None:
+        n_rows = int(est.static_batch["feature_table"].shape[0])
+    live = n_rows - 1  # rows 0..live-1 are real nodes; row live is pad
+    chunk = max(1, min(chunk, live))
+    dev = est.device
+    base = dict(est.static_batch)
+    model.refreshing = True
+    try:
+        with eval_mode(model), torch.no_grad():
+            for i, lo in enumerate(range(0, live, chunk)):
+                rows = np.minimum(np.arange(lo, lo + chunk), live - 1)
+                batch = {**base,
+                         "rows": [torch.from_numpy(
+                             rows.astype(np.int32)).to(dev)],
+                         "sample_seed": np.uint32(seed * 1_000_003 + i)}
+                model.embed(batch)
+            for cache in model.encoder.caches():
+                cache.staged = None
+                cache.h[live] = 0
+    finally:
+        model.refreshing = False
+
+
 class DeviceSampledUnsupervisedSage(nn.Module):
     """Unsupervised GraphSAGE with its whole input path on the device:
-    the fanout embedding, one positive per root (a one-neighbor draw,
-    weighted or uniform) and num_negs negatives per root from the node
-    sampler (parallel/device_walk.py), scored against one shared
-    context table ctx_emb [num_rows + 1, dim]. Pairs whose positive is
-    the pad row (roots without neighbors) are masked out of the loss
-    and the MRR.
+    the fanout embedding, one positive per root (a one-neighbor draw)
+    and num_negs negatives per root from the node sampler
+    (parallel/device_walk.py), scored against one shared context table
+    ctx_emb [num_rows + 1, dim]. Pairs whose positive is the pad row
+    (roots without neighbors) are masked out of the loss and the MRR.
 
     The batch holds rows [roots int32], sample_seed, and the tables
-    (nbr_table, cum_table, feature_table, optional feature_scale,
-    neg_rows, neg_cum). One stream, seeded from (29, sample_seed), feeds
-    in order the fanout draw, the positives and the negatives; replayed
-    uniforms replace any of them: batch["sample_uniforms"] (one [n_h,
-    k_h] tensor per hop), batch["pos_uniforms"] [B, 1] and
-    batch["neg_uniforms"] [B, num_negs]. The deepest hop goes through
+    (the neighbor tables in any of the three layouts, feature_table,
+    optional feature_scale, neg_rows, neg_cum). The draws follow the
+    layout as DeviceSampledGraphSage's do. One stream, seeded from (29,
+    sample_seed), feeds in order the fanout draw, the positives and the
+    negatives; replayed uniforms replace any of them:
+    batch["sample_uniforms"] (one tensor per hop), batch["pos_uniforms"]
+    [B, 1] ([2, B, 1] for the alias draw) and batch["neg_uniforms"] [B,
+    num_negs]. With the mean aggregator the deepest hop goes through
     ops.gather_mean (encode_fanout), one launch per forward on CUDA.
-
-    Ported: the 'mean' aggregator over replicated split tables; the
-    fused/alias layouts raise NotImplementedError, and row-sharded
-    tables cannot be built (DeviceNeighborTable refuses them)."""
+    Row-sharded tables cannot be built yet (DeviceNeighborTable refuses
+    them)."""
 
     stream_word = 29
 
@@ -232,7 +418,6 @@ class DeviceSampledUnsupervisedSage(nn.Module):
                  uniform_sampling: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_mean(aggregator, "DeviceSampledUnsupervisedSage")
         self.num_rows = int(num_rows)
         self.fanouts = tuple(int(k) for k in fanouts)
         self.num_negs = int(num_negs)
@@ -255,18 +440,15 @@ class DeviceSampledUnsupervisedSage(nn.Module):
     def sample(self, batch: Dict[str, Any]):
         """(fanout rows [roots, hop1, ...], positives [B], negatives
         [B, num_negs]) for this batch, drawn in that order."""
-        check_split_tables(batch)
         roots = batch["rows"][0]
         replays = [batch.get(k) for k in
                    ("sample_uniforms", "pos_uniforms", "neg_uniforms")]
         gen = None if all(r is not None for r in replays) else \
             batch_stream(batch, roots.device, self.stream_word)
-        nbr, cum = batch["nbr_table"], batch["cum_table"]
-        rows = sample_fanout_rows(nbr, cum, roots, self.fanouts,
-                                  generator=gen, uniforms=replays[0],
-                                  uniform=self.uniform_sampling)
-        pos = sample_hop(nbr, cum, roots, 1, generator=gen,
-                         uniforms=replays[1], uniform=self.uniform_sampling)
+        rows = sample_layers(batch, roots, self.fanouts, gen, replays[0],
+                             self.uniform_sampling)
+        pos = sample_one_hop(batch, roots, 1, gen, replays[1],
+                             self.uniform_sampling)
         negs = sample_global_rows(batch["neg_rows"], batch["neg_cum"],
                                   (roots.shape[0], self.num_negs),
                                   generator=gen, uniforms=replays[2])

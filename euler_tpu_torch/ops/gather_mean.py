@@ -7,6 +7,12 @@ per-column dequant of the feature store is fused in:
 
     out[i] = (sum_j table[rows[i, j]]) * (1/k) * scale   (out in scale.dtype)
 
+A float table's output is in its dtype, or float32 for a bfloat16
+table when the caller asks (`out_dtype=torch.float32`): the reference
+upcasts each row of a bfloat16 activation cache to float32 before its
+mean (euler_tpu/utils/encoders.py:_ScalableCache), and the float32 sum
+is then stored without a bfloat16 rounding.
+
 A row index follows `jnp.take`'s default (mode="fill"), as the
 reference's gather does: an index in [-N, -1] reads row N + i, and an
 index >= N or < -N reads the fill value, NaN for a float table (so the
@@ -45,7 +51,8 @@ _MAX_COL_BLOCKS = 65535  # gridDim.y
 
 
 def _check(table: torch.Tensor, rows: torch.Tensor,
-           scale: Optional[torch.Tensor]) -> None:
+           scale: Optional[torch.Tensor],
+           out_dtype: Optional[torch.dtype] = None) -> None:
     if table.dim() != 2:
         raise ValueError(f"table must be [N, D], got {tuple(table.shape)}")
     if rows.dim() != 2 or rows.shape[1] < 1:
@@ -68,6 +75,12 @@ def _check(table: torch.Tensor, rows: torch.Tensor,
     else:
         raise TypeError(f"table must be int8, float32 or bfloat16, got "
                         f"{table.dtype}")
+    natural = table.dtype if scale is None else scale.dtype
+    if out_dtype not in (None, natural) and not (
+            table.dtype == torch.bfloat16 and out_dtype == torch.float32):
+        raise TypeError(f"out_dtype {out_dtype} is not taken for a "
+                        f"{table.dtype} table whose output is {natural}: "
+                        "only a bfloat16 table may ask for float32")
     tensors = [table, rows] + ([scale] if scale is not None else [])
     if len({t.device for t in tensors}) != 1:
         raise ValueError("table, rows and scale must be on one device")
@@ -78,7 +91,10 @@ def _check(table: torch.Tensor, rows: torch.Tensor,
                          "is an input of the forward, not a parameter")
 
 
-def _out_dtype(table: torch.Tensor, scale: Optional[torch.Tensor]):
+def _out_dtype(table: torch.Tensor, scale: Optional[torch.Tensor],
+               out_dtype: Optional[torch.dtype] = None):
+    if out_dtype is not None:
+        return out_dtype
     return table.dtype if scale is None else scale.dtype
 
 
@@ -102,15 +118,16 @@ def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def gather_mean_reference(table: torch.Tensor, rows: torch.Tensor,
-                          scale: Optional[torch.Tensor] = None
+                          scale: Optional[torch.Tensor] = None,
+                          out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
     """Plain PyTorch version: take_rows in float32, mean over k, then
     the scale, then the cast to the output dtype."""
-    _check(table, rows, scale)
+    _check(table, rows, scale, out_dtype)
     m = take_rows(table, rows).to(torch.float32).mean(1)
     if scale is not None:
         m = m * scale.to(torch.float32)
-    return m.to(_out_dtype(table, scale))
+    return m.to(_out_dtype(table, scale, out_dtype))
 
 
 class LaunchPlan(NamedTuple):
@@ -171,28 +188,33 @@ def _kernel_fn():
     fn = _build.load("gather_mean").gather_mean_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def gather_mean(table: torch.Tensor, rows: torch.Tensor,
-                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                scale: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """out [n, D] = mean over k of table[rows] (see module docstring).
+    out_dtype: float32 for a bfloat16 table's float32 output; else the
+    default (the scale's dtype for an int8 table, the table's for a
+    float one).
 
     Every kernel launch adds one to `gather_mean.launches`; the CPU path
     and empty inputs launch nothing."""
-    _check(table, rows, scale)
+    _check(table, rows, scale, out_dtype)
     if table.device.type == "cpu":
-        return gather_mean_reference(table, rows, scale)
+        return gather_mean_reference(table, rows, scale, out_dtype)
     if table.device.type != "cuda":
         raise ValueError(f"gather_mean runs on cuda or cpu, not "
                          f"{table.device}")
     n, k = rows.shape
-    out = torch.empty((n, table.shape[1]), dtype=_out_dtype(table, scale),
+    out = torch.empty((n, table.shape[1]),
+                      dtype=_out_dtype(table, scale, out_dtype),
                       device=table.device)
     if out.numel() == 0:
         return out
@@ -210,15 +232,16 @@ def _launch(table: torch.Tensor, rows: torch.Tensor,
             scale: Optional[torch.Tensor], out: torch.Tensor,
             plan: LaunchPlan) -> None:
     """One launch into `out` on the current stream, counted. gather_mean
-    has checked the tensors and made `out` [n, D] in the output dtype;
-    the kernel checks the plan against the pointers."""
+    has checked the tensors and made `out` [n, D] in the output dtype,
+    which the kernel takes from `out`; the kernel checks the plan
+    against the pointers."""
     n, k = rows.shape
     rc = _kernel_fn()(
         table.data_ptr(), _DTYPE_CODES[table.dtype], rows.data_ptr(),
         scale.data_ptr() if scale is not None else None,
         _DTYPE_CODES[scale.dtype] if scale is not None else _NO_SCALE,
-        out.data_ptr(), n, k, table.shape[1], table.shape[0],
-        plan.vec_bytes, plan.lanes, plan.rows_per_block, plan.grid,
+        out.data_ptr(), _DTYPE_CODES[out.dtype], n, k, table.shape[1],
+        table.shape[0], plan.vec_bytes, plan.lanes, plan.rows_per_block, plan.grid,
         plan.col_blocks, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gather_mean kernel launch failed: CUDA error "

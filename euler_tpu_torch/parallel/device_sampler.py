@@ -1,6 +1,5 @@
 """Device-resident neighbor sampling (counterpart of
-euler_tpu/parallel/device_sampler.py), replicated split tables on one
-device.
+euler_tpu/parallel/device_sampler.py), replicated tables on one device.
 
 Two tables live on the device: neighbor rows [N+1, C] int32 (each node's
 neighbors capped at C, front-packed, pad id N in empty slots) and their
@@ -8,6 +7,14 @@ inclusive cumulative weights [N+1, C] float32. Row N is an all-pad row.
 A hop draws, per (row, slot), a column of the row's neighbor list:
 inverse-CDF over the cumulative weights, or floor(u·degree) on
 unit-weight tables (`uniform=True`, one row gather per hop).
+
+Two more layouts, as the reference has them:
+- fused: one [N+1, 2C] int32 table, the neighbor ids beside the
+  cumulative weights' float32 bits (`fuse_tables_host`); a hop reads
+  one row and draws as the inverse-CDF path does (`sample_hop_fused`);
+- alias: beside the split tables, a [N+1, C] int32 table of packed
+  Vose alias words (`build_alias_tables`); a hop draws a column with
+  two uniforms and one word read (`sample_hop(alias_table=...)`).
 
 Every draw is split into uniforms → pick. `sample_hop` takes the
 uniforms as a tensor, or draws them from the caller's torch.Generator.
@@ -28,12 +35,21 @@ import torch
 
 from euler_tpu_torch.platform import DeviceLike, resolve_device
 
-_ROADMAP_LAYOUTS = ("not ported yet: ROADMAP.md Queue A, 'Alias and fused "
-                    "sampler layouts'")
 _ROADMAP_SHARDED = "not ported yet: ROADMAP.md Queue A, 'Multi-GPU'"
 
-# Row-chunk size for table-scale host passes (reference: _CHUNK_ROWS).
+# Row-chunk sizes for table-scale host passes (reference: _CHUNK_ROWS,
+# _ALIAS_CHUNK_ROWS): the Vose build holds ~8 float64/int64 working
+# arrays a chunk, so it chunks finer.
 _CHUNK_ROWS = 262_144
+_ALIAS_CHUNK_ROWS = 32_768
+
+# Packed alias word layout (reference: the note at ALIAS_SENTINEL): one
+# int32 per slot, bits 16..30 the alias column, bits 0..15 the
+# acceptance probability quantized to uint16 (P(keep) = prob / 65535).
+# Pad slots and dead rows (total weight <= 0) hold -1, so a row's
+# active column count is (word >= 0).sum(-1).
+ALIAS_SENTINEL = np.int32(-1)
+_ALIAS_PROB_MAX = 65535
 
 
 def _edge_uniforms(seed: int, rows: np.ndarray,
@@ -143,22 +159,157 @@ def _detect_uniform_rows(nbr_tab: np.ndarray, w_tab: np.ndarray,
     return bool(((w_tab == 0) | (w_tab == rmax)).all())
 
 
+def _check_alias_layout(alias: bool, fused: bool, shard_rows: bool) -> None:
+    """The reference's own refusals (device_sampler.py:
+    _check_alias_layout), with its messages."""
+    if alias and fused:
+        raise ValueError(
+            "DeviceNeighborTable(alias=True) needs the split nbr/cum "
+            "layout — the fused [N+1, 2C] table has no slot for the "
+            "alias words. Build with fused=False.")
+    if alias and shard_rows:
+        raise ValueError(
+            "DeviceNeighborTable(alias=True) supports replicated tables "
+            "only: the alias draw derives pad from the table shape, "
+            "which row-sharding pads to the model-axis multiple. Use "
+            "the weighted inverse-CDF path with row-sharded tables.")
+
+
 def _check_layout(fused: bool, alias: bool, shard_rows: bool) -> None:
-    if fused or alias:
-        raise NotImplementedError(
-            f"fused/alias tables are {_ROADMAP_LAYOUTS}")
+    _check_alias_layout(alias, fused, shard_rows)
     if shard_rows:
         raise NotImplementedError(
             f"row-sharded tables are {_ROADMAP_SHARDED}")
 
 
-def check_split_tables(batch) -> None:
-    """A model's batch must carry the split nbr/cum tables: the fused
-    and alias layouts raise."""
-    if batch.get("nbrcum_table") is not None \
-            or batch.get("alias_table") is not None:
-        raise NotImplementedError(
-            f"fused/alias tables are {_ROADMAP_LAYOUTS}")
+def _vose_rows(w: np.ndarray, active: np.ndarray) -> np.ndarray:
+    """Per-row Vose alias construction, vectorized over rows: w [R, C]
+    slot weights, active [R, C] the columns a draw can land on → packed
+    int32 words [R, C]; rows whose active weight totals <= 0 come back
+    all-sentinel. A two-pointer pass over each row's sorted scaled
+    probabilities finalizes one column per live row per iteration, at
+    most C + 1 iterations.
+
+    Copy of euler_tpu/parallel/device_sampler.py:_vose_rows."""
+    R, C = w.shape
+    out = np.full((R, C), ALIAS_SENTINEL, dtype=np.int32)
+    if R == 0:
+        return out
+    w = np.where(active, w, 0.0).astype(np.float64)
+    K = active.sum(axis=1).astype(np.int64)                 # [R]
+    W = w.sum(axis=1)                                       # [R]
+    live = (K > 0) & (W > 0)
+    if not live.any():
+        return out
+    with np.errstate(invalid="ignore", divide="ignore"):
+        p = w * (K[:, None] / W[:, None])                   # target 1.0
+    # inactive columns sort to the far right and are never entered
+    # (l starts at K-1); dead rows are skipped entirely
+    p = np.where(active & live[:, None], p, np.inf)
+    order = np.argsort(p, axis=1, kind="stable")            # ascending
+    p_ord = np.take_along_axis(p, order, axis=1)            # [R, C]
+    prob = np.ones((R, C))          # final prob, by sorted position
+    alias = order.copy()            # final alias target column, ditto
+    s = np.zeros(R, dtype=np.int64)                 # next small (left)
+    l = np.maximum(K - 1, 0)                        # current large
+    rem = np.take_along_axis(p_ord, l[:, None], axis=1)[:, 0]
+    done = ~live
+    for _ in range(C + 1):
+        a = np.flatnonzero(~done)
+        if a.size == 0:
+            break
+        fin = s[a] >= l[a]
+        f = a[fin]
+        if f.size:
+            # terminal column: mass conservation leaves rem ≈ 1 here
+            prob[f, l[f]] = np.clip(rem[f], 0.0, 1.0)
+            done[f] = True
+        r = a[~fin]
+        if r.size:
+            sm = rem[r] >= 1.0
+            rs = r[sm]          # finalize the next small against l
+            if rs.size:
+                ps = p_ord[rs, s[rs]]
+                prob[rs, s[rs]] = np.clip(ps, 0.0, 1.0)
+                alias[rs, s[rs]] = order[rs, l[rs]]
+                rem[rs] += ps - 1.0
+                s[rs] += 1
+            rd = r[~sm]         # current large depleted: it becomes a
+            if rd.size:         # small, finalized against the next one
+                prob[rd, l[rd]] = np.clip(rem[rd], 0.0, 1.0)
+                alias[rd, l[rd]] = order[rd, l[rd] - 1]
+                l[rd] -= 1
+                rem[rd] = p_ord[rd, l[rd]] + rem[rd] - 1.0
+    q = np.rint(prob * _ALIAS_PROB_MAX).astype(np.int64)
+    words = (alias.astype(np.int64) << 16) | q
+    # scatter back from sorted position to actual column, live active
+    # slots only — everything else keeps the sentinel
+    keep = live[:, None] & (np.arange(C)[None, :] < K[:, None])
+    ri, pi = np.nonzero(keep)
+    out[ri, order[ri, pi]] = words[ri, pi].astype(np.int32)
+    return out
+
+
+def _alias_rows_block(nb: np.ndarray, w: np.ndarray,
+                      pad: int) -> np.ndarray:
+    """Packed alias words for one row block with an explicit pad id. A
+    front-packed row's active columns are its non-pad prefix, any other
+    row's all C columns.
+
+    Copy of euler_tpu/parallel/device_sampler.py:_alias_rows_block."""
+    C = nb.shape[1]
+    cols = np.arange(C)
+    nonpad = nb != pad
+    deg = nonpad.sum(axis=1)
+    front = (nonpad == (cols < deg[:, None])).all(axis=1)
+    active = np.where(front[:, None], cols < deg[:, None], True)
+    return _vose_rows(w, active)
+
+
+def build_alias_tables(nbr_tab: np.ndarray,
+                       cum_tab: Optional[np.ndarray] = None,
+                       w_tab: Optional[np.ndarray] = None,
+                       chunk_rows: int = _ALIAS_CHUNK_ROWS) -> np.ndarray:
+    """[N+1, C] neighbor table and its slot weights (given directly, or
+    as the inclusive cumsum) → [N+1, C] packed int32 alias table. Row
+    chunks of chunk_rows bound the working set; no full-table float
+    copy is made.
+
+    Copy of euler_tpu/parallel/device_sampler.py:build_alias_tables,
+    without its rows-rebuilt counter."""
+    if (cum_tab is None) == (w_tab is None):
+        raise ValueError(
+            "build_alias_tables needs exactly one of cum_tab / w_tab")
+    n_rows, C = nbr_tab.shape
+    if C > 255:
+        raise ValueError(
+            f"alias words pack the column index into 8 bits — cap C "
+            f"must be <= 255, got {C}")
+    pad = n_rows - 1
+    out = np.empty((n_rows, C), dtype=np.int32)
+    for lo in range(0, n_rows, max(int(chunk_rows), 1)):
+        hi = min(lo + max(int(chunk_rows), 1), n_rows)
+        nb = np.asarray(nbr_tab[lo:hi])
+        if w_tab is not None:
+            w = np.asarray(w_tab[lo:hi]).astype(np.float32, copy=False)
+        else:
+            cc = np.asarray(cum_tab[lo:hi]).astype(np.float32,
+                                                   copy=False)
+            w = np.diff(cc, axis=1,
+                        prepend=np.zeros((cc.shape[0], 1), np.float32))
+        out[lo:hi] = _alias_rows_block(nb, w, pad)
+    return out
+
+
+def fuse_tables_host(nbr_tab: np.ndarray, cum_tab: np.ndarray) -> np.ndarray:
+    """[N+1, C] neighbor ids and [N+1, C] float32 cumulative weights →
+    one [N+1, 2C] int32 table, the weights' bits in the right half.
+
+    Copy of euler_tpu/parallel/device_sampler.py:fuse_tables_host."""
+    return np.concatenate(
+        [np.asarray(nbr_tab).astype(np.int32, copy=False),
+         np.asarray(cum_tab).astype(np.float32, copy=False)
+            .view(np.int32)], axis=1)
 
 
 class DeviceNeighborTable:
@@ -166,7 +317,13 @@ class DeviceNeighborTable:
 
     Attributes: neighbors [N+1, C] int32, cum_weights [N+1, C] float32,
     pad_row N, cap C, uniform_rows (every row unit-weight), and the
-    truncation stats hub_frac / edge_keep_frac / max_degree."""
+    truncation stats hub_frac / edge_keep_frac / max_degree.
+
+    fused=True places only the [N+1, 2C] fused table (fused_table;
+    neighbors and cum_weights are None), as the reference's _place
+    does. alias=True also places the [N+1, C] alias table
+    (alias_table); it needs the split layout. Row-sharded tables
+    (shard_rows=True) are not ported yet."""
 
     def __init__(self):
         raise TypeError("use DeviceNeighborTable.from_csr or from_arrays")
@@ -175,12 +332,16 @@ class DeviceNeighborTable:
     def from_csr(cls, offsets: np.ndarray, neighbors: np.ndarray,
                  weights: Optional[np.ndarray] = None, cap: int = 32,
                  seed: int = 0, device: DeviceLike = None,
-                 keep_host: bool = False) -> "DeviceNeighborTable":
+                 keep_host: bool = False, fused: bool = False,
+                 alias: bool = False) -> "DeviceNeighborTable":
         """Build from CSR adjacency: node i's neighbor rows are
         neighbors[offsets[i]:offsets[i+1]] (values in [0, N], N = pad),
         with edge weights (default 1). Same tables as the reference's
-        DeviceNeighborTable(graph, cap, seed) over that adjacency.
-        keep_host keeps the numpy tables as host_tables."""
+        DeviceNeighborTable(graph, cap, seed, fused, alias) over that
+        adjacency; the alias words come from the exact slot weights,
+        before the cumsum, as the reference builds them. keep_host
+        keeps the numpy split tables as host_tables."""
+        _check_layout(fused, alias, False)
         dev = resolve_device(device)
         offsets = np.asarray(offsets, np.int64)
         n = len(offsets) - 1
@@ -201,9 +362,11 @@ class DeviceNeighborTable:
             "max_degree": int(deg.max()) if n else 0,
             "uniform_rows": _detect_uniform_rows(nbr_tab, w_tab),
         }
+        alias_tab = build_alias_tables(nbr_tab, w_tab=w_tab) \
+            if alias else None
         cum = np.cumsum(w_tab, axis=1, dtype=np.float32)
         del w_tab
-        self = cls._place(nbr_tab, cum, stats, dev)
+        self = cls._place(nbr_tab, cum, stats, dev, fused, alias_tab)
         if keep_host:
             self.host_tables = (nbr_tab, cum)
         return self
@@ -215,7 +378,8 @@ class DeviceNeighborTable:
                     alias: bool = False,
                     shard_rows: bool = False) -> "DeviceNeighborTable":
         """Upload prebuilt [N+1, C] tables. uniform_rows comes from
-        stats or is recomputed chunk-wise from the tables."""
+        stats or is recomputed chunk-wise from the tables; alias=True
+        builds the alias table from the cum rows, chunk-wise."""
         _check_layout(fused, alias, shard_rows)
         stats = dict(stats or {})
         if stats.get("uniform_rows") is None:
@@ -232,13 +396,18 @@ class DeviceNeighborTable:
                     u = False
                     break
             stats["uniform_rows"] = u
+        alias_tab = build_alias_tables(np.asarray(nbr_tab),
+                                       cum_tab=np.asarray(cum_tab)) \
+            if alias else None
         return cls._place(np.ascontiguousarray(nbr_tab, np.int32),
                           np.ascontiguousarray(cum_tab, np.float32),
-                          stats, resolve_device(device))
+                          stats, resolve_device(device), fused, alias_tab)
 
     @classmethod
     def _place(cls, nbr_tab: np.ndarray, cum_tab: np.ndarray, stats: dict,
-               dev: torch.device) -> "DeviceNeighborTable":
+               dev: torch.device, fused: bool = False,
+               alias_tab: Optional[np.ndarray] = None
+               ) -> "DeviceNeighborTable":
         self = cls.__new__(cls)
         self.device = dev
         self.cap = int(nbr_tab.shape[1])
@@ -246,15 +415,33 @@ class DeviceNeighborTable:
         for k in ("hub_frac", "edge_keep_frac", "max_degree"):
             setattr(self, k, stats.get(k))
         self.uniform_rows = bool(stats["uniform_rows"])
-        self.neighbors = torch.from_numpy(nbr_tab).to(dev)
-        self.cum_weights = torch.from_numpy(cum_tab).to(dev)
+        self.fused = bool(fused)
+        if self.fused:
+            # one [N+1, 2C] table, one row gather per hop; the split
+            # views are not uploaded (reference _place)
+            self.fused_table = torch.from_numpy(
+                fuse_tables_host(nbr_tab, cum_tab)).to(dev)
+            self.neighbors = self.cum_weights = None
+        else:
+            self.fused_table = None
+            self.neighbors = torch.from_numpy(nbr_tab).to(dev)
+            self.cum_weights = torch.from_numpy(cum_tab).to(dev)
+        self.alias_table = None if alias_tab is None else \
+            torch.from_numpy(alias_tab).to(dev)
         self.host_tables = None
         return self
 
     @property
     def tables(self):
-        """Tensors to merge into a model's static batch."""
-        return {"nbr_table": self.neighbors, "cum_table": self.cum_weights}
+        """Tensors to merge into a model's static batch: nbrcum_table
+        alone for the fused layout, else nbr_table and cum_table (and
+        alias_table with the alias layout)."""
+        if self.fused:
+            return {"nbrcum_table": self.fused_table}
+        out = {"nbr_table": self.neighbors, "cum_table": self.cum_weights}
+        if self.alias_table is not None:
+            out["alias_table"] = self.alias_table
+        return out
 
 
 def _pick_cols(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -264,31 +451,81 @@ def _pick_cols(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     return torch.gather(row, 1, col.long())
 
 
+def _alias_pick(alias_rows: torch.Tensor, u1: torch.Tensor,
+                u2: torch.Tensor):
+    """alias_rows [n, C] packed words, u1/u2 [n, k] uniforms → (col
+    [n, k] int64, deg [n]): col0 = floor(u1·deg) over the row's active
+    columns (deg = its non-sentinel words), kept with P = prob/65535,
+    else its packed alias column. Dead rows (all sentinel) give deg 0
+    and col 0; callers resolve them to the pad row. Counterpart of
+    euler_tpu/parallel/device_sampler.py:_alias_pick."""
+    C = alias_rows.shape[1]
+    deg = (alias_rows >= 0).sum(-1).to(torch.int32)            # [n]
+    col0 = torch.minimum(
+        (u1 * deg[:, None].to(torch.float32)).to(torch.int32),
+        (deg[:, None] - 1).clamp_min(0))                       # [n, k]
+    word = torch.gather(alias_rows, 1, col0.long())            # [n, k]
+    prob = torch.bitwise_and(word, _ALIAS_PROB_MAX)
+    ali = torch.bitwise_right_shift(word, 16)      # arithmetic: -1 → -1
+    keep = u2 * float(_ALIAS_PROB_MAX) < prob.to(torch.float32)
+    col = torch.where(keep, col0, ali)
+    return col.clamp(0, C - 1).long(), deg
+
+
+def draw_uniforms(shape, generator: Optional[torch.Generator],
+                  uniforms: Optional[torch.Tensor], device) -> torch.Tensor:
+    """A draw's uniforms: the given ones (a replay, checked against
+    `shape`), else `shape` float32 uniforms from the generator."""
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("a draw needs uniforms or a generator")
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=torch.float32)
+    if tuple(uniforms.shape) != tuple(shape):
+        raise ValueError(f"uniforms must be {list(shape)}, got "
+                         f"{list(uniforms.shape)}")
+    return uniforms
+
+
 def sample_hop(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                rows: torch.Tensor, count: int,
                generator: Optional[torch.Generator] = None,
                uniforms: Optional[torch.Tensor] = None,
-               uniform: bool = False) -> torch.Tensor:
+               uniform: bool = False,
+               alias_table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One neighbor draw per (row, slot): rows [n] → [n * count] int32.
 
-    uniforms: [n, count] float32 in [0, 1), e.g. replayed from another
-    implementation; else drawn from `generator` on the rows' device.
+    uniforms: [n, count] float32 in [0, 1) ([2, n, count] for the alias
+    draw), e.g. replayed from another implementation; else drawn from
+    `generator` on the rows' device.
     uniform=False: inverse-CDF over each row's C cumulative weights
     (zero-degree rows resolve to the pad slot). uniform=True
     (unit-weight tables, DeviceNeighborTable.uniform_rows): column =
     floor(u·degree) with degree counted from the row's pad slots — no
-    cum-row gather."""
+    cum-row gather. alias_table: the Vose alias draw (_alias_pick) over
+    the table's packed words, a flat pick for count < 4 and a row pick
+    for count >= 4, dead rows resolved to pad; it excludes
+    uniform=True, as in the reference."""
     n = rows.shape[0]
     C = nbr_table.shape[1]
-    if uniforms is None:
-        if generator is None:
-            raise ValueError("sample_hop needs uniforms or a generator")
-        uniforms = torch.rand((n, count), generator=generator,
-                              device=rows.device, dtype=torch.float32)
-    elif tuple(uniforms.shape) != (n, count):
-        raise ValueError(f"uniforms must be [{n}, {count}], got "
-                         f"{tuple(uniforms.shape)}")
     idx = rows.long()
+    if alias_table is not None:
+        if uniform:
+            raise ValueError(
+                "sample_hop: uniform=True and alias_table are exclusive "
+                "— resolve the precedence at the call site (the alias "
+                "draw already covers unit-weight tables)")
+        u = draw_uniforms((2, n, count), generator, uniforms, rows.device)
+        col, deg = _alias_pick(alias_table[idx], u[0], u[1])
+        pad = nbr_table.shape[0] - 1
+        if count < 4:
+            out = nbr_table.reshape(-1)[idx[:, None] * C + col]
+        else:
+            out = _pick_cols(nbr_table[idx], col)
+        # dead rows (zero degree / zero total weight) resolve to pad
+        return torch.where(deg[:, None] > 0, out,
+                           torch.full_like(out, pad)).reshape(-1)
+    uniforms = draw_uniforms((n, count), generator, uniforms, rows.device)
     nbr = nbr_table[idx]                                   # [n, C]
     if uniform:
         pad = nbr_table.shape[0] - 1
@@ -308,11 +545,13 @@ def sample_fanout_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                        roots: torch.Tensor, fanouts: Sequence[int],
                        generator: Optional[torch.Generator] = None,
                        uniforms: Optional[Sequence[torch.Tensor]] = None,
-                       uniform: bool = False) -> List[torch.Tensor]:
+                       uniform: bool = False,
+                       alias_table: Optional[torch.Tensor] = None
+                       ) -> List[torch.Tensor]:
     """Multi-hop fanout: [roots, hop1, hop2, ...], layer h holding
     roots.shape[0] * prod(fanouts[:h]) rows. uniforms: optional one
-    [n_h, k_h] tensor per hop (replay); else each hop draws from
-    `generator` in hop order."""
+    tensor per hop ([n_h, k_h], or [2, n_h, k_h] with alias_table; a
+    replay); else each hop draws from `generator` in hop order."""
     if uniforms is not None and len(uniforms) != len(fanouts):
         raise ValueError(f"need one uniforms tensor per hop "
                          f"({len(fanouts)}), got {len(uniforms)}")
@@ -322,7 +561,47 @@ def sample_fanout_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
         cur = sample_hop(nbr_table, cum_table, cur, int(k),
                          generator=generator,
                          uniforms=None if uniforms is None else uniforms[h],
-                         uniform=uniform)
+                         uniform=uniform, alias_table=alias_table)
+        layers.append(cur)
+    return layers
+
+
+def sample_hop_fused(fused_table: torch.Tensor, rows: torch.Tensor,
+                     count: int, generator: Optional[torch.Generator] = None,
+                     uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sample_hop's inverse-CDF draw over a fused [N+1, 2C] table: one
+    row gather gives the C neighbor ids and, bit-cast back to float32
+    (exact), the C cumulative weights. uniforms [n, count] as
+    sample_hop's; the picks equal the split tables' weighted picks for
+    the same uniforms. Counterpart of
+    euler_tpu/parallel/device_sampler.py:sample_hop_fused."""
+    C = fused_table.shape[1] // 2
+    n = rows.shape[0]
+    u = draw_uniforms((n, count), generator, uniforms, rows.device)
+    row = fused_table[rows.long()]                         # [n, 2C]
+    nbr = row[:, :C]
+    cum = row[:, C:].view(torch.float32)
+    u = u * cum[:, -1:]
+    col = (cum[:, None, :] <= u[:, :, None]).sum(-1).clamp(0, C - 1)
+    return _pick_cols(nbr, col).reshape(-1)
+
+
+def sample_fanout_rows_fused(fused_table: torch.Tensor, roots: torch.Tensor,
+                             fanouts: Sequence[int],
+                             generator: Optional[torch.Generator] = None,
+                             uniforms: Optional[Sequence[torch.Tensor]] = None
+                             ) -> List[torch.Tensor]:
+    """sample_fanout_rows over a fused table (counterpart of the
+    reference's sample_fanout_rows_fused)."""
+    if uniforms is not None and len(uniforms) != len(fanouts):
+        raise ValueError(f"need one uniforms tensor per hop "
+                         f"({len(fanouts)}), got {len(uniforms)}")
+    layers = [roots]
+    cur = roots
+    for h, k in enumerate(fanouts):
+        cur = sample_hop_fused(fused_table, cur, int(k), generator=generator,
+                               uniforms=None if uniforms is None
+                               else uniforms[h])
         layers.append(cur)
     return layers
 

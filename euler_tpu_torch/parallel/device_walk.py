@@ -22,7 +22,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from euler_tpu_torch.parallel.device_sampler import sample_hop, slot_weights
+from euler_tpu_torch.parallel.device_sampler import (
+    draw_uniforms, sample_hop, slot_weights,
+)
 from euler_tpu_torch.platform import DeviceLike, resolve_device
 
 # float32 holds every integer up to 2^24 exactly: a cumsum of unit
@@ -74,19 +76,6 @@ class DeviceNodeSampler:
         return {"neg_rows": self.rows, "neg_cum": self.cum}
 
 
-def _uniforms(shape, generator: Optional[torch.Generator],
-              uniforms: Optional[torch.Tensor], device) -> torch.Tensor:
-    if uniforms is None:
-        if generator is None:
-            raise ValueError("a draw needs uniforms or a generator")
-        return torch.rand(shape, generator=generator, device=device,
-                          dtype=torch.float32)
-    if tuple(uniforms.shape) != tuple(shape):
-        raise ValueError(f"uniforms must be {list(shape)}, got "
-                         f"{list(uniforms.shape)}")
-    return uniforms
-
-
 def sample_global_rows(pool_rows: torch.Tensor, pool_cum: torch.Tensor,
                        shape: Tuple[int, ...],
                        generator: Optional[torch.Generator] = None,
@@ -95,7 +84,7 @@ def sample_global_rows(pool_rows: torch.Tensor, pool_cum: torch.Tensor,
     """Weighted draw of `shape` rows from a (pool, cum) node sampler:
     u·total, the left-side searchsorted (jnp.searchsorted's side), a
     clip to the pool, a take."""
-    u = _uniforms(shape, generator, uniforms, pool_cum.device)
+    u = draw_uniforms(shape, generator, uniforms, pool_cum.device)
     idx = torch.searchsorted(pool_cum, u.reshape(-1) * pool_cum[-1])
     idx = idx.clamp(0, pool_rows.shape[0] - 1)
     return pool_rows[idx].reshape(shape)
@@ -106,20 +95,24 @@ def walk_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
               generator: Optional[torch.Generator] = None,
               uniforms: Optional[Sequence[torch.Tensor]] = None,
               p: float = 1.0, q: float = 1.0,
-              uniform: bool = False) -> torch.Tensor:
+              uniform: bool = False,
+              alias_table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B] roots → [B, walk_len + 1] row walks, column 0 the roots.
 
-    uniforms: optional one [B] tensor per step (a replay); else each
-    step draws [B] uniforms from `generator`, in step order.
+    uniforms: optional one tensor per step (a replay): [B], or [2, B]
+    for a step that takes the alias draw; else each step draws its
+    uniforms from `generator`, in step order.
 
     The first step, and every step when p == q == 1, is one neighbor
     draw (sample_hop with count 1; uniform=True takes the one-gather
-    unit-weight draw). Otherwise node2vec's second-order bias scales
+    unit-weight draw, alias_table the alias draw, which wins over
+    uniform as in the reference). Otherwise node2vec's second-order bias scales
     each candidate's slot weight by 1/p when it returns to the previous
     node, 1 when it is a kept neighbor of the previous node, 1/q else
     (C x C compares over the capped rows), then draws by inverse CDF
     over the biased row; a row of total weight 0 stays at its pad. That
-    path always reads the cum table: it needs raw slot weights.
+    path always reads the cum table: it needs raw slot weights, and
+    ignores alias_table and uniform, as the reference does.
 
     Its row cumsum may add in another order than XLA's, so with
     replayed uniforms a pick can differ from the reference's where u
@@ -131,23 +124,28 @@ def walk_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                          f"got {len(uniforms)}")
     B = roots.shape[0]
     C = nbr_table.shape[1]
+    unif = uniform and alias_table is None
 
-    def step_u(i):
-        return _uniforms((B,), generator,
+    def step_u(i, shape):
+        return draw_uniforms(shape, generator,
                          None if uniforms is None else uniforms[i],
                          roots.device)
 
+    def draw(rows, i):
+        shape = (B,) if alias_table is None else (2, B)
+        u = step_u(i, shape).reshape(*shape[:-1], B, 1)
+        return sample_hop(nbr_table, cum_table, rows, 1, uniforms=u,
+                          uniform=unif, alias_table=alias_table)
+
     cols = [roots]
-    cur = sample_hop(nbr_table, cum_table, roots, 1,
-                     uniforms=step_u(0).reshape(B, 1), uniform=uniform)
+    cur = draw(roots, 0)
     cols.append(cur)
     prev = roots
     for i in range(1, walk_len):
-        u = step_u(i)
         if p == 1.0 and q == 1.0:
-            nxt = sample_hop(nbr_table, cum_table, cur, 1,
-                             uniforms=u.reshape(B, 1), uniform=uniform)
+            nxt = draw(cur, i)
         else:
+            u = step_u(i, (B,))
             cand = nbr_table[cur.long()]                      # [B, C]
             w = slot_weights(cum_table[cur.long()])           # [B, C]
             prev_nbr = nbr_table[prev.long()]                 # [B, C]

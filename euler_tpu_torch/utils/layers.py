@@ -1,5 +1,7 @@
-"""Dense and Embedding layers with flax's initialisation (counterpart of
-euler_tpu/utils/layers.py:24-57, whose Dense is flax.linen.Dense).
+"""Dense, Embedding, AttLayer and LSTMLayer with flax's initialisation
+(counterpart of euler_tpu/utils/layers.py:24-57 and :93-118, whose Dense
+is flax.linen.Dense and whose LSTM is flax's OptimizedLSTMCell under
+nn.RNN).
 
 The weight is kept [out, in] as torch.nn.Linear keeps it; flax keeps its
 kernel [in, out], and euler_tpu_torch.convert transposes between them.
@@ -75,3 +77,83 @@ class Embedding(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         rows = bucketize_ids(ids, self.num_embeddings)
         return F.embedding(rows.long(), self.table)
+
+
+class AttLayer(nn.Module):
+    """Single-query soft attention pooling over a set [B, L, D] → [B, D]
+    (counterpart of euler_tpu/utils/layers.py:AttLayer): logits =
+    tanh(key(x)) · query, a softmax over L, the weighted sum of x. The
+    query [dim] starts as flax's normal(stddev=0.1)."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.query = nn.Parameter(
+            torch.randn((dim,), generator=generator) * 0.1)
+        self.key = Dense(in_dim, dim, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        keys = self.key(x)                                  # [B, L, dim]
+        logits = torch.einsum("bld,d->bl", torch.tanh(keys), self.query)
+        att = torch.softmax(logits, dim=-1)
+        return torch.einsum("bl,bld->bd", att, x.to(att.dtype))
+
+
+class OptimizedLSTMCell(nn.Module):
+    """flax.linen.OptimizedLSTMCell with its parameters by name: input
+    transforms ii/if/ig/io (no bias, lecun_normal) and recurrent ones
+    hi/hf/hg/ho (bias, orthogonal init). As flax computes it, the four
+    kernels of each side are applied as one concatenated matmul, then
+    i, f, o = sigmoid(h-side + x-side), g = tanh(h-side + x-side),
+    c' = f·c + i·g, h' = o·tanh(c')."""
+
+    _GATES = ("i", "f", "g", "o")
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim = int(dim)
+        for g in self._GATES:
+            self.add_module(f"i{g}", Dense(in_dim, dim, use_bias=False,
+                                           generator=generator))
+        for g in self._GATES:
+            lin = Dense(dim, dim, generator=generator)
+            with torch.no_grad():
+                nn.init.orthogonal_(lin.weight, generator=generator)
+            self.add_module(f"h{g}", lin)
+
+    def forward(self, carry, x: torch.Tensor):
+        c, h = carry
+        w_h = torch.cat([getattr(self, f"h{g}").weight
+                         for g in self._GATES])
+        b_h = torch.cat([getattr(self, f"h{g}").bias for g in self._GATES])
+        w_i = torch.cat([getattr(self, f"i{g}").weight
+                         for g in self._GATES])
+        dense_h = F.linear(h, w_h, b_h).split(self.dim, dim=-1)
+        dense_i = F.linear(x.to(w_i.dtype), w_i).split(self.dim, dim=-1)
+        i, f, g, o = (a + b for a, b in zip(dense_h, dense_i))
+        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return (new_c, new_h), new_h
+
+
+class LSTMLayer(nn.Module):
+    """An LSTM over [B, L, D] returning every step's hidden state [B, L,
+    dim], from a zero carry (counterpart of
+    euler_tpu/utils/layers.py:LSTMLayer, nn.RNN(OptimizedLSTMCell)). The
+    cell's scope is flax's, "OptimizedLSTMCell_0"."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.add_module("OptimizedLSTMCell_0",
+                        OptimizedLSTMCell(in_dim, dim, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cell = getattr(self, "OptimizedLSTMCell_0")
+        zero = x.new_zeros((x.shape[0], cell.dim), dtype=torch.float32)
+        carry, outs = (zero, zero), []
+        for t in range(x.shape[1]):
+            carry, y = cell(carry, x[:, t])
+            outs.append(y)
+        return torch.stack(outs, dim=1)

@@ -614,3 +614,164 @@ def test_cuda_server_swaps_tables_on_the_card(tmp_path):
             assert max(srv.padded_shapes_seen().values()) <= len(srv.ladder)
     finally:
         srv.stop()
+
+
+# -- slice 7: the alias and fused layouts, the activation cache -------------
+
+def _weighted_tables(dev, n=3000, cap=16, seed=8):
+    """A seeded weighted table (random weights, some zero, hubs above
+    the cap) in the split layout with the alias words, and its fused
+    table, on `dev`."""
+    from euler_tpu_torch.parallel.device_sampler import (
+        DeviceNeighborTable, fuse_tables_host,
+    )
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 2 * cap, n)
+    offsets = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    nbrs = rng.integers(0, n, offsets[-1]).astype(np.int32)
+    ws = rng.uniform(0.0, 3.0, len(nbrs)).astype(np.float32)
+    ws[rng.random(len(nbrs)) < 0.1] = 0.0
+    tab = DeviceNeighborTable.from_csr(offsets, nbrs, ws, cap=cap,
+                                       device="cpu", keep_host=True,
+                                       alias=True)
+    nbr, cum = tab.host_tables
+    out = {"nbr_table": tab.neighbors, "cum_table": tab.cum_weights,
+           "alias_table": tab.alias_table,
+           "nbrcum_table": torch.from_numpy(fuse_tables_host(nbr, cum))}
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 4, 15])
+def test_cuda_alias_and_fused_draws_match_the_cpu(count):
+    """The same uniforms through the alias draw and the fused draw on the
+    card and on the CPU: the same picks, bit for bit; the fused picks
+    equal the split tables' weighted picks."""
+    _need_card()
+    from euler_tpu_torch.parallel.device_sampler import (
+        sample_hop, sample_hop_fused,
+    )
+
+    cpu = _weighted_tables("cpu")
+    card = {k: v.cuda() for k, v in cpu.items()}
+    n = cpu["nbr_table"].shape[0]
+    rows = torch.arange(n, dtype=torch.int32).repeat(3)
+    u = torch.rand((2, rows.shape[0], count),
+                   generator=torch.Generator().manual_seed(count))
+    got = {}
+    for name, t in (("cpu", cpu), ("card", card)):
+        r, uu = rows.to(t["nbr_table"].device), u.to(t["nbr_table"].device)
+        got[name] = (
+            sample_hop(t["nbr_table"], t["cum_table"], r, count,
+                       uniforms=uu, alias_table=t["alias_table"]).cpu(),
+            sample_hop_fused(t["nbrcum_table"], r, count,
+                             uniforms=uu[0]).cpu(),
+            sample_hop(t["nbr_table"], t["cum_table"], r, count,
+                       uniforms=uu[0]).cpu())
+    for a, b in zip(got["cpu"], got["card"]):
+        assert torch.equal(a, b)
+    assert torch.equal(got["card"][1], got["card"][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 15])
+def test_cuda_kernel_bf16_table_f32_out_matches_plain(k):
+    """A bfloat16 table (the activation cache) read with a float32
+    output: the kernel against its plain version (float32 within 1e-5
+    of the largest), one launch."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    t, _ = _table("bf16", 20_000, 128, rng)
+    r = torch.from_numpy(rng.integers(0, 20_000, (4096, k)).astype(
+        np.int32)).cuda()
+    before = gather_mean.launches
+    got = gather_mean(t, r, out_dtype=torch.float32)
+    assert gather_mean.launches == before + 1
+    assert got.dtype == torch.float32
+    _assert_matches_plain(got, gather_mean_reference(
+        t.cpu(), r.cpu(), out_dtype=torch.float32))
+
+
+def _cache_estimator(setup, dev="cuda", **cfg):
+    """The cora setup with DeviceSampledScalableSage (one hop of 10, 2
+    layers, a bfloat16 cache) in place of the fanout model."""
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.models.graphsage import DeviceSampledScalableSage
+
+    store, tab, node_types, _, params = setup
+    model = DeviceSampledScalableSage(
+        7, 1433, multilabel=False, dim=64, fanout=10, num_layers=2,
+        max_id=tab.pad_row, cache_dtype=torch.bfloat16, dropout=0.6,
+        uniform_sampling=tab.uniform_rows,
+        generator=torch.Generator().manual_seed(0))
+    return NodeEstimator(model, {**params, "checkpoint_steps": 0,
+                                 "log_steps": 1 << 30, **cfg},
+                         node_types, store, tab, device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_act_cache_graph_matches_eager_and_skips_nonfinite():
+    """The activation cache at K = 4: graph windows against eager steps
+    bit for bit, the bfloat16 cache included (its deduplicated writes
+    and the gradient through them), 2 gather_mean kernels a step in the
+    graph; a window whose every step is NaN leaves the cache, the
+    parameters and Adam as they were."""
+    _need_card()
+    setup = _training_setup("cora")
+    store = setup[0]
+    feed = _cache_estimator(setup).train_input_fn()
+    raw = [next(feed) for _ in range(14)]
+    graphed = _cache_estimator(setup, steps_per_loop=4)
+    eager = _cache_estimator(setup)
+    rg = graphed.train(iter(raw), max_steps=14)
+    re_ = eager.train(iter(raw), max_steps=14)
+    assert graphed._graphed.launches_per_replay == 8
+    assert rg["losses"] == re_["losses"]
+    _assert_same_state(graphed, eager)
+    h = graphed.model.encoder.cache_1.h
+    assert h.dtype == torch.bfloat16 and h.float().abs().sum() > 0
+    bad = _labelled([next(feed) for _ in range(4)], store,
+                    nan_at={0, 1, 2, 3})
+    graphed.train(iter(_labelled(raw[:4], store)), max_steps=18)
+    before = {k: v.clone() for k, v in graphed.model.state_dict().items()}
+    res = graphed.train(iter(bad), max_steps=22)
+    assert res["skipped_steps"] == 4
+    for k, v in graphed.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused", "alias"])
+def test_cuda_layout_graph_windows_match_eager_steps(layout):
+    """The cora setup over the fused table or with the alias table at
+    K = 4: graph windows against eager steps, bit for bit."""
+    _need_card()
+    from euler_tpu_torch.parallel.device_sampler import (
+        build_alias_tables, fuse_tables_host,
+    )
+
+    setup = _training_setup("cora")
+    tab = setup[1]
+    nbr, cum = tab.neighbors.cpu().numpy(), tab.cum_weights.cpu().numpy()
+    tables = ({"nbrcum_table": torch.from_numpy(
+        fuse_tables_host(nbr, cum)).cuda()} if layout == "fused" else
+        {"alias_table": torch.from_numpy(
+            build_alias_tables(nbr, cum_tab=cum)).cuda()})
+
+    def est(**cfg):
+        e = _estimator(setup, **cfg)
+        if layout == "fused":
+            e.static_batch.pop("nbr_table")
+            e.static_batch.pop("cum_table")
+        e.static_batch.update(tables)
+        return e
+
+    feed = est().train_input_fn()
+    batches = [next(feed) for _ in range(12)]
+    graphed, eager = est(steps_per_loop=4), est()
+    rg = graphed.train(iter(batches), max_steps=12)
+    re_ = eager.train(iter(batches), max_steps=12)
+    assert graphed._graphed.launches_per_replay == 4
+    assert rg["losses"] == re_["losses"]
+    _assert_same_state(graphed, eager)

@@ -212,8 +212,27 @@ def test_deepest_hop_goes_through_neighbor_mean():
 @pytest.mark.parametrize("kw", [{"encoder": "genie"}, {"encoder": "gcn"},
                                 {"aggregator": "maxpool"}])
 def test_unported_options_raise(kw):
+    """The gcn and genie encoders and the pool aggregators are ported
+    now: the model builds and runs a forward. What the port still lacks
+    raises, naming its ROADMAP item: row-sharded tables."""
+    g, feats, labels = _graph()
+    m = DeviceSampledGraphSage(CLASSES, D, dim=DIM, fanouts=FANOUTS,
+                               generator=torch.Generator().manual_seed(0),
+                               **kw)
+    tab = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=8,
+                                       device="cpu")
+    store = DeviceFeatureStore.from_arrays(feats, labels, device="cpu")
+    with torch.no_grad():
+        out = m({"rows": [torch.arange(B, dtype=torch.int32)],
+                 "sample_seed": 1, **tab.tables,
+                 "feature_table": store.features,
+                 "label_table": store.labels})
+    assert out.embedding.shape == (B, m.encoder.out_dim)
+    assert torch.isfinite(out.loss)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceSampledGraphSage(CLASSES, D, **kw)
+        DeviceNeighborTable.from_arrays(np.zeros((3, 2), np.int32),
+                                        np.zeros((3, 2), np.float32),
+                                        device="cpu", shard_rows=True)
 
 
 def test_infer_sweep_padding_and_dedup_match_embed_all():

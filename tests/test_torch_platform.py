@@ -36,8 +36,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         DeviceFeatureStore.from_arrays(np.zeros((3, 2), np.float32))
-    with pytest.raises(RuntimeError):
-        DeviceNeighborTable.from_csr(np.array([0, 1]), np.array([0]))
+    for kw in ({}, {"fused": True}, {"alias": True}):
+        with pytest.raises(RuntimeError):
+            DeviceNeighborTable.from_csr(np.array([0, 1]), np.array([0]),
+                                         **kw)
     bundle = ModelBundle({}, np.zeros((2, 2), np.float32),
                          np.arange(2, dtype=np.uint64))
     with pytest.raises(RuntimeError):
@@ -68,7 +70,9 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
                  "tools/knn.py", "serving/wire.py", "serving/batcher.py",
                  "serving/export.py", "serving/engine.py",
                  "serving/server.py", "serving/client.py",
-                 "serving/autoscale.py", "serving/__init__.py"):
+                 "serving/autoscale.py", "serving/__init__.py",
+                 "examples/run_geniepath.py",
+                 "examples/run_scalable_sage.py"):
         assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))

@@ -20,6 +20,7 @@ import torch
 
 from euler_tpu.estimator.base_estimator import \
     BaseEstimator as JaxBaseEstimator
+from euler_tpu.estimator.base_estimator import TrainState as JaxTrainState
 from euler_tpu.models.graphsage import \
     DeviceSampledGraphSage as JaxDeviceSampledGraphSage
 from euler_tpu.parallel.feature_store import \
@@ -37,6 +38,11 @@ from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
 
 N, D, DIM, FANOUTS, CLASSES, B = 300, 16, 16, (3, 2), 4, 8
 LR = 0.01
+
+# the reference's programs compile at XLA's lowest backend optimization
+# level: the same HLO, compiled in about half the time (run op by op, a
+# flax init compiles each op)
+_O0 = {"xla_backend_optimization_level": 0}
 
 
 def _graph():
@@ -112,6 +118,22 @@ def _jax_setup(feats, labels, scale_dtype, tab, quantize="int8"):
     return est, static
 
 
+def _init_state(jest, batch):
+    """jest._init_state(batch) with the init jitted."""
+    variables = dict(jax.jit(jest.model.init, compiler_options=_O0)(
+        jax.random.key(0), batch))
+    params = variables.pop("params")
+    jest.state = JaxTrainState.create(
+        apply_fn=jest.model.apply, params=params, tx=jest.tx,
+        extra_vars=variables, skipped_steps=jnp.zeros((), jnp.int32))
+
+
+def _train_step(jest):
+    """jest._build_train_step(), compiled at _O0."""
+    return jax.jit(jest._make_one_step(), donate_argnums=(0,),
+                   compiler_options=_O0)
+
+
 def _jbatch(b, static):
     return {"rows": [jnp.asarray(b["rows"][0].numpy())],
             "sample_seed": np.uint32(b["sample_seed"]), **static}
@@ -150,8 +172,8 @@ def test_three_train_steps_match_the_reference_estimator(scale_dtype):
     _, tab, store = _tables(feats, labels, scale_dtype)
     jest, jstatic = _jax_setup(feats, labels, scale_dtype, tab)
     batches = _batches(3)
-    jest._init_state(_jbatch(batches[0], jstatic))
-    step_fn = jest._build_train_step()
+    _init_state(jest, _jbatch(batches[0], jstatic))
+    step_fn = _train_step(jest)
     model = _model()
     model.load_state_dict(flax_to_state_dict(jest.state.params))
     est = BaseEstimator(model, {"optimizer": "adam", "learning_rate": LR,
@@ -181,8 +203,8 @@ def test_nonfinite_guard_skips_the_update_in_both_packages():
     jest, jstatic = _jax_setup(feats, labels, "float32", tab, quantize=None)
     _, jbad = _jax_setup(bad, labels, "float32", tab, quantize=None)
     good_b, bad_b = _batches(2)
-    jest._init_state(_jbatch(good_b, jstatic))
-    step_fn = jest._build_train_step()
+    _init_state(jest, _jbatch(good_b, jstatic))
+    step_fn = _train_step(jest)
     jest.state, _, _ = step_fn(jest.state, _jbatch(good_b, jstatic))
     before = jax.device_get((jest.state.params, jest.state.opt_state))
     jest.state, jloss, _ = step_fn(jest.state, _jbatch(bad_b, jbad))
@@ -561,7 +583,7 @@ def test_k_steps_per_loop_match_the_reference_estimator(tmp_path, capsys):
     jbatches = [{"rows": [jnp.asarray(b["rows"][0].numpy())],
                  "sample_seed": np.uint32(b["sample_seed"])}
                 for b in batches]
-    jest._init_state(_jbatch(batches[0], jstatic))
+    _init_state(jest, _jbatch(batches[0], jstatic))
     model = _model()
     model.load_state_dict(flax_to_state_dict(jest.state.params))
     jres = jest.train(iter(jbatches), max_steps=10)
@@ -628,6 +650,7 @@ def test_input_path_matches_the_reference(tmp_path, case):
     jest = JaxBaseEstimator(jest.model, {"checkpoint_steps": 0, **cfg},
                             model_dir=str(tmp_path / "jax"))
     jest.static_batch = jstatic
+    _init_state(jest, _jbatch(batches[0], jstatic))
     est = _cpu_estimator(_model(), tab, store, model_dir=str(tmp_path / "pt"),
                          **cfg)
     results = []

@@ -37,6 +37,25 @@ from euler_tpu_torch.utils.layers import Embedding
 
 N, C, B, D, DIM, FANOUTS, NEGS, LR = 50, 4, 16, 16, 8, (3, 2), 5, 0.01
 
+# the reference's programs compile at XLA's lowest backend optimization
+# level: the same HLO, compiled in about half the time (run op by op, a
+# flax init compiles each op)
+_O0 = {"xla_backend_optimization_level": 0}
+
+
+def _apply(jm, params, batch):
+    """jm.apply(params, batch) jitted at _O0 (its str metric_name is no
+    array: it is taken from the trace)."""
+    names = []
+
+    def f(p, b):
+        out = jm.apply(p, b)
+        names.append(out.metric_name)
+        return out._replace(metric_name=None)
+
+    out = jax.jit(f, compiler_options=_O0)(params, batch)
+    return out._replace(metric_name=names[0])
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))
@@ -114,8 +133,9 @@ def test_unsupervise_model_matches_the_reference(pos_shape):
     jm = _JaxSrcModel(dim=DIM, max_id=N - 1, num_negs=NEGS)
     jbatch = {"src": jnp.asarray(src), "pos": jnp.asarray(pos),
               "negs": jnp.asarray(negs)}
-    params = jm.init(jax.random.key(1), jbatch)
-    want = jm.apply(params, jbatch)
+    params = jax.jit(jm.init, compiler_options=_O0)(jax.random.key(1),
+                                                    jbatch)
+    want = _apply(jm, params, jbatch)
     m = _SrcModel(dim=DIM, max_id=N - 1, num_negs=NEGS)
     m.load_state_dict(flax_to_state_dict(params))
     with torch.no_grad():
@@ -192,11 +212,13 @@ def test_unsup_sage_matches_the_reference(scale_dtype):
         out = jest.state.apply_fn({"params": params}, b)
         return out.embedding, out.loss, out.metric
 
-    # one jitted reference apply per case: its step returns the same
-    # loss and metric, before its update
-    ref_emb = np.asarray(jax.jit(outputs)(jest.state.params, jbatch)[0])
-    state, jloss, jmetric = jax.jit(jest._make_one_step())(jest.state,
-                                                             jbatch)
+    # one jitted program per case: the reference's step (it returns the
+    # loss and metric before its update) and its embedding
+    step = jest._make_one_step()
+    (state, jloss, jmetric), ref_emb = jax.jit(
+        lambda st, b: (step(st, b), outputs(st.params, b)[0]),
+        compiler_options=_O0)(jest.state, jbatch)
+    ref_emb = np.asarray(ref_emb)
     with torch.no_grad():
         out = model({**batch, **static})
         _, pos, _ = model.sample({**batch, **static})
@@ -218,13 +240,28 @@ def test_unsup_sage_matches_the_reference(scale_dtype):
 
 
 def test_unsup_sage_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Other device-resident"):
-        DeviceSampledUnsupervisedSage(10, D, aggregator="meanpool")
-    model = DeviceSampledUnsupervisedSage(10, D)
-    for k in ("nbrcum_table", "alias_table"):
-        with pytest.raises(NotImplementedError, match="Alias and fused"):
-            model({"rows": [torch.zeros(2, dtype=torch.int32)],
-                   "sample_seed": 1, k: 0})
+    """The pool aggregators and the fused and alias layouts are ported
+    now (tests/test_torch_encoders.py holds them against the reference):
+    meanpool builds and trains a step over the fused table. The gcn
+    aggregator raises TypeError, as the reference's SageEncoder does;
+    row-sharded tables raise, naming their ROADMAP item."""
+    g = _graph()
+    feats = np.concatenate([g.features, np.zeros((1, D), np.float32)])
+    tab = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=C,
+                                       device="cpu", fused=True)
+    neg = DeviceNodeSampler.from_arrays(np.ones(N, np.float32), device="cpu")
+    model = DeviceSampledUnsupervisedSage(
+        tab.pad_row, D, dim=DIM, fanouts=FANOUTS, aggregator="meanpool",
+        generator=torch.Generator().manual_seed(0))
+    out = model({"rows": [_t(_roots(g))], "sample_seed": 1, **tab.tables,
+                 **neg.tables, "feature_table": _t(feats)})
+    assert torch.isfinite(out.loss) and out.embedding.shape == (B, DIM)
+    with pytest.raises(TypeError, match="concat"):
+        DeviceSampledUnsupervisedSage(10, D, aggregator="gcn")
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        DeviceNeighborTable.from_arrays(np.zeros((3, 2), np.int32),
+                                        np.zeros((3, 2), np.float32),
+                                        device="cpu", shard_rows=True)
 
 
 # -- the K-step loop's stream words --------------------------------------------

@@ -26,13 +26,17 @@ from euler_tpu_torch.estimator.base_estimator import BaseEstimator
 from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
 from euler_tpu_torch.parallel import device_walk as PW
 from euler_tpu_torch.parallel.device_sampler import (
-    DeviceNeighborTable, slot_weights,
+    DeviceNeighborTable, build_alias_tables, fuse_tables_host, slot_weights,
 )
 from euler_tpu_torch.utils import metrics as PM
 from euler_tpu_torch.utils.layers import Embedding
 from euler_tpu_torch.utils.losses import sigmoid_binary_cross_entropy
 
 N, C, B, DIM, NEGS, LR = 50, 4, 16, 8, 5, 0.01
+
+# the reference's programs compile at XLA's lowest backend optimization
+# level: the same HLO, compiled in about half the time
+_O0 = {"xla_backend_optimization_level": 0}
 
 
 def _t(x):
@@ -157,7 +161,9 @@ def test_node_sampler_tables_and_draws_match_the_reference(node_type):
     for k, v in got.tables.items():
         assert v.numpy().tobytes() == np.asarray(ref.tables[k]).tobytes(), k
     key = jax.random.key(5)
-    want = np.asarray(JW.sample_global_rows(ref.rows, ref.cum, key, (B, 7)))
+    want = np.asarray(jax.jit(
+        lambda r, c, k: JW.sample_global_rows(r, c, k, (B, 7)),
+        compiler_options=_O0)(ref.rows, ref.cum, key))
     u = _t(jax.random.uniform(key, (B, 7)))
     rows = PW.sample_global_rows(got.rows, got.cum, (B, 7), uniforms=u)
     np.testing.assert_array_equal(rows.numpy(), want)
@@ -194,9 +200,10 @@ def test_walk_rows_bit_exact_with_replayed_uniforms(case):
     assert tab.uniform_rows == (case != "weighted")
     roots, L = _roots(), 6
     key = jax.random.key(11)
-    want = np.asarray(JW.walk_rows(jnp.asarray(nbr), jnp.asarray(cum),
-                                   jnp.asarray(roots), L, key, p=p, q=q,
-                                   uniform=uniform))
+    want = np.asarray(jax.jit(
+        lambda n, c, r, k: JW.walk_rows(n, c, r, L, k, p=p, q=q,
+                                        uniform=uniform),
+        compiler_options=_O0)(nbr, cum, roots, key))
     got = PW.walk_rows(tab.neighbors, tab.cum_weights, _t(roots), L,
                        uniforms=_walk_uniforms(key, L), p=p, q=q,
                        uniform=uniform)
@@ -313,7 +320,8 @@ def test_skipgram_matches_the_reference(name):
     static = {**tab.tables, **neg.tables}
     emb_table = np.asarray(jest.state.params["emb"]["table"])
     # the reference's step returns the loss and metric before its update
-    state, jloss, jmetric = jax.jit(jest._make_one_step())(jest.state,
+    state, jloss, jmetric = jax.jit(jest._make_one_step(),
+                                    compiler_options=_O0)(jest.state,
                                                              jbatch)
     with torch.no_grad():
         out = model({**batch, **static})
@@ -337,12 +345,25 @@ def test_skipgram_matches_the_reference(name):
 
 
 def test_skipgram_refuses_fused_and_alias_tables():
+    """The skip-gram takes the alias draw now
+    (tests/test_torch_encoders.py holds it against the reference). Its
+    walk reads the split tables: a batch with the fused table alone
+    raises KeyError, as the reference's does."""
     tab = _tables()
+    neg = PW.DeviceNodeSampler.from_arrays(np.ones(N, np.float32),
+                                           device="cpu")
     model = DeviceSampledSkipGram(tab.pad_row, dim=DIM)
-    for k in ("nbrcum_table", "alias_table"):
-        with pytest.raises(NotImplementedError, match="Alias and fused"):
-            model({"rows": [_t(_roots())], "sample_seed": 1, k: 0,
-                   **tab.tables})
+    alias = torch.from_numpy(
+        build_alias_tables(tab.neighbors.numpy(),
+                           cum_tab=tab.cum_weights.numpy()))
+    out = model({"rows": [_t(_roots())], "sample_seed": 1, **tab.tables,
+                 **neg.tables, "alias_table": alias})
+    assert torch.isfinite(out.loss)
+    fused = torch.from_numpy(fuse_tables_host(tab.neighbors.numpy(),
+                                              tab.cum_weights.numpy()))
+    with pytest.raises(KeyError, match="nbr_table"):
+        model({"rows": [_t(_roots())], "sample_seed": 1,
+               "nbrcum_table": fused, **neg.tables})
 
 
 # -- the runners --------------------------------------------------------------
