@@ -7,19 +7,28 @@
 The GraphSAGE path at the width of bench.py's flagship configuration
 (bench.py:776-869): a products-like graph (2.45M nodes, average degree
 50, 16 classes, 100-dim features quantized to int8 with a bfloat16
-per-column scale, neighbor cap 32), DeviceSampledGraphSage with dim 128
+per-column scale, neighbor cap 32) loaded into the port's build of the
+native graph engine, the tables read from it as bench.py's rebuild path
+reads them (bench.py:334-366), DeviceSampledGraphSage with dim 128
 and fanouts [15, 10] and random seeded weights, root batches of 32768;
 then the unsupervised family on the same graph (unsupervised GraphSAGE
 and the DeepWalk skip-gram of bench.py --walk); then the fused and alias
 table layouts and the activation cache (bench.py --fused_sampler,
---alias_sampler, --act_cache) on the same graph; then the serving stack
-over bundles exported from the trained flagship (2,450,000 x 256 f32).
+--alias_sampler, --act_cache) on the same graph; then the host-fed path
+of bench.py --host_sampler (the engine samples the fanout on the host);
+then the serving stack over bundles exported from the trained flagship
+(2,450,000 x 256 f32).
 Phases, in order; any failure raises and the exit code is not 0:
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off
   2. build    nvcc builds every kernel under euler_tpu_torch/csrc; ptxas
-              registers and spills per kernel (a spill fails the run)
-  3. graph    synthetic graph → feature store + neighbor table on the card
+              registers and spills per kernel (a spill fails the run);
+              beside it, g++ builds the graph engine from
+              euler_tpu/core/cc (one job a source), its seconds printed
+  3. graph    synthetic arrays → the graph engine (build_engine) →
+              DeviceNeighborTable(graph, cap 32) and DeviceFeatureStore(
+              graph, int8, bfloat16 scale) on the card; the engine's
+              node and edge counts and the seconds of each step
   4. kernels  gather_mean against its plain version at the path's shapes
               (int8 + bf16 scale, int8 + f32 scale, f32 table), the cora
               runner's (n 640, D 1433, int8 + f32 scale) and the path's
@@ -87,6 +96,13 @@ Phases, in order; any failure raises and the exit code is not 0:
               eager steps at K = 32 with the caches, bit for bit
  9e. alias family  unsupervised GraphSAGE and DeepWalk over the alias
               layout, the graph against eager steps at K = 8
+ 9f. host-fed bench.py --host_sampler's path (bench.py:821-869):
+              FanoutDataFlow(graph, [15, 10]) on the host, rows into the
+              int8 table, SupervisedGraphSage dim 128, batch 32768, Adam
+              lr 0.01, K = 1: 2 warm-up and 5 timed steps; edges/s, ms a
+              step, host ms a batch (root draw, sample_fanout, lookup),
+              busy share, a finite falling loss, no gather_mean launch;
+              one step of the host-arrays path (the engine's features)
  10. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
               on the cora stand-in for seeds 0, 1, 2: mean test
               micro-F1 at least 0.79 (the RESULTS.md row is 0.811); the
@@ -99,7 +115,13 @@ Phases, in order; any failure raises and the exit code is not 0:
               and graphsage-dev-cache 0.805 (floor 0.70), each failing
               unless it lies within 0.01 of its row or within 2
               standard errors of the JAX package's own 10-seed mean;
-              each gate printed, met or not
+              the host-fed runners (no --device_sampler) for seeds
+              0-2: run_graphsage cora (row 0.805), run_deepwalk and
+              run_line cora (0.996, 0.991), run_graphsage --mode
+              unsupervised ppi (0.551), each failing unless within 0.01
+              of its row or 2 standard errors of the JAX package's own
+              10-seed mean (tests/oracle_hostfed.py); each gate printed,
+              met or not
  11. small    a small input through the card and through the CPU path
  12. serve    the training tables freed, then through the TCP stack on
               the card: InferenceServer loads v1 (verified) and uploads
@@ -144,6 +166,9 @@ import time
 import numpy as np
 import torch
 
+from euler_tpu_torch.core import lib as engine_lib
+from euler_tpu_torch.dataflow import FanoutDataFlow
+from euler_tpu_torch.dataset import engine_from_arrays
 from euler_tpu_torch.dataset.synthetic import products_like, synthetic_citation
 from euler_tpu_torch.estimator import base_estimator
 from euler_tpu_torch.estimator.base_estimator import BaseEstimator
@@ -158,7 +183,7 @@ from euler_tpu_torch.kernels import _build
 from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
 from euler_tpu_torch.models.graphsage import (
     DeviceSampledGraphSage, DeviceSampledScalableSage,
-    DeviceSampledUnsupervisedSage, refresh_act_cache,
+    DeviceSampledUnsupervisedSage, SupervisedGraphSage, refresh_act_cache,
 )
 from euler_tpu_torch.ops import gather_mean as gather_mean_module
 from euler_tpu_torch.ops.gather_mean import (
@@ -239,6 +264,32 @@ CACHE_EDGES_PER_STEP = CACHE_LAYERS * BATCH * CACHE_FANOUT
 # sd_ref^2 / 10), sd_port over the port's runner with --device cpu
 # --seed 0-9. Both are printed, met or not; the run fails when neither
 # is met, or below the floor.
+# the host-fed path (bench.py --host_sampler, bench.py:821-869):
+# FanoutDataFlow(graph, [15, 10], with_features=False) rows into the int8
+# table, SupervisedGraphSage dim 128, batch 32768, Adam lr 0.01, K = 1;
+# 2 warm-up steps and 5 timed steps (each batch is sampled on the host)
+HOST_WARMUP, HOST_TIMED = 2, 5
+# host-fed quality: the port's runners without --device_sampler for
+# QUALITY_SEEDS against their RESULTS.md rows (graphsage | cora 0.805,
+# deepwalk | cora 0.996, line | cora 0.991, graphsage-unsup | ppi 0.551);
+# each fails the run unless its mean is within 0.01 of its row or within
+# 2 standard errors of the difference, sqrt(sd_port^2 / 3 + sd_ref^2 /
+# 10), from the JAX package's own 10-seed mean (tests/oracle_hostfed.py
+# --seeds 0 ... 9 on the CPU: mean, sd) with sd_port over the port's
+# runner with --device cpu --seed 0-9 (the same script, --port).
+# name → (runner, argv, result key, row, floor, ref mean, ref sd, port sd)
+HOSTFED_QUALITY = {
+    "graphsage cora": ("run_graphsage", [], "test_metric", 0.805, 0.77,
+                       0.8176, 0.0055, 0.0116),
+    "deepwalk cora": ("run_deepwalk", [], "eval_metric", 0.996, 0.95,
+                      0.9959, 0.0004, 0.0005),
+    "line cora": ("run_line", [], "eval_metric", 0.991, 0.95,
+                  0.9900, 0.0011, 0.0012),
+    "graphsage-unsup ppi": ("run_graphsage", ["--mode", "unsupervised",
+                                              "--dataset", "ppi"],
+                            "eval_metric", 0.551, 0.5, 0.5592, 0.0129,
+                            0.0151),
+}
 GENIE_ROW, CACHE_ROW, SLICE7_FLOOR = 0.771, 0.805, 0.70
 GENIE_ORACLE, GENIE_REF_SD, GENIE_PORT_SD = 0.7430, 0.0251, 0.0277
 CACHE_ORACLE, CACHE_REF_SD, CACHE_PORT_SD = 0.7922, 0.0068, 0.0094
@@ -396,8 +447,14 @@ def baseline_gather_mean(fn, table, rows, scale, out=None):
 def phase_build(baseline_source=None) -> tuple:
     base = (start_baseline_build(baseline_source) if baseline_source
             else None)
+    # the engine's g++ jobs (one a source) run beside nvcc
+    engine = engine_lib.start_build()
     r = _build.build("gather_mean")
     log(f"build: gather_mean {r['seconds']:.1f}s")
+    e = engine.wait()
+    log(f"build: graph engine ({e['sources']} sources, g++ "
+        f"{' '.join(engine_lib.CXXFLAGS)}) {e['seconds']:.1f}s, "
+        f"{engine_lib.library_path()}")
     report = ptxas_report(r["log"])
     for name, regs, spill in report:
         log(f"  ptxas {name}: {regs} registers, {spill} bytes spilled")
@@ -412,39 +469,46 @@ def phase_build(baseline_source=None) -> tuple:
     if base:
         log(f"build: baseline gather_mean ({baseline_source}) ready "
             f"{time.monotonic() - t0:.1f}s after the current one")
-    return {"gather_mean_seconds": r["seconds"], "ptxas": report}, base_fn
+    return {"gather_mean_seconds": r["seconds"], "ptxas": report,
+            "engine_seconds": e["seconds"],
+            "engine_sources": e["sources"]}, base_fn
 
 
 def phase_graph(dev: torch.device):
+    """The flagship's graph as bench.py's rebuild path builds it
+    (bench.py:96-108, :334-366): the products-like arrays into the
+    graph engine, then the neighbor table and the int8 feature store
+    (bfloat16 scale) read from the engine. The host tables stay for
+    phase 9a's fused and alias layouts."""
     t0 = time.monotonic()
     g = products_like(FULL_NODES, AVG_DEGREE, FEAT_DIM, NUM_CLASSES)
-    t_graph = time.monotonic() - t0
+    t_arrays = time.monotonic() - t0
     t0 = time.monotonic()
-    feats = np.concatenate([g.features, np.zeros((1, FEAT_DIM), np.float32)])
-    labels = np.concatenate([g.onehot_labels(),
-                             np.zeros((1, NUM_CLASSES), np.float32)])
-    store = DeviceFeatureStore.from_arrays(
-        feats, labels, quantize="int8", scale_dtype=torch.bfloat16,
-        device=dev)
-    del feats, labels
-    # the host tables stay for phase 13's fused and alias layouts
-    table = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=CAP,
-                                         device=dev, keep_host=True)
-    t_tables = time.monotonic() - t0
-    edges = int(g.neighbors.size)
-    node_types = g.node_types
+    graph = engine_from_arrays(g, name="bench").engine
+    t_engine = time.monotonic() - t0
     del g
-    log(f"graph: {FULL_NODES} nodes, {edges} directed edges, built in "
-        f"{t_graph:.1f}s; tables in {t_tables:.1f}s (uniform_rows="
-        f"{table.uniform_rows}, hub_frac={table.hub_frac:.3f}, "
-        f"edge_keep_frac={table.edge_keep_frac:.3f})")
-    return store, table, node_types, {
-                          "nodes": FULL_NODES, "directed_edges": edges,
-                          "graph_seconds": t_graph,
-                          "table_seconds": t_tables,
-                          "uniform_rows": table.uniform_rows,
-                          "hub_frac": table.hub_frac,
-                          "edge_keep_frac": table.edge_keep_frac}
+    t0 = time.monotonic()
+    table = DeviceNeighborTable(graph, cap=CAP, keep_host=True, device=dev)
+    t_table = time.monotonic() - t0
+    t0 = time.monotonic()
+    store = DeviceFeatureStore(graph, ["feature"], label_fid="label",
+                               label_dim=NUM_CLASSES, dtype=torch.bfloat16,
+                               quantize="int8", device=dev)
+    t_store = time.monotonic() - t0
+    nodes, edges = graph.node_count, graph.edge_count
+    if nodes != FULL_NODES:
+        raise AssertionError(f"engine holds {nodes} nodes, not {FULL_NODES}")
+    log(f"graph: arrays in {t_arrays:.1f}s; engine {nodes} nodes, {edges} "
+        f"directed edges, built in {t_engine:.1f}s; neighbor table from "
+        f"the engine in {t_table:.1f}s (uniform_rows={table.uniform_rows}, "
+        f"hub_frac={table.hub_frac:.3f}, edge_keep_frac="
+        f"{table.edge_keep_frac:.3f}); feature store in {t_store:.1f}s")
+    return store, table, graph, {
+        "nodes": nodes, "directed_edges": edges,
+        "arrays_seconds": t_arrays, "engine_seconds": t_engine,
+        "table_seconds": t_table, "store_seconds": t_store,
+        "uniform_rows": table.uniform_rows, "hub_frac": table.hub_frac,
+        "edge_keep_frac": table.edge_keep_frac}
 
 
 def cora_case(dev: torch.device) -> tuple:
@@ -729,11 +793,11 @@ def profile_device(fn, what: str, top_n: int = 10) -> dict:
                                      if "gather_mean" in k)}
 
 
-def phase_train(store, table, node_types, dev: torch.device) -> tuple:
+def phase_train(store, table, graph, dev: torch.device) -> tuple:
     """Train the flagship model through NodeEstimator on the sweep's
     tables, as bench.py times it (_drive_steps), then the index rule's
     cost and the remat check. Returns (record, the estimator)."""
-    est = flagship_estimator(store, table, node_types, dev)
+    est = flagship_estimator(store, table, graph, dev)
     it = est.train_input_fn()
     r = _drive_steps(est, it, "train")
     r["index_rule"] = time_index_rule(est, est.model, it,
@@ -852,7 +916,7 @@ def time_index_rule(est, model, it, step_busy_ms: float) -> dict:
     """What jnp.take's fill rule costs a step: the hop-0 and hop-1
     gathers through take_rows against plain indexing of the same rows
     (CUDA events), beside the step's profiled device time."""
-    batch = {**next(it), **est.static_batch}
+    batch = {**_on_card(next(it), est), **est.static_batch}
     with torch.no_grad():
         rows = model.sample_rows(batch)[:-1]
     table = batch["feature_table"]
@@ -875,7 +939,7 @@ def check_remat(est, model, it, dev) -> dict:
         NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
         uniform_sampling=model.uniform_sampling, remat=True).to(dev)
     remat.load_state_dict(model.state_dict())
-    batch = {**next(it), **est.static_batch}
+    batch = {**_on_card(next(it), est), **est.static_batch}
     out = {}
     for name, m in (("plain", model), ("remat", remat)):
         m.train()
@@ -909,8 +973,7 @@ def check_remat(est, model, it, dev) -> dict:
 def with_layout(est, layout=None):
     """The estimator's neighbor tables replaced by a layout's (the fused
     table alone, or the split tables with the alias table): its static
-    batch, which its inferencer shares, holds the tables the model
-    reads."""
+    batch holds the tables the model reads."""
     if layout is not None:
         for k in ("nbr_table", "cum_table", "nbrcum_table", "alias_table"):
             est.static_batch.pop(k, None)
@@ -918,7 +981,7 @@ def with_layout(est, layout=None):
     return est
 
 
-def flagship_estimator(store, table, node_types, dev, layout=None,
+def flagship_estimator(store, table, graph, dev, layout=None,
                        uniform=None, **cfg):
     """The flagship model (random weights from seed 0) in a NodeEstimator
     over the path's tables (or a layout's, with_layout), with bench.py's
@@ -932,18 +995,20 @@ def flagship_estimator(store, table, node_types, dev, layout=None,
         model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
                     optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
                     train_node_type=-1, seed=0, **cfg),
-        node_types, store, table, device=dev), layout)
+        graph, None, feature_store=store, device_sampler=table,
+        device=dev), layout)
 
 
-def phase_loop(store, table, node_types, dev, k: int = LOOP_K) -> tuple:
+def phase_loop(store, table, graph, dev, k: int = LOOP_K) -> tuple:
     """NodeEstimator.train at steps_per_loop = k (32) as bench.py drives it:
     the prefetch thread (depth 3) builds each batch and copies its roots
     to the card; K + 2 warm-up steps; 3 timed windows on the host clock
     with a synchronize at the window edges only. Returns (record, the
     estimator)."""
-    est = flagship_estimator(store, table, node_types, dev,
+    est = flagship_estimator(store, table, graph, dev,
                              steps_per_loop=k)
-    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH)
+    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH,
+                     transform=lambda b: _on_card(b, est))
     try:
         return _drive_loop(est, it, k), est
     finally:
@@ -1169,17 +1234,18 @@ def unsup_estimator(store, table, neg, dev, layout=None,
     return with_layout(est, layout)
 
 
-def phase_unsup(store, table, neg, dev) -> dict:
+def phase_unsup(store, table, neg, graph, dev) -> dict:
     """Unsupervised GraphSAGE at full width on the flagship's tables,
     roots drawn over all nodes: K = 1 as phase 6 drives the flagship,
     K = 32 as phase 7 (bench.py's prefetch thread of depth 3), and the
     graph against eager steps at K = 8. gather_mean launches once per
     step; edges per step as the flagship's."""
-    roots = root_input_fn(FULL_NODES, BATCH, 0)
+    roots = root_input_fn(graph, BATCH, table.pad_row)
     r = {"k1": _drive_steps(unsup_estimator(store, table, neg, dev),
                             roots(), "unsup")}
     est = unsup_estimator(store, table, neg, dev, steps_per_loop=LOOP_K)
-    it = make_feeder(roots(), workers=0, depth=FEEDER_DEPTH)
+    it = make_feeder(roots(), workers=0, depth=FEEDER_DEPTH,
+                     transform=lambda b: _on_card(b, est))
     try:
         r["k32"] = _drive_loop(est, it, LOOP_K, what="unsup loop")
     finally:
@@ -1187,7 +1253,7 @@ def phase_unsup(store, table, neg, dev) -> dict:
     del est
     r["graph_vs_eager"] = check_graph_vs_eager(
         lambda k: unsup_estimator(store, table, neg, dev, steps_per_loop=k),
-        root_input_fn(FULL_NODES, BATCH, 1)(), k=UNSUP_EQ_K,
+        roots(), k=UNSUP_EQ_K,
         what="unsupervised GraphSAGE")
     return r
 
@@ -1208,7 +1274,7 @@ def skipgram_estimator(table, neg, dev, layout=None,
     return with_layout(est, layout)
 
 
-def phase_walk(table, neg, dev) -> dict:
+def phase_walk(table, neg, graph, dev) -> dict:
     """The DeepWalk skip-gram at bench.py --walk's shape and K = 8
     (bench.py's spl_walk, :814-818), fed by its prefetch thread (depth
     3); pairs/s/GPU = steps x 32768 x 10 / s, bench.py's metric. The
@@ -1219,8 +1285,9 @@ def phase_walk(table, neg, dev) -> dict:
     p, m, v."""
     pairs_per_root = len(gen_pair_offsets(WALK_LEN + 1, 1, 1))
     est = skipgram_estimator(table, neg, dev, steps_per_loop=WALK_K)
-    it = make_feeder(root_input_fn(FULL_NODES, BATCH, 0)(), workers=0,
-                     depth=FEEDER_DEPTH)
+    roots = root_input_fn(graph, BATCH, table.pad_row)
+    it = make_feeder(roots(), workers=0, depth=FEEDER_DEPTH,
+                     transform=lambda b: _on_card(b, est))
     try:
         r = _drive_loop(est, it, WALK_K, what="walk", work="pairs",
                         work_per_step=BATCH * pairs_per_root,
@@ -1238,7 +1305,7 @@ def phase_walk(table, neg, dev) -> dict:
     del est
     r["graph_vs_eager"] = check_graph_vs_eager(
         lambda k: skipgram_estimator(table, neg, dev, steps_per_loop=k),
-        root_input_fn(FULL_NODES, BATCH, 1)(), k=WALK_K, what="DeepWalk")
+        roots(), k=WALK_K, what="DeepWalk")
     return r
 
 
@@ -1381,29 +1448,30 @@ def phase_layouts(table, dev: torch.device) -> tuple:
             {**table.tables, "alias_table": alias_dev})
 
 
-def phase_layout_flagship(store, table, node_types, dev, layout,
+def phase_layout_flagship(store, table, graph, dev, layout,
                           what: str, against=None) -> dict:
     """The flagship at K = 32 over a layout's tables as phase 7 drives
     it (edges/s/GPU, ms a step, launches == steps), then the graph
     against eager steps at K = 32 (and, for the fused layout, against
     the split tables' weighted draw, bit for bit)."""
-    est = flagship_estimator(store, table, node_types, dev, layout=layout,
+    est = flagship_estimator(store, table, graph, dev, layout=layout,
                              steps_per_loop=LOOP_K)
-    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH)
+    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH,
+                     transform=lambda b: _on_card(b, est))
     try:
         r = _drive_loop(est, it, LOOP_K, what=f"{what} loop")
     finally:
         it.close()
     del est
     r["graph_vs_eager"] = check_graph_vs_eager(
-        lambda k: flagship_estimator(store, table, node_types, dev,
+        lambda k: flagship_estimator(store, table, graph, dev,
                                      layout=layout, steps_per_loop=k),
-        flagship_estimator(store, table, node_types, dev).train_input_fn(),
+        flagship_estimator(store, table, graph, dev).train_input_fn(),
         what=f"{what} flagship", against=against)
     return r
 
 
-def cache_estimator(store, table, node_types, dev, **cfg):
+def cache_estimator(store, table, graph, dev, **cfg):
     """DeviceSampledScalableSage at bench.py --act_cache's shape (dim
     128, one hop of 15, 2 layers, a bfloat16 cache over every table row,
     uniform sampling on the unit-weight table as bench.py's auto; random
@@ -1419,10 +1487,10 @@ def cache_estimator(store, table, node_types, dev, **cfg):
         model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
                     optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
                     train_node_type=-1, seed=0, **cfg),
-        node_types, store, table, device=dev)
+        graph, None, feature_store=store, device_sampler=table, device=dev)
 
 
-def phase_act_cache(store, table, node_types, dev) -> dict:
+def phase_act_cache(store, table, graph, dev) -> dict:
     """The activation cache at bench.py --act_cache's shape: K = 1 as
     phase 6 drives the flagship and K = 32 as phase 7, two gather_mean
     launches a step (layer 0's int8 feature rows, layer 1's bfloat16
@@ -1431,15 +1499,16 @@ def phase_act_cache(store, table, node_types, dev) -> dict:
     the caches included, bit for bit; then refresh_act_cache over every
     row in 8192-row chunks: seconds, launches (2 a chunk), the pad row
     zero and the rows it wrote."""
-    r = {"k1": _drive_steps(cache_estimator(store, table, node_types, dev),
-                            cache_estimator(store, table, node_types,
+    r = {"k1": _drive_steps(cache_estimator(store, table, graph, dev),
+                            cache_estimator(store, table, graph,
                                             dev).train_input_fn(),
                             "act cache", work_per_step=CACHE_EDGES_PER_STEP,
                             kernels_per_step=CACHE_LAYERS)}
     r["k1"]["nodes_per_s"] = r["k1"]["roots_per_s"]
-    est = cache_estimator(store, table, node_types, dev,
+    est = cache_estimator(store, table, graph, dev,
                           steps_per_loop=LOOP_K)
-    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH)
+    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH,
+                     transform=lambda b: _on_card(b, est))
     try:
         r["k32"] = _drive_loop(est, it, LOOP_K, what="act cache loop",
                                work_per_step=CACHE_EDGES_PER_STEP,
@@ -1471,9 +1540,9 @@ def phase_act_cache(store, table, node_types, dev) -> dict:
     r["kernel_vs_plain"] = cache_forward_vs_plain(est)
     del est, h
     r["graph_vs_eager"] = check_graph_vs_eager(
-        lambda k: cache_estimator(store, table, node_types, dev,
+        lambda k: cache_estimator(store, table, graph, dev,
                                   steps_per_loop=k),
-        cache_estimator(store, table, node_types, dev).train_input_fn(),
+        cache_estimator(store, table, graph, dev).train_input_fn(),
         what="act cache")
     return r
 
@@ -1504,21 +1573,22 @@ def cache_forward_vs_plain(est) -> dict:
     return {"max_abs_err": err, "tol": tol}
 
 
-def phase_alias_unsup(store, table, neg, alias, dev) -> dict:
+def phase_alias_unsup(store, table, neg, alias, graph, dev) -> dict:
     """Unsupervised GraphSAGE and the DeepWalk skip-gram over the alias
     layout at K = 8 (bench.py --alias_sampler; the walk's p = q = 1
     steps take the alias draw): a few windows, the graph against eager
     steps, bit for bit."""
+    roots = root_input_fn(graph, BATCH, table.pad_row)
     r = {
         "unsup": check_graph_vs_eager(
             lambda k: unsup_estimator(store, table, neg, dev, layout=alias,
                                       steps_per_loop=k),
-            root_input_fn(FULL_NODES, BATCH, 2)(), k=UNSUP_EQ_K,
+            roots(), k=UNSUP_EQ_K,
             what="unsupervised GraphSAGE, alias"),
         "walk": check_graph_vs_eager(
             lambda k: skipgram_estimator(table, neg, dev, layout=alias,
                                          steps_per_loop=k),
-            root_input_fn(FULL_NODES, BATCH, 3)(), k=WALK_K,
+            roots(), k=WALK_K,
             what="DeepWalk, alias")}
     # one gather_mean launch a step for the mean aggregator's deepest
     # hop; the skip-gram reads no feature table
@@ -1528,6 +1598,164 @@ def phase_alias_unsup(store, table, neg, alias, dev) -> dict:
             raise AssertionError(f"{name} over the alias layout: {got} "
                                  f"gather_mean launches a replay, not {want}")
     return r
+
+
+def _timed_method(obj, name: str, acc: dict) -> None:
+    """Shadow obj.name with a wrapper that adds its wall seconds to
+    acc[name]; `del obj.name` restores the method."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[name] += time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def hostfed_estimator(graph, flow, store, dev) -> NodeEstimator:
+    """SupervisedGraphSage (dim 128, fanouts [15, 10], random weights
+    from seed 0) in a NodeEstimator fed by the host flow, bench.py's
+    training parameters (K = 1)."""
+    model = SupervisedGraphSage(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
+        generator=torch.Generator().manual_seed(0))
+    return NodeEstimator(
+        model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
+                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
+                    train_node_type=-1, seed=0),
+        graph, flow, label_fid="label", label_dim=NUM_CLASSES,
+        feature_store=store, device=dev)
+
+
+def phase_hostfed(store, graph, dev) -> dict:
+    """bench.py --host_sampler's path: the engine draws the roots and
+    the [15, 10] fanout on the host (FanoutDataFlow, no features), the
+    ids become rows of the int8 table (DeviceFeatureStore.lookup, the
+    engine's row translation), SupervisedGraphSage trains on the card
+    at K = 1: 2 warm-up and 5 timed steps; edges/s, ms a step, host ms
+    a batch split into the root draw, sample_fanout and lookup, the
+    card's busy share from one profiled step. The path takes no kernel
+    of the port (a SageEncoder mean over host-sampled rows, as the
+    reference's): gather_mean launches 0 times. Then one step of the
+    host-arrays path (the engine's features as batch["layers"]) at the
+    same shapes. Fails on a non-finite or non-falling loss, a skipped
+    step or a launch."""
+    est = hostfed_estimator(
+        graph, FanoutDataFlow(graph, list(FANOUTS), with_features=False),
+        store, dev)
+    it = est.train_input_fn()
+    gather_mean.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = est.train(it, max_steps=HOST_WARMUP)["losses"]
+    acc = {"sample_node": 0.0, "sample_fanout": 0.0, "lookup": 0.0}
+    for obj, name in ((graph, "sample_node"), (graph, "sample_fanout"),
+                      (store, "lookup")):
+        _timed_method(obj, name, acc)
+    sums0 = _phase_sums(est)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = est.train(it, max_steps=HOST_WARMUP + HOST_TIMED)
+        torch.cuda.synchronize()
+        timed_s = time.monotonic() - t0
+    finally:
+        for obj, name in ((graph, "sample_node"), (graph, "sample_fanout"),
+                          (store, "lookup")):
+            delattr(obj, name)
+    input_wait_ms, dispatch_ms = (
+        float(x) for x in np.subtract(_phase_sums(est), sums0))
+    losses += res["losses"]
+    launches = gather_mean.launches
+    prof = profile_device(lambda: est._train_step(_on_card(next(it), est)),
+                          "one host-fed step")
+    if launches != 0:
+        raise AssertionError(f"host-fed: gather_mean launched {launches} "
+                             "times on a path that takes no kernel")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"host-fed: loss not finite and falling: "
+                             f"{losses}")
+    if int(est.skipped_steps):
+        raise AssertionError("host-fed: skipped steps")
+    step_ms = timed_s * 1e3 / HOST_TIMED
+    host = {k: v * 1e3 / HOST_TIMED for k, v in acc.items()}
+    r = {"steps": est.step, "gather_mean_launches": launches,
+         "losses": losses, "timed_seconds": timed_s,
+         "edges_per_step": EDGES_PER_STEP,
+         "edges_per_sec_per_gpu": EDGES_PER_STEP * HOST_TIMED / timed_s,
+         "ms_per_step": step_ms, "host_ms_per_batch": host,
+         "input_wait_ms_per_step": input_wait_ms / HOST_TIMED,
+         "dispatch_ms_per_step": dispatch_ms / HOST_TIMED,
+         "device_busy_share": prof["device_busy_ms"] / step_ms,
+         "peak_device_bytes": torch.cuda.max_memory_allocated(),
+         "profile": prof}
+    log(f"host-fed: {HOST_TIMED} timed steps of {BATCH} roots, "
+        f"{r['edges_per_sec_per_gpu']:.6g} edges/s/GPU, {step_ms:.1f} ms a "
+        f"step; host ms a batch: sample_node {host['sample_node']:.1f}, "
+        f"sample_fanout {host['sample_fanout']:.1f}, lookup "
+        f"{host['lookup']:.1f} (input wait {r['input_wait_ms_per_step']:.1f}"
+        f" ms a step, dispatch {r['dispatch_ms_per_step']:.1f}); device "
+        f"busy {r['device_busy_share']:.1%} ({prof['device_busy_ms']:.2f} "
+        f"ms a step); gather_mean launches {launches}; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    del est, it
+    arrays = hostfed_estimator(
+        graph, FanoutDataFlow(graph, list(FANOUTS), feature_ids=["feature"]),
+        None, dev)
+    t0 = time.monotonic()
+    res = arrays.train(arrays.train_input_fn, max_steps=1)
+    torch.cuda.synchronize()
+    r["arrays_step_seconds"] = time.monotonic() - t0
+    r["arrays_loss"] = res["loss"]
+    if not np.isfinite(res["loss"]) or gather_mean.launches != 0:
+        raise AssertionError(f"host-fed arrays step: loss {res['loss']}, "
+                             f"{gather_mean.launches} launches")
+    log(f"host-fed arrays: one step with the engine's features as layers "
+        f"in {r['arrays_step_seconds']:.1f}s (batch built, copied and "
+        f"stepped), loss {res['loss']:.4f}")
+    return r
+
+
+def phase_hostfed_quality() -> dict:
+    """The port's host-fed runners on the card, seeds 0-2, against their
+    RESULTS.md rows and the JAX package's own 10-seed means
+    (HOSTFED_QUALITY). Fails on a non-finite run, a skipped step, a
+    mean below its floor, or a mean that meets neither gate."""
+    mods = {"run_graphsage": run_graphsage, "run_deepwalk": run_deepwalk,
+            "run_line": run_line}
+    out = {}
+    for name, (runner, argv, key, row, floor, ref, ref_sd,
+               port_sd) in HOSTFED_QUALITY.items():
+        vals, secs = [], []
+        for seed in QUALITY_SEEDS:
+            res, dt = _quiet_run(mods[runner], [*argv, "--seed", str(seed)],
+                                 f"{name} seed {seed}")
+            vals.append(float(res[key]))
+            secs.append(dt)
+        mean = float(np.mean(vals))
+        se = float(np.sqrt(port_sd ** 2 / len(vals) + ref_sd ** 2 / 10))
+        row_met = abs(mean - row) <= QUALITY_BAND
+        ref_met = abs(mean - ref) <= 2 * se
+        log(f"quality: host-fed {name}: {key} "
+            + ", ".join(f"{v:.4f}" for v in vals)
+            + f" (seeds {list(QUALITY_SEEDS)}, "
+            + ", ".join(f"{x:.1f}s" for x in secs)
+            + f"), mean {mean:.4f}; RESULTS.md row {row} +- {QUALITY_BAND}: "
+            f"{'met' if row_met else 'not met'}; the reference's 10-seed "
+            f"mean {ref} +- 2 standard errors {2 * se:.4f}: "
+            f"{'met' if ref_met else 'not met'}")
+        if not mean >= floor:
+            raise AssertionError(f"host-fed {name}: mean {mean} < {floor}")
+        if not (row_met or ref_met):
+            raise AssertionError(f"host-fed {name}: mean {mean} meets "
+                                 "neither quality gate")
+        out[name] = {"values": vals, "seconds": secs, "mean": mean,
+                     "row": row, "row_met": row_met, "oracle": ref,
+                     "two_se": 2 * se, "oracle_met": ref_met}
+    return out
 
 
 def phase_slice7_quality() -> dict:
@@ -2097,7 +2325,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     record = {"device": phase_device()}
     record["build"], baseline = phase_build(args.baseline_source)
-    store, table, node_types, record["graph"] = phase_graph(dev)
+    store, table, graph, record["graph"] = phase_graph(dev)
     model = DeviceSampledGraphSage(
         NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
         uniform_sampling=table.uniform_rows,
@@ -2123,46 +2351,48 @@ def main(argv=None) -> int:
     shutil.rmtree(bundles, ignore_errors=True)
     os.makedirs(bundles)
     dir_v1, dir_v2 = (os.path.join(bundles, v) for v in ("v1", "v2"))
-    record["train"], est = phase_train(store, table, node_types, dev)
+    record["train"], est = phase_train(store, table, graph, dev)
     record["export_v1"], v1 = phase_export(est, dir_v1, "v1",
                                            "v1 (phase 6's weights)")
-    record["loop"], est = phase_loop(store, table, node_types, dev)
+    record["loop"], est = phase_loop(store, table, graph, dev)
     record["export_v2"], v2 = phase_export(est, dir_v2, "v2",
                                            "v2 (the K = 32 phase's weights)")
     del est
     record["loop"]["graph_vs_eager"] = check_graph_vs_eager(
-        lambda k: flagship_estimator(store, table, node_types, dev,
+        lambda k: flagship_estimator(store, table, graph, dev,
                                      steps_per_loop=k),
-        flagship_estimator(store, table, node_types, dev).train_input_fn())
-    record["loop_extra"] = [phase_loop(store, table, node_types, dev, k)[0]
+        flagship_estimator(store, table, graph, dev).train_input_fn())
+    record["loop_extra"] = [phase_loop(store, table, graph, dev, k)[0]
                             for k in args.extra_loop_k]
     # the unsupervised family on the same graph: negatives over every
     # node's unit weight, as bench.py builds them (bench.py:411-419)
-    neg = DeviceNodeSampler.from_arrays(np.ones(FULL_NODES, np.float32),
-                                        device=dev)
-    record["unsup"] = phase_unsup(store, table, neg, dev)
-    record["walk"] = phase_walk(table, neg, dev)
+    neg = DeviceNodeSampler(graph, node_type=-1, device=dev)
+    record["unsup"] = phase_unsup(store, table, neg, graph, dev)
+    record["walk"] = phase_walk(table, neg, graph, dev)
     record["embedding_backward"] = probe_embedding_backward(table, dev)
     # slice 7: the fused and alias layouts of the same table, the
     # flagship over each, the activation cache, the unsupervised family
     # over the alias layout
     record["layouts"], fused, alias = phase_layouts(table, dev)
     record["fused"] = phase_layout_flagship(
-        store, table, node_types, dev, fused, "fused",
+        store, table, graph, dev, fused, "fused",
         against=("split weighted", lambda k: flagship_estimator(
-            store, table, node_types, dev, uniform=False,
+            store, table, graph, dev, uniform=False,
             steps_per_loop=k)))
-    record["alias"] = phase_layout_flagship(store, table, node_types, dev,
+    record["alias"] = phase_layout_flagship(store, table, graph, dev,
                                             alias, "alias")
-    record["act_cache"] = phase_act_cache(store, table, node_types, dev)
-    record["alias_unsup"] = phase_alias_unsup(store, table, neg, alias, dev)
+    record["act_cache"] = phase_act_cache(store, table, graph, dev)
+    record["alias_unsup"] = phase_alias_unsup(store, table, neg, alias,
+                                              graph, dev)
+    record["hostfed"] = phase_hostfed(store, graph, dev)
     del neg, fused, alias
     record["quality"] = phase_quality()
     record["slice7_quality"] = phase_slice7_quality()
     record["unsup_quality"] = phase_unsup_quality()
+    record["hostfed_quality"] = phase_hostfed_quality()
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     # the training tables go before the bundles' tables go on the card
-    del store, table, node_types, inf, model
+    del store, table, graph, inf, model
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve: {torch.cuda.memory_allocated()} device bytes allocated "
@@ -2218,6 +2448,7 @@ def main(argv=None) -> int:
             record["alias_unsup"]["unsup"]["gather_mean_launches_per_replay"],
         "alias_walk_launches_per_replay":
             record["alias_unsup"]["walk"]["gather_mean_launches_per_replay"],
+        "hostfed_launches": record["hostfed"]["gather_mean_launches"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

@@ -9,8 +9,12 @@ A flax param tree of Dense layers, Embedding tables and other vectors
 proj, depth_fc_{d}, att_{d}/{key,query}, w_{d}_{h} and
 depth_lstm/OptimizedLSTMCell_0/{ii,if,ig,io,hi,hf,hg,ho}),
 DeviceSampledUnsupervisedSage's encoder/agg_{d}/... and ctx_emb/table,
-DeviceSampledSkipGram's emb/table and ctx/table, or
-DeviceSampledScalableSage's encoder/w_{l}, maps to the port's
+DeviceSampledSkipGram's emb/table and ctx/table,
+DeviceSampledScalableSage's encoder/w_{l}, the host-fed
+SupervisedGraphSage's encoder/agg_{d}/... and out/..., the host-fed
+UnsupervisedGraphSage's encoder/agg_{d}/... and ctx_emb/table, or the
+host-fed DeepWalk's and LINE's emb/table and ctx/table (LINE order 1:
+emb/table alone), maps to the port's
 state_dict keys by joining the path with "." and renaming kernel →
 weight. Flax kernels are [in, out]; the port's weights are [out, in],
 so kernels are transposed both ways. Tables [rows, dim] and other

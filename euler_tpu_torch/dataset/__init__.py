@@ -1,17 +1,22 @@
-"""Datasets of the port (synthetic stand-ins, as arrays).
+"""Datasets of the port (synthetic stand-ins in the graph engine).
 
-`get_dataset(name)` builds the named citation stand-in. The shapes and
+`get_dataset(name)` returns the named citation stand-in as an
+engine-backed GraphData (base_dataset.py), as the reference's does
+(euler_tpu/dataset/__init__.py:72-81); `dataset_arrays(name)` gives the
+same stand-in as arrays (synthetic.GraphArrays). The shapes and
 calibrated difficulty knobs are a copy of euler_tpu/dataset/__init__.py
 `_CITATION_SHAPES` (cora, citeseer, pubmed, ppi), fed to the same numpy
 draws (synthetic.synthetic_citation), so the port's "cora" has the
 reference's features, labels, split and edges. The reference first
-looks for prepared files under $EULER_TPU_DATA_DIR; the port has no
-graph engine to load them into yet (ROADMAP.md Queue A, 'Engine
-binding') and always builds the stand-in.
+looks for prepared files under $EULER_TPU_DATA_DIR; the port always
+builds the stand-in.
 """
 
 from __future__ import annotations
 
+from euler_tpu_torch.dataset.base_dataset import (  # noqa: F401
+    FEATURE_FID, LABEL_FID, GraphData, build_engine, engine_from_arrays,
+)
 from euler_tpu_torch.dataset.synthetic import (  # noqa: F401
     TEST_TYPE, TRAIN_TYPE, VAL_TYPE, GraphArrays, synthetic_citation,
 )
@@ -32,7 +37,7 @@ _CITATION_SHAPES = {
 }
 
 
-def get_dataset(name: str, **overrides) -> GraphArrays:
+def dataset_arrays(name: str, **overrides) -> GraphArrays:
     """The named citation stand-in as GraphArrays (node_types gives the
     split); overrides replace its knobs, as in the reference."""
     name = name.lower()
@@ -41,3 +46,9 @@ def get_dataset(name: str, **overrides) -> GraphArrays:
                          f"{sorted(_CITATION_SHAPES)} (the other named "
                          "sets are not ported yet)")
     return synthetic_citation(**{**_CITATION_SHAPES[name], **overrides})
+
+
+def get_dataset(name: str, **overrides) -> GraphData:
+    """The named citation stand-in loaded into the graph engine."""
+    return engine_from_arrays(dataset_arrays(name, **overrides),
+                              name=name.lower())

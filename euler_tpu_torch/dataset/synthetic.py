@@ -4,10 +4,11 @@ numpy half of euler_tpu/dataset/base_dataset.py:54-160).
 The reference feeds these arrays into its native graph engine
 (build_engine), which stores an undirected edge in both directions,
 drops duplicate (src, dst) pairs and keeps each node's neighbors sorted.
-The port has no engine yet: `to_csr` applies the same rules and returns
-the adjacency as CSR, which DeviceNeighborTable.from_csr reads. The
-numpy draws are the reference's, in the same order, so the same seed
-gives the same features, labels and edges.
+`to_csr` applies the same rules and returns the adjacency as CSR, which
+DeviceNeighborTable.from_csr reads and base_dataset.engine_from_arrays
+loads into the port's engine. The numpy draws are the reference's, in
+the same order, so the same seed gives the same features, labels and
+edges.
 """
 
 from __future__ import annotations

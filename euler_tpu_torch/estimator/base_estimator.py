@@ -37,10 +37,17 @@ threads (estimator/prefetch.py). The counters live on the obs registry
 a model_dir traces each train call with torch.profiler into
 model_dir/prof/.
 
+Host batches reach the device as the reference's _to_device_tree
+shapes them (euler_tpu/estimator/base_estimator.py:48-60): a uint64 id
+array becomes int32 rows on the host before the copy, bucketized by
+`% (max_id + 1)` when params["max_id"] > 0 (without it an id >= 2^31
+wraps, as numpy's cast wraps it in the reference); `infer_ids` stay on
+the host, which alone reads them.
+
 Entry points run on CUDA unless the caller asks for the CPU
 (`device="cpu"`). Options the reference has and the port does not yet
-(the partitioned table tier, id bucketization) raise
-NotImplementedError naming their ROADMAP item.
+(the partitioned table tier) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -65,14 +72,12 @@ from euler_tpu_torch.platform import (
 from euler_tpu_torch.utils import optimizers as opt_lib
 
 _ROADMAP_MULTI = "ROADMAP.md Queue A, 'Multi-GPU'"
-_ROADMAP_ENGINE = "ROADMAP.md Queue A, 'Engine binding'"
 
 # reference option → (the values that mean what the port does, its
 # ROADMAP item); any other value raises
 _UNPORTED = {
     "table_partition": ((0, 1), _ROADMAP_MULTI),
     "hub_cache_frac": ((0,), _ROADMAP_MULTI),
-    "max_id": ((0,), _ROADMAP_ENGINE),
 }
 # per-process estimator numbering: the label value distinguishing N
 # estimators' children on the shared estimator_* metrics
@@ -88,20 +93,27 @@ def _refuse_unported(cfg: Dict[str, Any]) -> None:
                 f"{key}={cfg[key]!r} is not ported yet: {item}")
 
 
-def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """Tensors and numpy arrays onto the device; uint64 id arrays
-    (host-only, e.g. infer_ids) and scalars stay as they are."""
+def _to_device(batch: Dict[str, Any], device: torch.device,
+               max_id: int = 0) -> Dict[str, Any]:
+    """Tensors and numpy arrays onto the device, a uint64 id array as
+    int32 rows (`% (max_id + 1)` first when max_id > 0); infer_ids and
+    scalars stay as they are."""
 
     def conv(v):
         if isinstance(v, torch.Tensor):
             return v.to(device, non_blocking=True)
-        if isinstance(v, np.ndarray) and v.dtype != np.uint64:
+        if isinstance(v, np.ndarray):
+            if v.dtype == np.uint64:
+                if max_id > 0:
+                    v = v % np.uint64(max_id + 1)
+                v = v.astype(np.int32)
             return host_to_device(v, device)
         if isinstance(v, list):
             return [conv(x) for x in v]
         return v
 
-    return {k: conv(v) for k, v in batch.items()}
+    return {k: v if k == "infer_ids" else conv(v)
+            for k, v in batch.items()}
 
 
 def _nanmean(t: torch.Tensor) -> torch.Tensor:
@@ -123,7 +135,8 @@ class BaseEstimator:
     step)), log_steps (20), checkpoint_steps (1000; 0 = none),
     nonfinite_guard (True), steps_per_loop (1), input_retries (3),
     input_backoff_s (0.1), skip_batch_budget (0), feeder_workers (0),
-    feeder_depth (0 = twice the workers), profiling (False).
+    feeder_depth (0 = twice the workers), profiling (False), max_id (0:
+    uint64 ids become int32 rows as they are; > 0: modulo max_id + 1).
     Checkpoints go to model_dir/checkpoints. The model's parameters are
     initialised by its constructor (from its generator), where the
     reference inits them from key(seed)."""
@@ -141,6 +154,7 @@ class BaseEstimator:
             float(cfg.get("learning_rate", 0.01)),
             weight_decay=float(cfg.get("weight_decay", 0.0)))
         self.seed = int(cfg.get("seed", 0))
+        self.max_id = int(cfg.get("max_id", 0))
         self.log_steps = int(cfg.get("log_steps", 20))
         self.ckpt_steps = int(cfg.get("checkpoint_steps", 1000))
         self.nonfinite_guard = bool(cfg.get("nonfinite_guard", True))
@@ -357,15 +371,19 @@ class BaseEstimator:
         }
 
     def health(self) -> Dict[str, Any]:
-        """input_health plus the nonfinite guard's skip count. That count
-        comes from the obs gauge, which the train thread refreshes at
-        every log and when train() returns: health() may run on another
-        thread (/healthz) and must not wait for the card. (The
-        reference also merges its graph client's and partitioned
-        store's health; the port has neither yet: ROADMAP.md Queue A,
-        'Engine binding' and 'Multi-GPU'.)"""
+        """input_health plus the nonfinite guard's skip count, merged with
+        the graph client's health() when the estimator's graph has one
+        (euler_tpu/estimator/base_estimator.py:443-445). The count comes
+        from the obs gauge, which the train thread refreshes at every log
+        and when train() returns: health() may run on another thread
+        (/healthz) and must not wait for the card. (The reference also
+        merges its partitioned store's stats: ROADMAP.md Queue A,
+        'Multi-GPU'.)"""
         out = dict(self.input_health)
         out["skipped_steps"] = int(self._g_skipped_steps.value)
+        graph_health = getattr(getattr(self, "graph", None), "health", None)
+        if callable(graph_health):
+            out["graph"] = graph_health()
         return out
 
     def _phase(self, name: str, hist):
@@ -412,7 +430,7 @@ class BaseEstimator:
             src = input_fn() if callable(input_fn) else input_fn
         f = ParallelPrefetcher(
             src, workers=self.feeder_workers, depth=self.feeder_depth,
-            transform=lambda b: _to_device(b, self.device),
+            transform=lambda b: _to_device(b, self.device, self.max_id),
             name=f"{self._obs_name}_train")
         self._live_feeder = f
         return f
@@ -485,7 +503,7 @@ class BaseEstimator:
         """The next batch on the device, timed as input_wait."""
         with self._phase("input_wait", self._hist_input_wait):
             raw, it = self._next_input(it)
-            return _to_device(raw, self.device), it
+            return _to_device(raw, self.device, self.max_id), it
 
     # -- entry points ------------------------------------------------------
     def train(self, input_fn: Callable[[], Iterator[Dict]],
@@ -614,7 +632,8 @@ class BaseEstimator:
                     while len(buf) < want and not exhausted:
                         try:
                             raw, it = self._next_input(it)
-                            buf.append(_to_device(raw, self.device))
+                            buf.append(_to_device(raw, self.device,
+                                                  self.max_id))
                         except StopIteration:
                             exhausted = True
             if not buf:
@@ -692,7 +711,8 @@ class BaseEstimator:
         with eval_mode(self.model), torch.inference_mode():
             for _ in range(steps):
                 try:
-                    batch = _to_device(next(it), self.device)
+                    batch = _to_device(next(it), self.device,
+                                       self.max_id)
                 except StopIteration:
                     break
                 out = self.model({**batch, **self.static_batch})
@@ -712,7 +732,8 @@ class BaseEstimator:
         """One forward in eval mode (no dropout, no autograd) of a batch
         moved to the device and merged with the tables."""
         with eval_mode(self.model), torch.inference_mode():
-            return self.model({**_to_device(batch, self.device),
+            return self.model({**_to_device(batch, self.device,
+                                            self.max_id),
                                **self.static_batch})
 
     def infer(self, input_fn, steps: int = 100,

@@ -148,12 +148,12 @@ class GraphedLoop:
 
     def _seed(self, est, batches) -> None:
         step0 = est.step
-        # the model's stream word, as its eager step seeds its stream
-        word = type(est.model).stream_word
         for k, b in enumerate(batches):
             if "sample_seed" in b:
-                self._sample_gens[k].manual_seed(
-                    sample_stream_seed(b["sample_seed"], word))
+                # the model's stream word, as its eager step seeds its
+                # stream (host-fed models sample nothing and have none)
+                self._sample_gens[k].manual_seed(sample_stream_seed(
+                    b["sample_seed"], type(est.model).stream_word))
             if est.uses_dropout:
                 self._dropout_gens[k].manual_seed(
                     est.dropout_seed(step0 + k))

@@ -12,9 +12,9 @@ sorted by id, each id's first embedding kept — dedup by first occurrence
 drops exactly the pad rows.
 
 `run` and `embed_all` put the model in eval mode (no dropout) for their
-forwards and give it back in the mode it was in; the training
-estimator (estimators.NodeEstimator) builds its eval sweeps from this
-class.
+forwards and give it back in the mode it was in. The training
+estimator (estimators.NodeEstimator) sweeps a split the same way
+through its own input paths.
 """
 
 from __future__ import annotations

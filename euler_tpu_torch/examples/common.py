@@ -1,7 +1,7 @@
 """The runners' shared protocols: the citation protocol (counterpart of
-examples/common.py:84-113) and the unsupervised runners' input and
+examples/common.py:84-113), the unsupervised runners' input and
 train-then-evaluate (examples/{graphsage,deepwalk,line}/run_*.py, their
-`--device_sampler` branches)."""
+`--device_sampler` branches), and the engine graph every runner reads."""
 
 from __future__ import annotations
 
@@ -9,6 +9,21 @@ import itertools
 from typing import Any, Dict, Iterator
 
 import numpy as np
+
+from euler_tpu_torch.dataset import get_dataset
+from euler_tpu_torch.graph import seed as seed_engine
+
+
+def load_graph(name: str, seed: int):
+    """get_dataset(name) with the engine's sampler seeded (on this
+    thread) to `seed`, as the runners' --seed moves the engine's draws;
+    prints the dataset line."""
+    data = get_dataset(name)
+    seed_engine(seed)
+    g = data.engine
+    print(f"dataset {name}: {g.node_count} nodes, {g.edge_count} directed "
+          f"edges [{data.source}]", flush=True)
+    return data
 
 
 def fit_citation(est, max_steps: int) -> Dict[str, Any]:
@@ -27,22 +42,21 @@ def fit_citation(est, max_steps: int) -> Dict[str, Any]:
     return res
 
 
-def root_input_fn(num_nodes: int, batch_size: int, seed: int):
+def root_input_fn(graph, batch_size: int, missing: int):
     """The unsupervised runners' input (counterpart of their
-    `--device_sampler` input_fn): each batch holds `batch_size` root
-    rows drawn uniformly, with replacement, over all nodes, and a
-    sample_seed counting up from 1. The reference draws the roots with
-    its graph engine's sample_node over unit-weight nodes; the port has
-    no engine and draws them from a numpy Generator seeded with (seed,
-    0). The generator and the counter go on across calls, as the
-    reference's do, so evaluate's batches follow train's."""
-    rng = np.random.default_rng([seed, 0])
+    `--device_sampler` input_fn): each batch holds `batch_size` roots
+    drawn by the engine's sample_node over all nodes, as engine rows
+    (an id the engine lacks → `missing`, the pad row), and a sample_seed
+    counting up from 1. The counter goes on across calls, as the
+    reference's does, so evaluate's batches follow train's."""
     counter = itertools.count(1)
 
     def input_fn() -> Iterator[Dict[str, Any]]:
         while True:
-            roots = rng.integers(0, num_nodes, batch_size).astype(np.int32)
-            yield {"rows": [roots], "sample_seed": np.uint32(next(counter))}
+            roots = graph.node_rows(graph.sample_node(batch_size, -1),
+                                    missing=missing)
+            yield {"rows": [roots], "infer_ids": roots,
+                   "sample_seed": np.uint32(next(counter))}
 
     return input_fn
 

@@ -1,17 +1,21 @@
-"""DeepWalk / node2vec with walks, pairs and negatives drawn on the
-device (counterpart of examples/deepwalk/run_deepwalk.py:19-93, its
---device_sampler branch, with the same defaults).
+"""DeepWalk / node2vec (counterpart of examples/deepwalk/run_deepwalk.py:
+19-113, with the same defaults).
 
-    python -m euler_tpu_torch.examples.run_deepwalk --device_sampler \\
+    python -m euler_tpu_torch.examples.run_deepwalk [--device_sampler] \\
         [--dataset cora] [--p 1 --q 1] [--steps_per_loop K] [--seed 0] \\
         [--device cpu]
 
-Trains DeviceSampledSkipGram with a plain BaseEstimator on roots drawn
-over all nodes: train(max_steps), then evaluate(eval_steps); prints the
-train_*/eval_* dict (eval_metric is the MRR). max_steps 0 means about
-10 root walks per node, max(500, 10·N / batch_size). --seed seeds the
-tables' init and the root draws. The host-fed DeepWalk model (walks
-from the graph engine) waits for the engine binding.
+The graph is get_dataset(dataset).engine. Without --device_sampler the
+input is host-fed: roots from the engine's sample_node, node2vec walks
+from its random_walk (walk_ops), skip-gram pairs from gen_pair and
+num_negs negatives per pair from sample_node feed DeepWalk. With
+--device_sampler, DeviceSampledSkipGram draws walks, pairs and
+negatives on the device from tables built from the engine, on roots the
+engine draws. A plain BaseEstimator trains, train(max_steps), then
+evaluate(eval_steps); prints the train_*/eval_* dict (eval_metric is
+the MRR). max_steps 0 means about 10 root walks per node, max(500,
+10·N / batch_size). --seed seeds the engine's draws and the tables'
+init.
 """
 
 from __future__ import annotations
@@ -19,20 +23,19 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
-from euler_tpu_torch.dataset import get_dataset
 from euler_tpu_torch.estimator.base_estimator import BaseEstimator
-from euler_tpu_torch.examples.common import root_input_fn, train_then_evaluate
-from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
+from euler_tpu_torch.examples.common import (
+    load_graph, root_input_fn, train_then_evaluate,
+)
+from euler_tpu_torch.models.embedding_models import (
+    DeepWalk, DeviceSampledSkipGram,
+)
+from euler_tpu_torch.ops.walk_ops import gen_pair, random_walk
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
 from euler_tpu_torch.parallel.device_walk import DeviceNodeSampler
 from euler_tpu_torch.platform import resolve_device
-
-_ROADMAP_HOST_FED = ("the host-fed DeepWalk model (walks and pairs from the "
-                     "graph engine) is not ported yet: ROADMAP.md Queue A, "
-                     "'Engine binding'; pass --device_sampler")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="0 = auto: about 10 root walks per node")
     ap.add_argument("--eval_steps", type=int, default=20)
     ap.add_argument("--device_sampler", action="store_true",
-                    help="walks, pairs and negatives on the device (the "
-                         "only path ported)")
+                    help="walks, pairs and negatives drawn on the device "
+                         "from tables built from the engine")
     ap.add_argument("--sampler_cap", type=int, default=32)
     ap.add_argument("--steps_per_loop", type=int, default=1,
                     help="> 1 runs K steps as one CUDA graph replay")
@@ -63,41 +66,53 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def walk_tables(data, cap: int, dev):
-    """The neighbor table and the unit-weight node sampler over all
-    nodes (the reference's DeviceNeighborTable(g, cap) and
-    DeviceNodeSampler(g, node_type=-1) on the stand-in's unit weights)."""
-    tab = DeviceNeighborTable.from_csr(data.offsets, data.neighbors,
-                                       cap=cap, device=dev)
-    neg = DeviceNodeSampler.from_arrays(np.ones(data.num_nodes, np.float32),
-                                        device=dev)
-    return tab, neg
+def walk_tables(g, cap: int, dev):
+    """The neighbor table and the node sampler over all nodes
+    (DeviceNeighborTable(g, cap), DeviceNodeSampler(g, node_type=-1))."""
+    return (DeviceNeighborTable(g, cap=cap, device=dev),
+            DeviceNodeSampler(g, node_type=-1, device=dev))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
-    if not args.device_sampler:
-        raise NotImplementedError(_ROADMAP_HOST_FED)
     dev = resolve_device(args.device)
-    data = get_dataset(args.dataset)
+    data = load_graph(args.dataset, args.seed)
+    g = data.engine
     if not args.max_steps:
-        args.max_steps = max(500, int(10 * data.num_nodes / args.batch_size))
-    print(f"dataset {args.dataset}: {data.num_nodes} nodes [synthetic]",
-          flush=True)
-    tab, neg = walk_tables(data, args.sampler_cap, dev)
-    model = DeviceSampledSkipGram(
-        tab.pad_row, dim=args.dim, walk_len=args.walk_len,
-        left_win=args.left_win, right_win=args.right_win,
-        num_negs=args.num_negs, p=args.p, q=args.q,
-        generator=torch.Generator().manual_seed(args.seed))
-    est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
-                                    steps_per_loop=args.steps_per_loop,
-                                    seed=args.seed),
-                        model_dir=args.model_dir or None, device=dev)
-    est.static_batch.update({**tab.tables, **neg.tables})
-    res = train_then_evaluate(
-        est, root_input_fn(data.num_nodes, args.batch_size, args.seed),
-        args.max_steps, args.eval_steps)
+        args.max_steps = max(500, int(10 * g.node_count / args.batch_size))
+    init = torch.Generator().manual_seed(args.seed)
+    if args.device_sampler:
+        tab, neg = walk_tables(g, args.sampler_cap, dev)
+        model = DeviceSampledSkipGram(
+            tab.pad_row, dim=args.dim, walk_len=args.walk_len,
+            left_win=args.left_win, right_win=args.right_win,
+            num_negs=args.num_negs, p=args.p, q=args.q, generator=init)
+        est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
+                                        steps_per_loop=args.steps_per_loop,
+                                        seed=args.seed),
+                            model_dir=args.model_dir or None, device=dev)
+        est.static_batch.update({**tab.tables, **neg.tables})
+        input_fn = root_input_fn(g, args.batch_size, tab.pad_row)
+    else:
+        model = DeepWalk(data.max_id, dim=args.dim, generator=init)
+        est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
+                                        max_id=data.max_id, seed=args.seed),
+                            model_dir=args.model_dir or None, device=dev)
+
+        def input_fn():
+            while True:
+                roots = g.sample_node(args.batch_size, -1)
+                walks = random_walk(g, roots, args.walk_len, p=args.p,
+                                    q=args.q)
+                flat = gen_pair(walks, args.left_win,
+                                args.right_win).reshape(-1, 2)
+                negs = g.sample_node(
+                    flat.shape[0] * args.num_negs, -1).reshape(
+                        flat.shape[0], args.num_negs)
+                yield {"src": flat[:, 0], "pos": flat[:, 1], "negs": negs,
+                       "infer_ids": flat[:, 0]}
+    res = train_then_evaluate(est, input_fn, args.max_steps,
+                              args.eval_steps)
     print(res, flush=True)
     return res
 

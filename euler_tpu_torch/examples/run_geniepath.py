@@ -8,10 +8,11 @@ with the same defaults).
 Trains DeviceSampledGraphSage(encoder='genie') through NodeEstimator and
 prints the result dict of fit_citation (test_metric is the test split's
 micro-F1 at the best-val weights). --learning_rate 0 (the default)
-means 0.01 on cora and 0.003 elsewhere, as in the reference. --seed
-seeds the model's init, the root draws and dropout. Without
---device_sampler the runner raises: the host-fed GeniePath model needs
-the graph engine (ROADMAP.md Queue A, 'Engine binding').
+means 0.01 on cora and 0.003 elsewhere, as in the reference. The tables
+come from get_dataset(dataset).engine. --seed seeds the engine's root
+draws, the model's init and dropout. Without --device_sampler the
+runner raises: the host-fed GeniePath model is not ported yet
+(ROADMAP.md Queue A, 'Engine binding').
 """
 
 from __future__ import annotations
@@ -19,12 +20,10 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
-from euler_tpu_torch.dataset import get_dataset
 from euler_tpu_torch.estimator.estimators import NodeEstimator
-from euler_tpu_torch.examples.common import fit_citation
+from euler_tpu_torch.examples.common import fit_citation, load_graph
 from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
@@ -58,23 +57,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
     if not args.device_sampler:
         raise NotImplementedError(
-            "the host-fed GeniePath model needs the graph engine, not "
-            "ported yet: ROADMAP.md Queue A, 'Engine binding'; pass "
-            "--device_sampler")
+            "the host-fed GeniePath model is not ported yet: ROADMAP.md "
+            "Queue A, 'Engine binding'; pass --device_sampler")
     if not args.learning_rate:
         args.learning_rate = 0.01 if args.dataset == "cora" else 0.003
     dev = resolve_device(args.device)
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
-    data = get_dataset(args.dataset)
-    print(f"dataset {args.dataset}: {data.num_nodes} nodes, "
-          f"{data.neighbors.size} directed edges [synthetic]", flush=True)
-    d = data.features.shape[1]
-    feats = np.concatenate([data.features, np.zeros((1, d), np.float32)])
-    labels = np.concatenate([data.onehot_labels(),
-                             np.zeros((1, data.num_classes), np.float32)])
-    store = DeviceFeatureStore.from_arrays(feats, labels, device=dev)
-    sampler = DeviceNeighborTable.from_csr(data.offsets, data.neighbors,
-                                           cap=args.sampler_cap, device=dev)
+    data = load_graph(args.dataset, args.seed)
+    g = data.engine
+    d = data.feature_dim
+    store = DeviceFeatureStore(g, ["feature"], label_fid="label",
+                               label_dim=data.num_classes, device=dev)
+    sampler = DeviceNeighborTable(g, cap=args.sampler_cap, device=dev)
     model = DeviceSampledGraphSage(
         data.num_classes, d, multilabel=False, dim=args.hidden_dim,
         fanouts=fanouts, encoder="genie", dropout=args.dropout,
@@ -83,8 +77,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         model, dict(batch_size=args.batch_size,
                     learning_rate=args.learning_rate,
                     weight_decay=args.weight_decay, seed=args.seed),
-        data.node_types, store, sampler, model_dir=args.model_dir or None,
-        device=dev)
+        g, None, label_fid="label", label_dim=data.num_classes,
+        model_dir=args.model_dir or None, feature_store=store,
+        device_sampler=sampler, device=dev)
     res = fit_citation(est, args.max_steps)
     res.pop("train_losses", None)
     print(res, flush=True)

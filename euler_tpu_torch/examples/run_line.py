@@ -1,19 +1,22 @@
-"""LINE with positives and negatives drawn on the device (counterpart of
-examples/line/run_line.py:15-86, its --device_sampler branch, with the
-same defaults and auto rules).
+"""LINE, first- and second-order proximity (counterpart of
+examples/line/run_line.py:15-103, with the same defaults and auto
+rules).
 
-    python -m euler_tpu_torch.examples.run_line --device_sampler \\
+    python -m euler_tpu_torch.examples.run_line [--device_sampler] \\
         [--dataset cora] [--order 2] [--seed 0] [--device cpu]
 
-LINE as a walk_len-1 skip-gram (DeviceSampledSkipGram, window (0, 1)):
-each root's one weighted neighbor is its positive; order 1 shares the
-context table. A plain BaseEstimator trains on roots drawn over all
-nodes, train(max_steps) then evaluate(eval_steps); prints the
-train_*/eval_* dict (eval_metric is the MRR). Auto values (0): dim 256
-on pubmed else 128, lr 0.05 on pubmed else 0.025, max_steps 8000 on
-pubmed else max(500, 8·E / batch_size) with E the directed edges. The
-host-fed LINE model (edges sampled by the graph engine) waits for the
-engine binding.
+The graph is get_dataset(dataset).engine. Without --device_sampler the
+input is host-fed: positive edges from the engine's sample_edge and
+num_negs negatives per edge from its sample_node feed LINE. With
+--device_sampler, LINE is a walk_len-1 skip-gram (DeviceSampledSkipGram,
+window (0, 1)) on tables built from the engine: each root's one
+weighted neighbor is its positive; order 1 shares the context table. A
+plain BaseEstimator trains, train(max_steps), then evaluate(eval_steps);
+prints the train_*/eval_* dict (eval_metric is the MRR). Auto values
+(0): dim 256 on pubmed else 128, lr 0.05 on pubmed else 0.025,
+max_steps 8000 on pubmed else max(500, 8·E / batch_size) with E the
+engine's directed edges. --seed seeds the engine's draws and the
+tables' init.
 """
 
 from __future__ import annotations
@@ -23,11 +26,14 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from euler_tpu_torch.dataset import get_dataset
 from euler_tpu_torch.estimator.base_estimator import BaseEstimator
-from euler_tpu_torch.examples.common import root_input_fn, train_then_evaluate
+from euler_tpu_torch.examples.common import (
+    load_graph, root_input_fn, train_then_evaluate,
+)
 from euler_tpu_torch.examples.run_deepwalk import walk_tables
-from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
+from euler_tpu_torch.models.embedding_models import (
+    LINE, DeviceSampledSkipGram,
+)
 from euler_tpu_torch.platform import resolve_device
 
 
@@ -46,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval_steps", type=int, default=20)
     ap.add_argument("--device_sampler", action="store_true",
                     help="positives and negatives drawn on the device "
-                         "(the only path ported)")
+                         "from tables built from the engine")
     ap.add_argument("--sampler_cap", type=int, default=32)
     ap.add_argument("--model_dir", default="")
     ap.add_argument("--seed", type=int, default=0)
@@ -57,31 +63,44 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
-    if not args.device_sampler:
-        raise NotImplementedError(
-            "the host-fed LINE model (edges sampled by the graph engine) "
-            "is not ported yet: ROADMAP.md Queue A, 'Engine binding'; "
-            "pass --device_sampler")
     dev = resolve_device(args.device)
-    data = get_dataset(args.dataset)
+    data = load_graph(args.dataset, args.seed)
+    g = data.engine
     is_pubmed = args.dataset == "pubmed"
     args.dim = args.dim or (256 if is_pubmed else 128)
     args.learning_rate = args.learning_rate or (0.05 if is_pubmed else 0.025)
     if not args.max_steps:
         args.max_steps = 8000 if is_pubmed else max(
-            500, int(8 * data.neighbors.size / args.batch_size))
-    tab, neg = walk_tables(data, args.sampler_cap, dev)
-    model = DeviceSampledSkipGram(
-        tab.pad_row, dim=args.dim, walk_len=1, left_win=0, right_win=1,
-        num_negs=args.num_negs, share_context=args.order == 1,
-        generator=torch.Generator().manual_seed(args.seed))
-    est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
-                                    seed=args.seed),
-                        model_dir=args.model_dir or None, device=dev)
-    est.static_batch.update({**tab.tables, **neg.tables})
-    res = train_then_evaluate(
-        est, root_input_fn(data.num_nodes, args.batch_size, args.seed),
-        args.max_steps, args.eval_steps)
+            500, int(8 * g.edge_count / args.batch_size))
+    init = torch.Generator().manual_seed(args.seed)
+    if args.device_sampler:
+        tab, neg = walk_tables(g, args.sampler_cap, dev)
+        model = DeviceSampledSkipGram(
+            tab.pad_row, dim=args.dim, walk_len=1, left_win=0, right_win=1,
+            num_negs=args.num_negs, share_context=args.order == 1,
+            generator=init)
+        est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
+                                        seed=args.seed),
+                            model_dir=args.model_dir or None, device=dev)
+        est.static_batch.update({**tab.tables, **neg.tables})
+        input_fn = root_input_fn(g, args.batch_size, tab.pad_row)
+    else:
+        model = LINE(data.max_id, dim=args.dim, order=args.order,
+                     generator=init)
+        est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
+                                        max_id=data.max_id, seed=args.seed),
+                            model_dir=args.model_dir or None, device=dev)
+
+        def input_fn():
+            while True:
+                src, dst, _ = g.sample_edge(args.batch_size, -1)
+                negs = g.sample_node(
+                    args.batch_size * args.num_negs, -1).reshape(
+                        args.batch_size, args.num_negs)
+                yield {"src": src, "pos": dst, "negs": negs,
+                       "infer_ids": src}
+    res = train_then_evaluate(est, input_fn, args.max_steps,
+                              args.eval_steps)
     print(res, flush=True)
     return res
 

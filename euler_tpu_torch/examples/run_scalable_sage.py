@@ -10,9 +10,10 @@ branch, with the same defaults).
 Trains DeviceSampledScalableSage through NodeEstimator, the cache
 refreshed over all nodes before each evaluation unless
 --no-cache_refresh (models.graphsage.refresh_act_cache), and prints the
-result dict of fit_citation. --seed seeds the model's init, the root
-draws and dropout. Without --device_sampler the runner raises: the
-host-fed ScalableGraphSage needs the graph engine (ROADMAP.md Queue A,
+result dict of fit_citation. The tables come from
+get_dataset(dataset).engine. --seed seeds the engine's root draws, the
+model's init and dropout. Without --device_sampler the runner raises:
+the host-fed ScalableGraphSage is not ported yet (ROADMAP.md Queue A,
 'Engine binding').
 """
 
@@ -21,12 +22,10 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
-from euler_tpu_torch.dataset import get_dataset
 from euler_tpu_torch.estimator.estimators import NodeEstimator
-from euler_tpu_torch.examples.common import fit_citation
+from euler_tpu_torch.examples.common import fit_citation, load_graph
 from euler_tpu_torch.models.graphsage import (
     DeviceSampledScalableSage, refresh_act_cache,
 )
@@ -68,20 +67,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
     if not args.device_sampler:
         raise NotImplementedError(
-            "the host-fed ScalableGraphSage needs the graph engine, not "
-            "ported yet: ROADMAP.md Queue A, 'Engine binding'; pass "
-            "--device_sampler")
+            "the host-fed ScalableGraphSage is not ported yet: ROADMAP.md "
+            "Queue A, 'Engine binding'; pass --device_sampler")
     dev = resolve_device(args.device)
-    data = get_dataset(args.dataset)
-    print(f"dataset {args.dataset}: {data.num_nodes} nodes, "
-          f"{data.neighbors.size} directed edges [synthetic]", flush=True)
-    d = data.features.shape[1]
-    feats = np.concatenate([data.features, np.zeros((1, d), np.float32)])
-    labels = np.concatenate([data.onehot_labels(),
-                             np.zeros((1, data.num_classes), np.float32)])
-    store = DeviceFeatureStore.from_arrays(feats, labels, device=dev)
-    sampler = DeviceNeighborTable.from_csr(data.offsets, data.neighbors,
-                                           cap=args.sampler_cap, device=dev)
+    data = load_graph(args.dataset, args.seed)
+    g = data.engine
+    d = data.feature_dim
+    store = DeviceFeatureStore(g, ["feature"], label_fid="label",
+                               label_dim=data.num_classes, device=dev)
+    sampler = DeviceNeighborTable(g, cap=args.sampler_cap, device=dev)
     model = DeviceSampledScalableSage(
         data.num_classes, d, multilabel=False, dim=args.hidden_dim,
         fanout=args.fanout, num_layers=args.num_layers,
@@ -91,8 +85,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     est = NodeEstimator(
         model, dict(batch_size=args.batch_size,
                     learning_rate=args.learning_rate, seed=args.seed),
-        data.node_types, store, sampler, model_dir=args.model_dir or None,
-        device=dev)
+        g, None, label_fid="label", label_dim=data.num_classes,
+        model_dir=args.model_dir or None, feature_store=store,
+        device_sampler=sampler, device=dev)
     if args.cache_refresh:
         est.pre_eval_hook = refresh_act_cache
     res = fit_citation(est, args.max_steps)

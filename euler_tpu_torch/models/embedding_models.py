@@ -1,10 +1,9 @@
-"""Skip-gram embeddings with the whole input path on the device
-(counterpart of euler_tpu/models/embedding_models.py:53-137,
-DeviceSampledSkipGram): DeepWalk, node2vec and LINE.
-
-The host-fed models of the same file (DeepWalk, LINE, fed by the graph
-engine's walks and edge samples) wait for the engine binding
-(ROADMAP.md Queue A, 'Engine binding').
+"""Skip-gram embeddings (counterpart of
+euler_tpu/models/embedding_models.py:24-165): the host-fed `DeepWalk`
+(`Node2Vec` is the same model) and `LINE`, fed by the graph engine's
+walks, pairs and edge samples (src [B], pos [B], negs [B, N] as int32
+rows), and `DeviceSampledSkipGram`, DeepWalk, node2vec and LINE with the
+whole input path on the device.
 """
 
 from __future__ import annotations
@@ -16,10 +15,77 @@ from torch import nn
 
 from euler_tpu_torch.models.graphsage import batch_stream
 from euler_tpu_torch.mp_utils.base import ModelOutput, ranking_loss
+from euler_tpu_torch.utils import metrics as M
+from euler_tpu_torch.utils.losses import sigmoid_binary_cross_entropy
 from euler_tpu_torch.parallel.device_walk import (
     gen_pair_rows, sample_global_rows, walk_rows,
 )
 from euler_tpu_torch.utils.layers import Embedding
+
+
+def _skipgram(emb: Embedding, ctx: Embedding, batch: Dict[str, Any]
+              ) -> ModelOutput:
+    """src from emb, pos and negs from ctx: the sigmoid BCE of the
+    positive's logit against 1 plus that of the negatives' against 0,
+    each a mean, and the MRR of the positive among them."""
+    src = emb(batch["src"])                          # [B, D]
+    pos = ctx(batch["pos"])                          # [B, D]
+    negs = ctx(batch["negs"])                        # [B, N, D]
+    pos_logit = (src * pos).sum(-1, keepdim=True)
+    neg_logit = torch.einsum("bd,bnd->bn", src, negs)
+    loss = (sigmoid_binary_cross_entropy(
+                pos_logit, torch.ones_like(pos_logit)).mean()
+            + sigmoid_binary_cross_entropy(
+                neg_logit, torch.zeros_like(neg_logit)).mean())
+    scores = torch.cat([pos_logit, neg_logit], dim=1)
+    return ModelOutput(src, loss, "mrr", M.mrr(scores))
+
+
+class DeepWalk(nn.Module):
+    """Skip-gram with negative sampling over the engine's walk pairs:
+    emb and ctx tables [max_id + 1, dim]."""
+
+    def __init__(self, max_id: int, dim: int = 128,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_id, self.dim = int(max_id), int(dim)
+        self.emb = Embedding(self.max_id + 1, self.dim, generator=generator)
+        self.ctx = Embedding(self.max_id + 1, self.dim, generator=generator)
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass
+        fields."""
+        return {"model_class": "DeepWalk", "max_id": self.max_id,
+                "dim": self.dim}
+
+    def forward(self, batch: Dict[str, Any]) -> ModelOutput:
+        return _skipgram(self.emb, self.ctx, batch)
+
+
+Node2Vec = DeepWalk  # same model; the walk's p/q bias differs (walk_ops)
+
+
+class LINE(nn.Module):
+    """LINE over sampled edges: order 2 scores against a context table
+    ctx, order 1 against emb itself."""
+
+    def __init__(self, max_id: int, dim: int = 128, order: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_id, self.dim, self.order = int(max_id), int(dim), int(order)
+        self.emb = Embedding(self.max_id + 1, self.dim, generator=generator)
+        self.ctx = None if self.order == 1 else Embedding(
+            self.max_id + 1, self.dim, generator=generator)
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass
+        fields."""
+        return {"model_class": "LINE", "max_id": self.max_id,
+                "dim": self.dim, "order": self.order}
+
+    def forward(self, batch: Dict[str, Any]) -> ModelOutput:
+        return _skipgram(self.emb,
+                         self.emb if self.ctx is None else self.ctx, batch)
 
 
 class DeviceSampledSkipGram(nn.Module):

@@ -1,15 +1,22 @@
-"""GraphSAGE on device-resident tables (counterpart of
-euler_tpu/models/graphsage.py:21-47, 87-352, 404-488):
-`gather_feature_rows`, `_GatherEncode`, `DeviceSampledGraphSage`,
-`DeviceSampledScalableSage` with `refresh_act_cache`, and
-`DeviceSampledUnsupervisedSage`.
+"""GraphSAGE models (counterpart of euler_tpu/models/graphsage.py:21-85,
+87-352, 404-488): `gather_feature_rows`, `_fanout_layers`,
+`SupervisedGraphSage` and `UnsupervisedGraphSage` (host-fed),
+`_GatherEncode`, `DeviceSampledGraphSage`, `DeviceSampledScalableSage`
+with `refresh_act_cache`, and `DeviceSampledUnsupervisedSage`.
 
-The batch carries root rows and a sample seed; neighbor sampling, the
-feature gather and the label lookup read the device tables. The
-neighbor tables come in the reference's three layouts (split, fused,
-and split with an alias table; parallel/device_sampler.py) and the
-models pick the draw as the reference does: a fused table selects the
-fused draw, an alias table wins over uniform_sampling.
+The host-fed models read each hop's features from the batch: "layers"
+shipped from the host (the engine's features), or "rows" gathered from
+the device feature table (a DeviceFeatureStore; an int8 table is
+dequantized after the gather). Their SageEncoder takes a plain mean over
+every hop's rows, as the reference's does: no kernel.
+
+The device-sampled models' batch carries root rows and a sample seed;
+neighbor sampling, the feature gather and the label lookup read the
+device tables. The neighbor tables come in the reference's three
+layouts (split, fused, and split with an alias table;
+parallel/device_sampler.py) and the models pick the draw as the
+reference does: a fused table selects the fused draw, an alias table
+wins over uniform_sampling.
 
 Wherever the reference reduces the deepest hop with a plain mean over
 gathered rows, that hop goes through ops.gather_mean (one kernel launch
@@ -36,7 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from euler_tpu_torch.mp_utils.base import (
-    ModelOutput, SuperviseModel, ranking_loss,
+    ModelOutput, SuperviseModel, UnsuperviseModel, ranking_loss,
 )
 from euler_tpu_torch.ops.gather_mean import gather_mean, take_rows
 from euler_tpu_torch.parallel.device_sampler import (
@@ -63,6 +70,70 @@ def gather_feature_rows(batch: Dict[str, Any],
     if scale is None:
         return out
     return [dequantize_rows(x, scale) for x in out]
+
+
+def _fanout_layers(batch: Dict[str, Any]) -> List[torch.Tensor]:
+    """Per-hop feature tensors from either host batch geometry:
+    "layers" (features shipped from the host) or "rows" gathered from
+    the device feature table."""
+    layers = batch.get("layers")
+    if layers is not None:
+        return layers
+    return gather_feature_rows(batch, batch["rows"])
+
+
+class SupervisedGraphSage(SuperviseModel):
+    """Fanout batch {"layers": [x0..xL]} (or "rows" + the device feature
+    table) → SageEncoder ("encoder") → logits, the reference's host-fed
+    model (bench.py --host_sampler's). in_dim is the feature width
+    (flax infers it at init)."""
+
+    def __init__(self, num_classes: int, in_dim: int,
+                 multilabel: bool = True, dim: int = 32,
+                 fanouts: Sequence[int] = (10, 10),
+                 aggregator: str = "mean", dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        enc = SageEncoder(in_dim, dim, fanouts, aggregator,
+                          generator=generator)
+        super().__init__(num_classes, multilabel, enc.out_dim,
+                         dropout=dropout, generator=generator)
+        self.encoder = enc
+        self._spec = {"num_classes": self.num_classes,
+                      "multilabel": self.multilabel, "dropout": self.dropout,
+                      "table_mesh": None, "dim": int(dim),
+                      "aggregator": aggregator}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass
+        fields."""
+        return {"model_class": "SupervisedGraphSage", **self._spec}
+
+    def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return self.encoder(_fanout_layers(batch))
+
+
+class UnsupervisedGraphSage(UnsuperviseModel):
+    """Fanout batch + pos/negs ids → the sage embedding (concat=False)
+    against the context table ctx_emb [max_id + 1, dim], the reference's
+    host-fed model (EdgeEstimator's)."""
+
+    def __init__(self, in_dim: int, dim: int, max_id: int,
+                 fanouts: Sequence[int] = (10, 10),
+                 aggregator: str = "mean", num_negs: int = 5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(dim, max_id, num_negs, generator=generator)
+        self.encoder = SageEncoder(in_dim, dim, fanouts, aggregator,
+                                   concat=False, generator=generator)
+        self._spec = {"dim": self.dim, "max_id": self.max_id,
+                      "num_negs": self.num_negs, "aggregator": aggregator}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass
+        fields."""
+        return {"model_class": "UnsupervisedGraphSage", **self._spec}
+
+    def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return self.encoder(_fanout_layers(batch))
 
 
 def sample_stream_seed(sample_seed: int, word: int = 17) -> int:

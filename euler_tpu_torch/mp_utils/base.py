@@ -117,8 +117,9 @@ class UnsuperviseModel(nn.Module):
     [B] (or [B, 1]) and batch["negs"] [B, num_negs] are ids looked up in
     one shared table, ctx_emb [max_id + 1, dim], unless a subclass
     overrides context_embed(pos, negs). The batches come from the host
-    (the graph engine's pairs); those subclasses wait for the engine
-    binding (ROADMAP.md Queue A, 'Engine binding')."""
+    (the graph engine's pairs, EdgeEstimator's): ids arrive as int32
+    rows, bucketized by the table's height (models/graphsage.py
+    UnsupervisedGraphSage)."""
 
     def __init__(self, dim: int, max_id: int, num_negs: int = 5,
                  generator: Optional[torch.Generator] = None):

@@ -319,14 +319,35 @@ class DeviceNeighborTable:
     pad_row N, cap C, uniform_rows (every row unit-weight), and the
     truncation stats hub_frac / edge_keep_frac / max_degree.
 
+    DeviceNeighborTable(graph, ...) reads a graph engine as the
+    reference's constructor does (euler_tpu/parallel/device_sampler.py:
+    62-93): rows in graph.all_node_ids() order, so the same rows index
+    the feature store built from the same graph; each node's neighbors
+    from get_full_neighbor under the edge-type filter, as engine rows
+    (a neighbor the engine does not hold maps to the pad row).
+    from_csr builds the same tables from CSR arrays, from_arrays uploads
+    prebuilt ones.
+
     fused=True places only the [N+1, 2C] fused table (fused_table;
     neighbors and cum_weights are None), as the reference's _place
     does. alias=True also places the [N+1, C] alias table
     (alias_table); it needs the split layout. Row-sharded tables
     (shard_rows=True) are not ported yet."""
 
-    def __init__(self):
-        raise TypeError("use DeviceNeighborTable.from_csr or from_arrays")
+    def __init__(self, graph, cap: int = 32, edge_types=None,
+                 seed: int = 0, keep_host: bool = False,
+                 shard_rows: bool = False, fused: bool = False,
+                 alias: bool = False, device: DeviceLike = None):
+        _check_layout(fused, alias, shard_rows)
+        dev = resolve_device(device)
+        ids = graph.all_node_ids()
+        n = len(ids)
+        offs, nbrs, ws, _ = graph.get_full_neighbor(ids, edge_types)
+        del ids
+        nbr_rows = graph.node_rows(nbrs, missing=n)
+        del nbrs
+        self._build(offs, nbr_rows, ws, cap, seed, dev, keep_host, fused,
+                    alias)
 
     @classmethod
     def from_csr(cls, offsets: np.ndarray, neighbors: np.ndarray,
@@ -343,6 +364,14 @@ class DeviceNeighborTable:
         keeps the numpy split tables as host_tables."""
         _check_layout(fused, alias, False)
         dev = resolve_device(device)
+        self = cls.__new__(cls)
+        self._build(offsets, neighbors, weights, cap, seed, dev, keep_host,
+                    fused, alias)
+        return self
+
+    def _build(self, offsets, neighbors, weights, cap: int, seed: int,
+               dev: torch.device, keep_host: bool, fused: bool,
+               alias: bool) -> None:
         offsets = np.asarray(offsets, np.int64)
         n = len(offsets) - 1
         deg = np.diff(offsets)
@@ -366,10 +395,9 @@ class DeviceNeighborTable:
             if alias else None
         cum = np.cumsum(w_tab, axis=1, dtype=np.float32)
         del w_tab
-        self = cls._place(nbr_tab, cum, stats, dev, fused, alias_tab)
+        self._place(nbr_tab, cum, stats, dev, fused, alias_tab)
         if keep_host:
             self.host_tables = (nbr_tab, cum)
-        return self
 
     @classmethod
     def from_arrays(cls, nbr_tab: np.ndarray, cum_tab: np.ndarray,
@@ -399,16 +427,15 @@ class DeviceNeighborTable:
         alias_tab = build_alias_tables(np.asarray(nbr_tab),
                                        cum_tab=np.asarray(cum_tab)) \
             if alias else None
-        return cls._place(np.ascontiguousarray(nbr_tab, np.int32),
-                          np.ascontiguousarray(cum_tab, np.float32),
-                          stats, resolve_device(device), fused, alias_tab)
-
-    @classmethod
-    def _place(cls, nbr_tab: np.ndarray, cum_tab: np.ndarray, stats: dict,
-               dev: torch.device, fused: bool = False,
-               alias_tab: Optional[np.ndarray] = None
-               ) -> "DeviceNeighborTable":
         self = cls.__new__(cls)
+        self._place(np.ascontiguousarray(nbr_tab, np.int32),
+                    np.ascontiguousarray(cum_tab, np.float32),
+                    stats, resolve_device(device), fused, alias_tab)
+        return self
+
+    def _place(self, nbr_tab: np.ndarray, cum_tab: np.ndarray, stats: dict,
+               dev: torch.device, fused: bool = False,
+               alias_tab: Optional[np.ndarray] = None) -> None:
         self.device = dev
         self.cap = int(nbr_tab.shape[1])
         self.pad_row = int(nbr_tab.shape[0]) - 1
@@ -429,7 +456,6 @@ class DeviceNeighborTable:
         self.alias_table = None if alias_tab is None else \
             torch.from_numpy(alias_tab).to(dev)
         self.host_tables = None
-        return self
 
     @property
     def tables(self):

@@ -35,17 +35,25 @@ _EXACT_UNIT_CUMSUM_ROWS = 1 << 24
 class DeviceNodeSampler:
     """Weighted draws of table rows over all nodes (negatives, root
     pools): a row pool and its inclusive float32 cumulative weights on
-    one device (counterpart of the reference's DeviceNodeSampler, which
-    reads both from the graph engine; the port has no engine and builds
-    them from arrays).
+    one device (counterpart of the reference's DeviceNodeSampler,
+    euler_tpu/parallel/device_walk.py:48-67).
+
+    DeviceNodeSampler(graph, node_type) reads the engine as the
+    reference does: engine rows (all_node_ids order) and node weights,
+    only the rows of node_type when it is >= 0; from_arrays builds the
+    same from a weight array.
 
     With unit weights the float32 cumsum is exact up to 2^24 nodes
     (16.7M; bench.py's graph has 2.45M); past that, neighboring rows
     share a cumsum value and the later one is never drawn, in the
     reference too."""
 
-    def __init__(self):
-        raise TypeError("use DeviceNodeSampler.from_arrays")
+    def __init__(self, graph, node_type: int = -1,
+                 device: DeviceLike = None):
+        dev = resolve_device(device)
+        ids = graph.all_node_ids()
+        types = graph.get_node_type(ids) if node_type >= 0 else None
+        self._fill(graph.all_node_weights(), types, node_type, dev)
 
     @classmethod
     def from_arrays(cls, node_weights: np.ndarray,
@@ -55,20 +63,24 @@ class DeviceNodeSampler:
         """node_weights [N] (row i is node i); node_type >= 0 keeps only
         the rows whose node_types entry equals it."""
         dev = resolve_device(device)
+        if node_type >= 0 and node_types is None:
+            raise ValueError("node_type >= 0 needs node_types")
+        self = cls.__new__(cls)
+        self._fill(node_weights, node_types, node_type, dev)
+        return self
+
+    def _fill(self, node_weights, node_types, node_type: int,
+              dev: torch.device) -> None:
         w = np.asarray(node_weights, np.float32).ravel()
         rows = np.arange(len(w), dtype=np.int32)
         if node_type >= 0:
-            if node_types is None:
-                raise ValueError("node_type >= 0 needs node_types")
             keep = np.asarray(node_types).ravel() == node_type
             rows, w = rows[keep], w[keep]
         if len(rows) == 0:
             raise ValueError("the node sampler's pool is empty")
-        self = cls.__new__(cls)
         self.device = dev
         self.rows = torch.from_numpy(rows).to(dev)
         self.cum = torch.from_numpy(np.cumsum(w, dtype=np.float32)).to(dev)
-        return self
 
     @property
     def tables(self):

@@ -217,12 +217,13 @@ def _need_card():
 
 
 def _training_setup(kind, dev="cuda"):
-    """(tables, node_types, model factory, params) for a NodeEstimator:
+    """(tables, engine graph, model factory, params) for a NodeEstimator:
     "flagship" has bench.py's shapes (batch 32768, fanouts [15, 10], dim
     128, 100 int8 features with a bf16 scale, 16 classes, Adam lr 0.01)
     on a 60,000-node products-like graph; "cora" the cora runner's
     (2708 nodes, 1433 int8 features with a float32 scale, fanouts
     [10, 10], dim 64, batch 64, dropout 0.6)."""
+    from euler_tpu_torch.dataset import engine_from_arrays
     from euler_tpu_torch.dataset.synthetic import (
         products_like, synthetic_citation,
     )
@@ -241,28 +242,28 @@ def _training_setup(kind, dev="cuda"):
         d, c, scale = 1433, 7, torch.float32
         mk = dict(dim=64, fanouts=(10, 10), dropout=0.6)
         params = dict(batch_size=64, learning_rate=0.003)
-    feats = np.concatenate([g.features, np.zeros((1, d), np.float32)])
-    labels = np.concatenate([g.onehot_labels(), np.zeros((1, c), np.float32)])
-    store = DeviceFeatureStore.from_arrays(feats, labels, quantize="int8",
-                                           scale_dtype=scale, device=dev)
-    tab = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=32,
-                                       device=dev)
+    graph = engine_from_arrays(g).engine
+    store = DeviceFeatureStore(graph, ["feature"], label_fid="label",
+                               label_dim=c, dtype=scale, quantize="int8",
+                               device=dev)
+    tab = DeviceNeighborTable(graph, cap=32, device=dev)
 
     def model():
         return DeviceSampledGraphSage(
             c, d, multilabel=False, uniform_sampling=tab.uniform_rows,
             generator=torch.Generator().manual_seed(0), **mk)
 
-    return store, tab, g.node_types, model, params
+    return store, tab, graph, model, params
 
 
 def _estimator(setup, dev="cuda", **cfg):
     from euler_tpu_torch.estimator.estimators import NodeEstimator
 
-    store, tab, node_types, model, params = setup
+    store, tab, graph, model, params = setup
     return NodeEstimator(model(), {**params, "checkpoint_steps": 0,
                                    "log_steps": 1 << 30, **cfg},
-                         node_types, store, tab, device=dev)
+                         graph, None, feature_store=store,
+                         device_sampler=tab, device=dev)
 
 
 def _assert_same_state(a, b):
@@ -308,7 +309,8 @@ def _labelled(batches, store, nan_at=()):
     """Batches with their labels as a batch tensor, NaN at `nan_at`."""
     out = []
     for i, b in enumerate(batches):
-        lab = store.labels[b["rows"][0].long()].clone()
+        rows = torch.as_tensor(b["rows"][0], device=store.labels.device)
+        lab = store.labels[rows.long()].clone()
         if i in nan_at:
             lab[0, 0] = float("nan")
         out.append({**b, "labels": lab})
@@ -526,12 +528,11 @@ def test_cuda_graph_windows_match_eager_steps_unsupervised(kind):
     is deterministic on the card. gather_mean is recorded 8 times per
     window in the unsupervised model, never in the skip-gram."""
     _need_card()
-    from euler_tpu_torch.examples.common import root_input_fn
-
     make, static, n = _unsup_setup(kind)
     k, steps = 8, 26
-    feed = root_input_fn(n, 4096, 0)()
-    batches = [next(feed) for _ in range(steps)]
+    rng = np.random.default_rng(0)
+    batches = [{"rows": [rng.integers(0, n, 4096).astype(np.int32)],
+                "sample_seed": np.uint32(i + 1)} for i in range(steps)]
     graphed = _unsup_estimator(make(), static, steps_per_loop=k)
     eager = _unsup_estimator(make(), static)
     rg = graphed.train(iter(batches), max_steps=steps)
@@ -699,7 +700,7 @@ def _cache_estimator(setup, dev="cuda", **cfg):
     from euler_tpu_torch.estimator.estimators import NodeEstimator
     from euler_tpu_torch.models.graphsage import DeviceSampledScalableSage
 
-    store, tab, node_types, _, params = setup
+    store, tab, graph, _, params = setup
     model = DeviceSampledScalableSage(
         7, 1433, multilabel=False, dim=64, fanout=10, num_layers=2,
         max_id=tab.pad_row, cache_dtype=torch.bfloat16, dropout=0.6,
@@ -707,7 +708,8 @@ def _cache_estimator(setup, dev="cuda", **cfg):
         generator=torch.Generator().manual_seed(0))
     return NodeEstimator(model, {**params, "checkpoint_steps": 0,
                                  "log_steps": 1 << 30, **cfg},
-                         node_types, store, tab, device=dev)
+                         graph, None, feature_store=store,
+                         device_sampler=tab, device=dev)
 
 
 @pytest.mark.cuda
@@ -775,3 +777,122 @@ def test_cuda_layout_graph_windows_match_eager_steps(layout):
     assert graphed._graphed.launches_per_replay == 4
     assert rg["losses"] == re_["losses"]
     _assert_same_state(graphed, eager)
+
+
+# -- the engine-built tables and the host-fed path ---------------------------
+
+@pytest.mark.cuda
+def test_cuda_engine_tables_equal_their_from_arrays_twins():
+    """DeviceNeighborTable(graph) in the split, fused and alias layouts
+    and DeviceFeatureStore(graph) (int8 with a float32 scale, and
+    bfloat16) on the card, built from a 20,000-node products-like graph
+    in the engine, equal their twins from the same arrays (from_csr,
+    from_arrays) and the same engine build on the CPU, byte for byte."""
+    _need_card()
+    from euler_tpu_torch.dataset import engine_from_arrays
+    from euler_tpu_torch.dataset.synthetic import products_like
+    from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+    from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+
+    g = products_like(20_000, 50, 100, 16)
+    graph = engine_from_arrays(g).engine
+    for kw in ({}, {"fused": True}, {"alias": True}):
+        got = DeviceNeighborTable(graph, cap=32, device="cuda", **kw)
+        want = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=32,
+                                            device="cuda", **kw)
+        assert got.tables.keys() == want.tables.keys()
+        for k, t in got.tables.items():
+            assert t.is_cuda and torch.equal(t, want.tables[k]), (kw, k)
+    feats = np.concatenate([g.features, np.zeros((1, 100), np.float32)])
+    labels = np.concatenate([g.onehot_labels(),
+                             np.zeros((1, 16), np.float32)])
+    got = DeviceFeatureStore(graph, ["feature"], label_fid="label",
+                             label_dim=16, quantize="int8", device="cuda")
+    want = DeviceFeatureStore.from_arrays(feats, labels, quantize="int8",
+                                          device="cuda")
+    for a, b in ((got.features, want.features),
+                 (got.feature_scale, want.feature_scale),
+                 (got.labels, want.labels)):
+        assert a.is_cuda and torch.equal(a, b)
+    for quantize in ("int8", None):
+        kw = dict(label_fid="label", label_dim=16, dtype=torch.bfloat16,
+                  quantize=quantize)
+        card = DeviceFeatureStore(graph, ["feature"], device="cuda", **kw)
+        cpu = DeviceFeatureStore(graph, ["feature"], device="cpu", **kw)
+        assert torch.equal(card.features.cpu(), cpu.features)
+    np.testing.assert_array_equal(
+        got.lookup(np.array([0, 7, 19_999, 1 << 40], np.uint64)),
+        [0, 7, 19_999, 20_000])
+
+
+def _host_fed_step(dev, mode):
+    """One NodeEstimator step of SupervisedGraphSage (fanouts [10, 5],
+    dim 32, 1433 int8 features with a float32 scale on the "rows" path,
+    float32 "layers" on the host-arrays path) on the cora stand-in's
+    engine, the engine seeded to 0: (loss, metric, parameters)."""
+    from euler_tpu_torch.dataflow import FanoutDataFlow
+    from euler_tpu_torch.dataset import get_dataset
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.graph import seed
+    from euler_tpu_torch.models.graphsage import SupervisedGraphSage
+    from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+
+    data = get_dataset("cora")
+    g = data.engine
+    store = DeviceFeatureStore(g, ["feature"], label_fid="label",
+                               label_dim=7, quantize="int8",
+                               device=dev) if mode == "rows" else None
+    flow = FanoutDataFlow(g, [10, 5], feature_ids=["feature"],
+                          with_features=mode == "layers")
+    model = SupervisedGraphSage(7, 1433, multilabel=False, dim=32,
+                                fanouts=(10, 5),
+                                generator=torch.Generator().manual_seed(0))
+    est = NodeEstimator(model, {"batch_size": 256, "checkpoint_steps": 0,
+                                "log_steps": 1 << 30}, g, flow,
+                        label_dim=7, feature_store=store, device=dev)
+    seed(0)
+    res = est.train(est.train_input_fn, max_steps=1)
+    return res, {k: (p.detach().cpu(), p.grad.cpu())
+                 for k, p in est.model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rows", "layers"])
+def test_cuda_host_fed_step_matches_the_cpu(mode):
+    """A host-fed SupervisedGraphSage step (bench.py --host_sampler's
+    rows into the int8 table, or the host's feature layers) on the card
+    against the same step on the CPU, the same engine draws (float32,
+    TF32 off): the loss and metric within rtol 1e-4, the gradients
+    within atol 1e-5 of the largest, the updated parameters within atol
+    1e-5 where the gradient exceeds 1e-6. Adam's first step moves a
+    parameter by lr·g/(|g| + 1e-8), so where |g| is near Adam's eps the
+    two devices' last-bit differences in g move it anywhere within lr;
+    there the bound is lr (0.01, the step's largest move)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, p_card = _host_fed_step("cuda", mode)
+    cpu, p_cpu = _host_fed_step("cpu", mode)
+    assert card["loss"] == pytest.approx(cpu["loss"], rel=1e-4)
+    assert card["metric"] == pytest.approx(cpu["metric"], rel=1e-4)
+    for k, (v, g) in p_cpu.items():
+        v_card, g_card = p_card[k]
+        torch.testing.assert_close(g_card, g, rtol=0,
+                                   atol=1e-5 * float(g.abs().max()))
+        tol = torch.where(g.abs() > 1e-6, 1e-5, 0.01)
+        assert bool(((v_card - v).abs() <= tol).all()), k
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_step_over_engine_tables_launches_gather_mean():
+    """The flagship setup over tables built from the engine: one
+    training step launches the gather_mean kernel once, its batch roots
+    drawn by the engine's sample_node."""
+    _need_card()
+    from euler_tpu_torch.ops.gather_mean import gather_mean
+
+    est = _estimator(_training_setup("flagship"))
+    before = gather_mean.launches
+    res = est.train(est.train_input_fn, max_steps=1)
+    torch.cuda.synchronize()
+    assert gather_mean.launches == before + 1
+    assert np.isfinite(res["loss"])

@@ -276,14 +276,20 @@ def test_skipgram_step_over_alias(graph):
 def test_slice7_runners_run_a_few_steps_on_the_cpu(runner, extra,
                                                     monkeypatch):
     """Each new runner path for 10 steps on a small stand-in (300 nodes,
-    16 features, the cora split's shape shrunk): finite, nothing
-    skipped; without --device_sampler it raises, naming the engine
-    binding; without --device it needs the card."""
+    16 features, the cora split's shape shrunk) in the engine: finite,
+    nothing skipped; without --device_sampler the geniepath and scalable
+    runners raise, naming the engine binding, and run_graphsage's
+    --act_cache refuses, as the reference's does; without --device it
+    needs the card."""
     import importlib
 
+    from euler_tpu_torch.dataset import engine_from_arrays
+    from euler_tpu_torch.examples import common
+
     mod = importlib.import_module(f"euler_tpu_torch.examples.{runner}")
-    monkeypatch.setattr(mod, "get_dataset", lambda name: synthetic_citation(
-        n=300, d=16, num_classes=3, seed=1, val=60, test=100))
+    monkeypatch.setattr(common, "get_dataset", lambda name: engine_from_arrays(
+        synthetic_citation(n=300, d=16, num_classes=3, seed=1, val=60,
+                           test=100)))
     argv = ["--device_sampler", "--max_steps", "10", "--eval_steps", "2",
             *extra]
     if runner == "run_geniepath":
@@ -294,8 +300,12 @@ def test_slice7_runners_run_a_few_steps_on_the_cpu(runner, extra,
     assert np.isfinite(res["train_loss"])
     if "--mode" not in extra:
         assert 0.0 <= res["test_metric"] <= 1.0
-    with pytest.raises(NotImplementedError, match="Engine binding"):
-        mod.main(["--device", "cpu"])
+    if runner != "run_graphsage":
+        with pytest.raises(NotImplementedError, match="Engine binding"):
+            mod.main(["--device", "cpu"])
+    elif "--act_cache" in extra:
+        with pytest.raises(SystemExit, match="needs --device_sampler"):
+            mod.main(["--device", "cpu", "--act_cache"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)

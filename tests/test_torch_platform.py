@@ -28,12 +28,29 @@ def test_default_device_is_cuda_or_raises(monkeypatch):
 def test_entry_points_raise_without_cuda(monkeypatch):
     import numpy as np
 
+    from euler_tpu_torch.graph import GraphBuilder
     from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+    from euler_tpu_torch.parallel.device_walk import DeviceNodeSampler
     from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
     from euler_tpu_torch.serving import InferenceServer, ModelBundle
     from euler_tpu_torch.serving.engine import EmbeddingEngine
 
+    b = GraphBuilder()
+    b.set_feature(0, 0, 2, "feature")
+    b.add_nodes(np.arange(3, dtype=np.uint64))
+    b.add_edges(np.array([0, 1], np.uint64), np.array([1, 2], np.uint64))
+    b.set_node_dense(np.arange(3, dtype=np.uint64), 0,
+                     np.ones((3, 2), np.float32))
+    graph = b.finalize()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the engine-built tables, as a runner builds them
+    for kw in ({}, {"fused": True}, {"alias": True}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceNeighborTable(graph, **kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceFeatureStore(graph, ["feature"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceNodeSampler(graph)
     with pytest.raises(RuntimeError):
         DeviceFeatureStore.from_arrays(np.zeros((3, 2), np.float32))
     for kw in ({}, {"fused": True}, {"alias": True}):
@@ -72,7 +89,9 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
                  "serving/server.py", "serving/client.py",
                  "serving/autoscale.py", "serving/__init__.py",
                  "examples/run_geniepath.py",
-                 "examples/run_scalable_sage.py"):
+                 "examples/run_scalable_sage.py", "core/lib.py",
+                 "graph/api.py", "dataflow/base_dataflow.py",
+                 "dataset/base_dataset.py", "ops/walk_ops.py"):
         assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))

@@ -29,7 +29,7 @@ from euler_tpu.serving import wire as ref_wire
 from euler_tpu.serving.server import _BundleEngine
 from euler_tpu.tools import knn as ref_knn
 from euler_tpu_torch.convert import flax_to_state_dict
-from euler_tpu_torch.dataset import get_dataset
+from euler_tpu_torch.dataset import dataset_arrays, engine_from_arrays
 from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.models.graphsage import DeviceSampledGraphSage
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
@@ -407,7 +407,7 @@ CORA_DIM, CORA_FANOUTS, CORA_B = 16, (3, 2), 512
 
 
 def _cora():
-    g = get_dataset("cora")
+    g = dataset_arrays("cora")
     feats = np.concatenate([g.features,
                             np.zeros((1, g.features.shape[1]), np.float32)])
     labels = np.concatenate([g.onehot_labels(),
@@ -456,13 +456,14 @@ def cora_pair(tmp_path_factory):
                                    fanouts=CORA_FANOUTS)
     est = NodeEstimator(model, {"batch_size": CORA_B,
                                 "checkpoint_steps": 0},
-                        g.node_types, store, tab, device="cpu",
-                        model_dir=str(tmp_path / "port"))
+                        engine_from_arrays(g).engine, None,
+                        feature_store=store, device_sampler=tab,
+                        device="cpu", model_dir=str(tmp_path / "port"))
     sweep, jsweep = [], []
     for b in est.infer_input_fn():
         b["sample_uniforms"] = _uniforms(b["sample_seed"], CORA_B)
         sweep.append(b)
-        jsweep.append({"rows": [jnp.asarray(b["rows"][0].numpy())],
+        jsweep.append({"rows": [jnp.asarray(b["rows"][0])],
                        "sample_seed": np.uint32(b["sample_seed"]),
                        "infer_ids": b["infer_ids"]})
     jest.static_batch = jstatic

@@ -27,8 +27,11 @@ from euler_tpu.parallel.feature_store import \
     DeviceFeatureStore as JaxDeviceFeatureStore
 from euler_tpu_torch import obs
 from euler_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
-from euler_tpu_torch.dataset import TEST_TYPE, TRAIN_TYPE, VAL_TYPE
+from euler_tpu_torch.dataset import (
+    TEST_TYPE, TRAIN_TYPE, VAL_TYPE, engine_from_arrays,
+)
 from euler_tpu_torch.dataset.synthetic import synthetic_citation
+from euler_tpu_torch.graph import seed as seed_engine
 from euler_tpu_torch.estimator.base_estimator import BaseEstimator
 from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
@@ -52,6 +55,38 @@ def _graph():
     labels = np.concatenate([g.onehot_labels(),
                              np.zeros((1, CLASSES), np.float32)])
     return g, feats, labels
+
+
+_ENGINE = []
+
+
+def _engine():
+    """_graph()'s arrays in the graph engine (built once; node i is id i
+    and row i, as in the tables of _tables)."""
+    if not _ENGINE:
+        _ENGINE.append(engine_from_arrays(_graph()[0]).engine)
+    return _ENGINE[0]
+
+
+class _SerialRoots:
+    """The engine graph with sample_node drawn from one numpy stream:
+    the same roots whichever thread asks (the engine's stream is per
+    thread, so a feeder thread's draws differ from the main thread's)."""
+
+    def __init__(self, graph):
+        self._g = graph
+        self._rng = np.random.default_rng(0)
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self._g, name)
+
+    def sample_node(self, count, node_type=-1):
+        ids = self._g.all_node_ids()
+        if node_type >= 0:
+            ids = ids[self._g.get_node_type(ids) == node_type]
+        with self._lock:
+            return ids[self._rng.integers(0, len(ids), count)]
 
 
 def _tables(feats, labels, scale_dtype="float32", quantize="int8"):
@@ -234,13 +269,14 @@ def test_nonfinite_guard_skips_the_update_in_both_packages():
             assert torch.equal(t, opt_state[k][n]), (k, n)
 
 
-def _node_estimator(model=None, batch_size=32, **params):
-    g, feats, labels = _graph()
+def _node_estimator(model=None, batch_size=32, graph=None, **params):
+    _, feats, labels = _graph()
     _, tab, store = _tables(feats, labels)
     return NodeEstimator(model or _model(),
                          {"batch_size": batch_size, "checkpoint_steps": 0,
                           **params},
-                         g.node_types, store, tab, device="cpu")
+                         graph or _engine(), None, feature_store=store,
+                         device_sampler=tab, device="cpu")
 
 
 def test_evaluate_weights_batches_like_the_reference():
@@ -252,10 +288,10 @@ def test_evaluate_weights_batches_like_the_reference():
     got = est.evaluate(iter(batches), steps=100)
     raw = []
     for b in batches:
-        out = est.inferencer.run(b)
+        out = est.run_eval(b)
         raw.append({"loss": np.float32(out.loss), "metric":
                     np.float32(out.metric),
-                    "metric_mask": b["metric_mask"].numpy()})
+                    "metric_mask": b["metric_mask"]})
 
     class _Ref:  # the reference's evaluate over precomputed batch outputs
         state, max_id, static_batch = object(), 0, {}
@@ -447,16 +483,20 @@ def test_embed_all_runs_a_train_mode_model_in_eval_mode():
 
 
 def test_node_estimator_streams_and_splits():
-    """Train draws do not depend on how often eval draws; roots come
-    from the split; sweeps cover a split once with stream-1 seeds."""
+    """Train sample seeds do not depend on how often eval draws; roots
+    come from the engine's sample_node over the split (the same roots
+    under the same engine seed); sweeps cover a split once with
+    stream-1 seeds."""
     est_a = _node_estimator(batch_size=8)
     est_b = _node_estimator(batch_size=8)
     ta, tb, eb = est_a.train_input_fn(), est_b.train_input_fn(), \
         est_b.eval_input_fn()
     train_ids = set(est_a.split_ids(TRAIN_TYPE).tolist())
-    for _ in range(3):
+    for i in range(3):
+        seed_engine(10 + i)
         a = next(ta)
         next(eb)
+        seed_engine(10 + i)
         b = next(tb)
         assert a["sample_seed"] == b["sample_seed"] < (1 << 31)
         np.testing.assert_array_equal(a["infer_ids"], b["infer_ids"])
@@ -467,35 +507,35 @@ def test_node_estimator_streams_and_splits():
     sweep = list(est_a.eval_sweep_input_fn())
     assert len(sweep) == est_a.eval_sweep_steps()
     assert all(b["sample_seed"] >> 31 == 1 for b in sweep)
-    seen = np.concatenate([b["infer_ids"][b["metric_mask"].numpy() > 0]
+    seen = np.concatenate([b["infer_ids"][b["metric_mask"] > 0]
                            for b in sweep])
     np.testing.assert_array_equal(seen, val)
     assert len(est_a.split_ids(-1)) == N
 
 
 def test_estimators_need_cuda_by_default_and_refuse_unported(monkeypatch):
-    for cfg in ({"table_partition": 2}, {"hub_cache_frac": 0.1},
-                {"max_id": 100}):
+    for cfg in ({"table_partition": 2}, {"hub_cache_frac": 0.1}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             BaseEstimator(_model(), cfg, device="cpu")
     for cfg in ({"table_partition": 1}, {"hub_cache_frac": 0.0},
-                {"max_id": 0}):  # the values that mean what the port does
+                {"max_id": 0}, {"max_id": 100}):  # what the port does
         BaseEstimator(_model(), cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BaseEstimator(_model(), {})
-    g, feats, labels = _graph()
+    _, feats, labels = _graph()
     _, tab, store = _tables(feats, labels)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        NodeEstimator(_model(), {}, g.node_types, store, tab)
+        NodeEstimator(_model(), {}, _engine(), None, feature_store=store,
+                      device_sampler=tab)
 
 
 def test_cora_copy_is_pinned_to_the_reference():
     from euler_tpu.dataset import get_dataset as jax_get_dataset
-    from euler_tpu_torch.dataset import get_dataset
+    from euler_tpu_torch.dataset import dataset_arrays
 
     ref = jax_get_dataset("cora")
-    got = get_dataset("cora")
+    got = dataset_arrays("cora")
     eng = ref.engine
     ids = eng.all_node_ids()
     np.testing.assert_array_equal(ids, np.arange(got.num_nodes))
@@ -720,7 +760,8 @@ def test_feeder_workers_give_the_same_batches_and_results(steps_per_loop):
     runs = []
     for workers in (0, 2):
         est = _node_estimator(batch_size=8, feeder_workers=workers,
-                              steps_per_loop=steps_per_loop, log_steps=1000)
+                              steps_per_loop=steps_per_loop, log_steps=1000,
+                              graph=_SerialRoots(_engine()))
         assert est._train_batch_factory() is None
         before = threading.active_count()
         res = est.train(est.train_input_fn, max_steps=6)
@@ -741,7 +782,8 @@ def test_feeder_spans_train_and_evaluate_segments():
     end; the same parameters as without a feeder."""
     states = []
     for workers in (0, 2):
-        est = _node_estimator(batch_size=8, feeder_workers=workers)
+        est = _node_estimator(batch_size=8, feeder_workers=workers,
+                              graph=_SerialRoots(_engine()))
         made = []
         wrap = est._wrap_feeder
         est._wrap_feeder = lambda *a: made.append(wrap(*a)) or made[-1]

@@ -374,21 +374,21 @@ def test_skipgram_refuses_fused_and_alias_tables():
     ("run_line", ["--order", "1"]),
     ("run_line", [])])
 def test_walk_runners_run_a_few_steps_on_the_cpu(runner, extra):
-    """Each runner's --device_sampler path for 12 steps and 2 evaluation
-    batches on the cora stand-in: finite, nothing skipped, the MRR in
-    (0, 1]. Without --device_sampler it raises, naming the engine
-    binding."""
+    """Each runner's --device_sampler path and its host-fed path (the
+    engine's walks or edges) for 12 steps and 2 evaluation batches on
+    the cora stand-in: finite, nothing skipped, the MRR in (0, 1]."""
     import importlib
 
     mod = importlib.import_module(f"euler_tpu_torch.examples.{runner}")
-    res = mod.main(["--device_sampler", "--device", "cpu", "--max_steps",
-                    "12", "--eval_steps", "2", *extra])
-    assert res["train_global_step"] == 12
-    assert res["train_skipped_steps"] == 0 and res["train_skipped_batches"] == 0
-    assert np.isfinite(res["train_loss"]) and np.isfinite(res["eval_loss"])
-    assert 0.0 < res["eval_metric"] <= 1.0
-    with pytest.raises(NotImplementedError, match="Engine binding"):
-        mod.main(["--device", "cpu"])
+    for path in (["--device_sampler"], []):
+        res = mod.main([*path, "--device", "cpu", "--max_steps", "12",
+                        "--eval_steps", "2", *extra])
+        assert res["train_global_step"] == 12
+        assert res["train_skipped_steps"] == 0 \
+            and res["train_skipped_batches"] == 0
+        assert np.isfinite(res["train_loss"]) \
+            and np.isfinite(res["eval_loss"])
+        assert 0.0 < res["eval_metric"] <= 1.0
 
 
 @pytest.mark.parametrize("runner,extra", [
