@@ -16,7 +16,9 @@ and the DeepWalk skip-gram of bench.py --walk); then the fused and alias
 table layouts and the activation cache (bench.py --fused_sampler,
 --alias_sampler, --act_cache) on the same graph; then the host-fed path
 of bench.py --host_sampler (the engine samples the fanout on the host);
-then the serving stack over bundles exported from the trained flagship
+then the layerwise family of bench.py --layerwise on the same tables and
+full-batch message passing (GCN, GAT) on the pubmed stand-in; then the
+serving stack over bundles exported from the trained flagship
 (2,450,000 x 256 f32).
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -103,7 +105,27 @@ Phases, in order; any failure raises and the exit code is not 0:
               step, host ms a batch (root draw, sample_fanout, lookup),
               busy share, a finite falling loss, no gather_mean launch;
               one step of the host-arrays path (the engine's features)
- 10. quality  the port's GraphSAGE runner (fit_citation, --int8_features)
+ 9g. layerwise  bench.py --layerwise (bench.py:513-585) on the phase-3
+              tables: DeviceSampledLayerwiseGCN dim 128, batch 512,
+              pools (512, 512), Adam lr 0.01, fed by the prefetch
+              thread; K = 1 as phase 6 and K = 32 with 2 timed windows
+              (pool-nodes/s, ms a step, host ms a step, busy share,
+              peak memory, a finite falling loss, gather_mean launches
+              0); the dense adjacency's ms and share of a step and the
+              memory it allocates; the graph against eager steps at
+              K = 32, bit for bit; then K = 32 and the same check over
+              phase 9a's alias table
+ 9h. fullbatch  the runners' GCN and GAT (8 heads) over
+              FullBatchDataFlow on the pubmed stand-in: one step on the
+              card against the CPU (loss rtol 1e-4, gradients 1e-5 of
+              the largest), then 20 timed steps: ms a step, the host's
+              batch build and host-to-device copy shares, busy share
+ 10. quality  (in two worker processes started after phase 2 and joined
+              after phase 3, before any timed phase: their runs are
+              bound by the host and overlap the graph set-up; the
+              layerwise and conv runners share one process and one cora
+              engine) the port's GraphSAGE runner (fit_citation,
+              --int8_features)
               on the cora stand-in for seeds 0, 1, 2: mean test
               micro-F1 at least 0.79 (the RESULTS.md row is 0.811); the
               unsupervised runners: DeepWalk and LINE on cora against
@@ -120,8 +142,13 @@ Phases, in order; any failure raises and the exit code is not 0:
               run_line cora (0.996, 0.991), run_graphsage --mode
               unsupervised ppi (0.551), each failing unless within 0.01
               of its row or 2 standard errors of the JAX package's own
-              10-seed mean (tests/oracle_hostfed.py); each gate printed,
-              met or not
+              10-seed mean (tests/oracle_hostfed.py); run_fastgcn (host
+              flow and --device_sampler) and the nine conv runners
+              (gcn, gat, appnp, agnn, arma, sgcn, tagcn, adaptivegcn,
+              dna) on cora for seeds 0-2 in one process over one cora
+              engine, each failing unless within 0.01 of its RESULTS.md
+              row or 2 standard errors of the JAX package's own 10-seed
+              mean (tests/oracle_mp.py); each gate printed, met or not
  11. small    a small input through the card and through the CPU path
  12. serve    the training tables freed, then through the TCP stack on
               the card: InferenceServer loads v1 (verified) and uploads
@@ -154,6 +181,7 @@ import contextlib
 import gc
 import io
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -168,7 +196,7 @@ import torch
 
 from euler_tpu_torch.core import lib as engine_lib
 from euler_tpu_torch.dataflow import FanoutDataFlow
-from euler_tpu_torch.dataset import engine_from_arrays
+from euler_tpu_torch.dataset import engine_from_arrays, get_dataset
 from euler_tpu_torch.dataset.synthetic import products_like, synthetic_citation
 from euler_tpu_torch.estimator import base_estimator
 from euler_tpu_torch.estimator.base_estimator import BaseEstimator
@@ -176,27 +204,35 @@ from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
 from euler_tpu_torch.estimator.prefetch import make_feeder
 from euler_tpu_torch.examples import (
-    run_deepwalk, run_geniepath, run_graphsage, run_line,
+    common, run_adaptivegcn, run_agnn, run_appnp, run_arma, run_deepwalk,
+    run_dna, run_fastgcn, run_gat, run_gcn, run_geniepath, run_graphsage,
+    run_line, run_sgcn, run_tagcn,
 )
-from euler_tpu_torch.examples.common import root_input_fn
+from euler_tpu_torch.examples.common import (
+    ConvModel, full_batch_flow, root_input_fn,
+)
 from euler_tpu_torch.kernels import _build
 from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
 from euler_tpu_torch.models.graphsage import (
-    DeviceSampledGraphSage, DeviceSampledScalableSage,
-    DeviceSampledUnsupervisedSage, SupervisedGraphSage, refresh_act_cache,
+    DeviceSampledGraphSage, DeviceSampledLayerwiseGCN,
+    DeviceSampledScalableSage, DeviceSampledUnsupervisedSage,
+    SupervisedGraphSage, refresh_act_cache,
 )
 from euler_tpu_torch.ops import gather_mean as gather_mean_module
 from euler_tpu_torch.ops.gather_mean import (
     gather_mean, gather_mean_reference, launch_plan, take_rows,
 )
+from euler_tpu_torch.parallel.device_layerwise import dense_adjacency
 from euler_tpu_torch.parallel.device_sampler import (
     DeviceNeighborTable, build_alias_tables, fuse_tables_host, sample_hop,
+    slot_weights,
 )
 from euler_tpu_torch.parallel.device_walk import (
     DeviceNodeSampler, gen_pair_offsets,
 )
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
 from euler_tpu_torch.estimator.retry import RetryPolicy
+from euler_tpu_torch.graph import seed as seed_engine
 from euler_tpu_torch.serving import InferenceServer, ModelBundle, ServingClient
 from euler_tpu_torch.tools.knn import brute_force
 
@@ -293,6 +329,45 @@ HOSTFED_QUALITY = {
 GENIE_ROW, CACHE_ROW, SLICE7_FLOOR = 0.771, 0.805, 0.70
 GENIE_ORACLE, GENIE_REF_SD, GENIE_PORT_SD = 0.7430, 0.0251, 0.0277
 CACHE_ORACLE, CACHE_REF_SD, CACHE_PORT_SD = 0.7922, 0.0068, 0.0094
+# the layerwise family (bench.py --layerwise, bench.py:513-585) on the
+# phase-3 tables: DeviceSampledLayerwiseGCN dim 128, batch 512, pools
+# (512, 512), Adam lr 0.01, fed by the prefetch thread; K = 1 as phase 6,
+# K = 32 with 2 timed windows of 64 steps; bench.py's metric counts
+# batch + sum(pools) nodes a step
+LW_BATCH, LW_SIZES, LW_WINDOWS = 512, (512, 512), 2
+LW_NODES_PER_STEP = LW_BATCH + sum(LW_SIZES)
+# full-batch message passing on the pubmed stand-in (19,717 nodes, 500
+# features): the runners' GCN (run_gcn: dim 32, Adam lr 0.01) and GAT
+# (run_gat: dim 16, 8 heads, input dropout 0.6, lr 0.005, weight decay
+# 0.005) models, batch 128; 20 timed steps each
+MP_DATASET, MP_BATCH, MP_WARMUP, MP_TIMED = "pubmed", 128, 3, 20
+MP_MODELS = {"gcn": dict(dim=32, dropout=0.0, lr=0.01, wd=0.0, kw={}),
+             "gat": dict(dim=16, dropout=0.6, lr=0.005, wd=0.005,
+                         kw={"heads": 8})}
+# quality of the layerwise and message-passing runners on cora, seeds
+# 0-2 on the card, their defaults: each fails the run unless its mean is
+# within 0.01 of its RESULTS.md row or within 2 standard errors of the
+# difference, sqrt(sd_port^2 / 3 + sd_ref^2 / 10), from the JAX
+# package's own 10-seed mean (tests/oracle_mp.py --seeds 0 ... 9 on the
+# CPU: mean, sd), sd_port over the port's runner with --device cpu
+# --seed 0-9 (the same script, --port); below MP_FLOOR it fails too.
+# name → (runner, argv, row, ref mean, ref sd, port sd)
+MP_FLOOR = 0.70
+MP_QUALITY = {
+    "fastgcn cora": ("run_fastgcn", [], 0.816, 0.8345, 0.0132, 0.0120),
+    "fastgcn-dev cora": ("run_fastgcn", ["--device_sampler"], 0.827,
+                         0.8401, 0.0137, 0.0132),
+    "gcn cora": ("run_gcn", [], 0.846, 0.8463, 0.0107, 0.0202),
+    "gat cora": ("run_gat", [], 0.820, 0.8314, 0.0133, 0.0106),
+    "appnp cora": ("run_appnp", [], 0.897, 0.8641, 0.0088, 0.0158),
+    "agnn cora": ("run_agnn", [], 0.880, 0.8811, 0.0076, 0.0097),
+    "arma cora": ("run_arma", [], 0.857, 0.8568, 0.0109, 0.0070),
+    "sgcn cora": ("run_sgcn", [], 0.895, 0.8837, 0.0055, 0.0063),
+    "tagcn cora": ("run_tagcn", [], 0.864, 0.8561, 0.0147, 0.0241),
+    "adaptivegcn cora": ("run_adaptivegcn", [], 0.817, 0.8135, 0.0052,
+                         0.0121),
+    "dna cora": ("run_dna", [], 0.809, 0.8205, 0.0212, 0.0202),
+}
 
 
 def log(msg: str) -> None:
@@ -807,13 +882,14 @@ def phase_train(store, table, graph, dev: torch.device) -> tuple:
 
 
 def _drive_steps(est, it, what: str, work: str = "edges",
-                 work_per_step: int = 0, kernels_per_step: int = 1) -> dict:
+                 work_per_step: int = 0, kernels_per_step: int = 1,
+                 batch: int = BATCH) -> dict:
     """est.train one step at a time, as bench.py times it: warm-up, then
     3 windows of steps on the host clock with a synchronize at the
     window edges only; then event-timed steps and one profiled step.
     Fails unless gather_mean launched kernels_per_step times a step, the
     loss is finite and falling and no step was skipped. work_per_step:
-    the flagship's edges unless given."""
+    the flagship's edges unless given; batch: the roots a step."""
     work_per_step = work_per_step or EDGES_PER_STEP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -882,7 +958,7 @@ def _drive_steps(est, it, what: str, work: str = "edges",
          "steps_per_s": TIMED_STEPS / timed_s,
          f"{work}_per_step": work_per_step,
          f"{work}_per_sec_per_gpu": rate,
-         "roots_per_s": BATCH * TIMED_STEPS / timed_s,
+         "roots_per_s": batch * TIMED_STEPS / timed_s,
          "step_ms": step_ms, "step_ms_median": ms,
          "host_enqueue_ms": host_ms,
          "host_enqueue_ms_median": statistics.median(host_ms),
@@ -890,7 +966,7 @@ def _drive_steps(est, it, what: str, work: str = "edges",
                                / (timed_s * 1e3)),
          "input_wait_ms": input_wait_ms, "dispatch_ms": dispatch_ms,
          "peak_device_bytes": peak, "profile": prof}
-    log(f"{what}: {steps} steps of {BATCH} roots (Adam lr {TRAIN_LR}), "
+    log(f"{what}: {steps} steps of {batch} roots (Adam lr {TRAIN_LR}), "
         f"gather_mean launches {launches}, skipped {skipped}; "
         f"{work}_per_sec_per_gpu {rate:.6g} ({work_per_step} {work}/step, "
         f"{r['steps_per_s']:.3f} steps/s, {r['roots_per_s']:.0f} roots/s; "
@@ -1023,14 +1099,16 @@ def _phase_sums(est) -> tuple:
 
 
 def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
-                work_per_step: int = 0, kernels_per_step: int = 1) -> dict:
+                work_per_step: int = 0, kernels_per_step: int = 1,
+                batch: int = BATCH, n_windows: int = WINDOWS) -> dict:
     """est.train at steps_per_loop = k as bench.py drives it: k + 2
     warm-up steps (the first window eager, the capture, a tail of 2),
-    3 timed windows of 64 steps; then event-timed replays and one
-    profiled replay. Fails unless gather_mean's launches on the card
-    (eager + recorded per window x replays) are kernels_per_step per
-    step, the loss is finite and falling and no step was skipped.
-    work_per_step: the flagship's edges unless given."""
+    n_windows (3) timed windows of 64 steps; then event-timed replays
+    and one profiled replay. Fails unless gather_mean's launches on the
+    card (eager + recorded per window x replays) are kernels_per_step
+    per step, the loss is finite and falling and no step was skipped.
+    work_per_step: the flagship's edges unless given; batch: the roots
+    a step."""
     work_per_step = work_per_step or EDGES_PER_STEP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1043,7 +1121,7 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
     warm_s = time.monotonic() - t0
     window_s, window_rates, metrics = [], [], []
     sums0 = _phase_sums(est)
-    for _ in range(WINDOWS):
+    for _ in range(n_windows):
         done = est.step
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -1082,7 +1160,7 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
     # enqueue it (copies of the window's roots, re-seeding, replay,
     # clones), batches prebuilt
     replay_ms, host_ms = [], []
-    for _ in range(WINDOWS):
+    for _ in range(n_windows):
         window = [_on_card(next(it), est) for _ in range(k)]
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -1103,7 +1181,7 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
             and prof["gather_mean_calls"] != k * kernels_per_step:
         raise AssertionError(f"{what}: {prof['gather_mean_calls']} "
                              f"gather_mean kernels in one {k}-step replay")
-    timed_steps = WINDOWS * LOOP_WINDOW_STEPS
+    timed_steps = n_windows * LOOP_WINDOW_STEPS
     timed_s = sum(window_s)
     eps = work_per_step * timed_steps / timed_s
     busy_step_ms = prof["device_busy_ms"] / k
@@ -1120,7 +1198,7 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
          "steps_per_s": timed_steps / timed_s,
          f"{work}_per_step": work_per_step,
          f"{work}_per_sec_per_gpu": eps,
-         "roots_per_s": BATCH * timed_steps / timed_s,
+         "roots_per_s": batch * timed_steps / timed_s,
          "replay_ms": replay_ms, "replay_ms_median": statistics.median(
              replay_ms),
          "host_ms_per_replay": host_ms,
@@ -1719,6 +1797,298 @@ def phase_hostfed(store, graph, dev) -> dict:
     return r
 
 
+def layerwise_estimator(store, table, graph, dev, layout=None, **cfg):
+    """DeviceSampledLayerwiseGCN at bench.py --layerwise's shape (dim 128,
+    pools (512, 512), random weights from seed 0) in a NodeEstimator
+    over the path's tables (or a layout's) with bench.py's training
+    parameters (batch 512, Adam lr 0.01, roots over every node)."""
+    model = DeviceSampledLayerwiseGCN(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM,
+        layer_sizes=LW_SIZES, generator=torch.Generator().manual_seed(0))
+    return with_layout(NodeEstimator(
+        model, dict(batch_size=LW_BATCH, learning_rate=TRAIN_LR,
+                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
+                    train_node_type=-1, seed=0, **cfg),
+        graph, None, feature_store=store, device_sampler=table,
+        device=dev), layout)
+
+
+def adjacency_share(est, it, step_ms: float, busy_ms: float) -> dict:
+    """What the dense adjacency build costs a step: dense_adjacency for
+    both layers of one batch's draw (CUDA events), its share of the
+    event-timed step and of the profiled step's device time (busy_ms),
+    and the device memory it allocates at its peak (the [n, C, n']
+    comparison and its weighted copy); beside it the whole draw (pools
+    and adjacencies)."""
+    batch = {**_on_card(next(it), est), **est.static_batch}
+    with torch.no_grad():
+        levels, _ = est.model.sample_levels(batch)
+        args = []
+        for lv, nxt in zip(levels[:-1], levels[1:]):
+            rows = lv.long()
+            args.append((batch["nbr_table"][rows],
+                         slot_weights(batch["cum_table"][rows]), lv, nxt))
+        ms = time_ms(lambda: [dense_adjacency(*a) for a in args])
+        draw_ms = time_ms(lambda: est.model.sample_levels(batch))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for a in args:
+            dense_adjacency(*a)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    elems = sum(a[0].numel() * a[3].numel() for a in args)
+    r = {"adjacency_ms": ms, "draw_ms": draw_ms, "step_ms": step_ms,
+         "step_share": ms / step_ms, "draw_share": draw_ms / step_ms,
+         "busy_ms": busy_ms,
+         # a profiler that records no device time is reported, not failed
+         "busy_share": ms / busy_ms if busy_ms > 0 else float("nan"),
+         "draw_busy_share": draw_ms / busy_ms if busy_ms > 0
+         else float("nan"),
+         "hit_elements": elems, "peak_bytes": peak}
+    log(f"layerwise adjacency: dense_adjacency of both layers "
+        f"{ms:.4f} ms ({r['step_share']:.1%} of the {step_ms:.3f} ms "
+        f"step, {r['busy_share']:.1%} of its {busy_ms:.3f} ms of device "
+        f"time), the whole draw {draw_ms:.4f} ms ({r['draw_share']:.1%}, "
+        f"{r['draw_busy_share']:.1%}); {elems} comparison elements, peak "
+        f"{peak / 2**20:.1f} MiB allocated by the build")
+    return r
+
+
+def phase_layerwise(store, table, graph, alias, dev) -> dict:
+    """bench.py --layerwise on the phase-3 tables: K = 1 as phase 6
+    drives the flagship and K = 32 (2 timed windows) as phase 7, both fed
+    by the prefetch thread; pool-nodes/s (bench.py's
+    layerwise_train_pool_nodes_per_sec_per_chip, (batch + sum(pools))
+    x steps / s), ms a step, host ms a step, busy share, peak memory, a
+    finite falling loss, no gather_mean launch (the model gathers whole
+    feature rows); the adjacency build's share of a step; the graph
+    against eager steps at K = 32, bit for bit; then the same K = 32
+    timing and check over phase 9a's alias table (bench.py
+    --alias_sampler --layerwise)."""
+    r = {}
+    est = layerwise_estimator(store, table, graph, dev)
+    it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH,
+                     transform=lambda b: _on_card(b, est))
+    try:
+        r["k1"] = _drive_steps(est, it, "layerwise", work="pool_nodes",
+                               work_per_step=LW_NODES_PER_STEP,
+                               kernels_per_step=0, batch=LW_BATCH)
+        r["adjacency"] = adjacency_share(
+            est, it, r["k1"]["step_ms_median"],
+            r["k1"]["profile"]["device_busy_ms"])
+    finally:
+        it.close()
+    del est
+    for name, layout in (("split", None), ("alias", alias)):
+        est = layerwise_estimator(store, table, graph, dev, layout=layout,
+                                  steps_per_loop=LOOP_K)
+        it = make_feeder(est.train_input_fn(), workers=0,
+                         depth=FEEDER_DEPTH,
+                         transform=lambda b, e=est: _on_card(b, e))
+        try:
+            r[f"k32_{name}"] = _drive_loop(
+                est, it, LOOP_K, what=f"layerwise loop, {name}",
+                work="pool_nodes", work_per_step=LW_NODES_PER_STEP,
+                kernels_per_step=0, batch=LW_BATCH, n_windows=LW_WINDOWS)
+        finally:
+            it.close()
+        del est
+        r[f"graph_vs_eager_{name}"] = check_graph_vs_eager(
+            lambda k, lay=layout: layerwise_estimator(
+                store, table, graph, dev, layout=lay, steps_per_loop=k),
+            layerwise_estimator(store, table, graph, dev).train_input_fn(),
+            what=f"layerwise, {name}")
+    launches = [r["k1"]["gather_mean_launches"],
+                r["k32_split"]["gather_mean_device_launches"],
+                r["k32_alias"]["gather_mean_device_launches"]]
+    log(f"layerwise: gather_mean launches {launches} (K = 1, K = 32 split, "
+        f"K = 32 alias): the model reads whole feature rows")
+    return r
+
+
+def _mp_step_grads(model, raw, dev):
+    """One eval-mode forward (no dropout) and backward of a citation
+    model on a host batch: (loss, {name: gradient on the host})."""
+    model = model.to(dev).eval()
+    model.zero_grad(set_to_none=True)
+    out = model(base_estimator._to_device(raw, dev))
+    out.loss.backward()
+    return float(out.loss.detach()), {k: p.grad.detach().cpu()
+                             for k, p in model.named_parameters()}
+
+
+def check_mp_repeats(make_estimator, what: str, steps: int = 3) -> bool:
+    """Two trainings of `steps` steps from the same weights, engine seed
+    and dropout stream on the card: the same losses and parameters, bit
+    for bit (mp_ops' sums on CUDA are sorted segment sums, not
+    atomics)."""
+    runs = []
+    for _ in range(2):
+        est = make_estimator()
+        seed_engine(1)
+        res = est.train(est.train_input_fn, max_steps=steps)
+        runs.append((res["losses"], est.model.state_dict()))
+    (la, sa), (lb, sb) = runs
+    same = la == lb and all(torch.equal(v, sb[k]) for k, v in sa.items())
+    log(f"fullbatch {what}: {steps} steps twice from the same weights "
+        f"and draws: bit for bit {same}")
+    if not same:
+        raise AssertionError(f"fullbatch {what}: two runs of the same "
+                             f"steps differ: losses {la} vs {lb}")
+    return same
+
+
+def phase_fullbatch(dev) -> dict:
+    """Full-batch message passing on the pubmed stand-in through
+    FullBatchDataFlow (the whole graph and its 500-dim features in every
+    batch, copied to the card each step as the reference's
+    _to_device_tree copies it): for the runners' GCN and GAT (8 heads)
+    models, one step's loss and gradients on the card against the CPU
+    from the same weights and batch (eval mode: the card's and the CPU's
+    dropout bits differ): the loss within rtol 1e-4, the gradients
+    within 1e-5 of the largest (the card's segment sums add in another
+    order); 3 steps twice on the card, bit for bit (check_mp_repeats);
+    then MP_TIMED timed steps at the runner's
+    defaults: ms a step, the host's batch build and the host-to-device
+    copy a step and their shares, the busy share of one profiled step,
+    a finite loss, no skipped step and no gather_mean launch."""
+    data = get_dataset(MP_DATASET)
+    g = data.engine
+    flow = full_batch_flow(data)
+    cpu = torch.device("cpu")
+    out = {}
+    for conv, cfg in MP_MODELS.items():
+        def model():
+            return ConvModel(data.num_classes, data.feature_dim, conv,
+                             dim=cfg["dim"], conv_kwargs=cfg["kw"],
+                             dropout=cfg["dropout"],
+                             generator=torch.Generator().manual_seed(0))
+        seed_engine(0)
+        roots = g.sample_node(MP_BATCH, 0)
+        raw = {**flow(roots), "labels": g.get_dense_feature(
+            roots, "label", data.num_classes)}
+        (lc, gc), (lp, gp) = (_mp_step_grads(model(), raw, d)
+                              for d in (dev, cpu))
+        gerr = max(max_abs_err(gc[k], v) / max(float(v.abs().max()), 1e-30)
+                   for k, v in gp.items())
+        lerr = abs(lc - lp) / abs(lp)
+        log(f"fullbatch {conv}: card vs CPU on one {MP_DATASET} batch: loss "
+            f"{lc:.6f} vs {lp:.6f} (rel {lerr:.3g}, tol 1e-4), gradients "
+            f"max err {gerr:.3g} of the largest (tol 1e-5)")
+        if not (lerr <= 1e-4 and gerr <= 1e-5):
+            raise AssertionError(f"fullbatch {conv}: the card disagrees "
+                                 "with the CPU")
+
+        def estimator():
+            return NodeEstimator(
+                model(), dict(batch_size=MP_BATCH, learning_rate=cfg["lr"],
+                              weight_decay=cfg["wd"], log_steps=1 << 30,
+                              checkpoint_steps=0, seed=0),
+                g, flow, label_fid="label", label_dim=data.num_classes,
+                device=dev)
+        repeat = check_mp_repeats(estimator, conv)
+        est = estimator()
+        it = est.train_input_fn()
+        gather_mean.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = est.train(it, max_steps=MP_WARMUP)["losses"]
+        build_ms, copy_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            b = next(it)
+            t1 = time.perf_counter()
+            _on_card(b, est)
+            torch.cuda.synchronize()
+            build_ms.append((t1 - t0) * 1e3)
+            copy_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = est.train(it, max_steps=MP_WARMUP + MP_TIMED)
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t0) * 1e3 / MP_TIMED
+        losses += res["losses"]
+        prof = profile_device(lambda: est._train_step(_on_card(next(it),
+                                                               est)),
+                              f"one full-batch {conv} step on "
+                              f"{MP_DATASET}")
+        if not np.isfinite(losses).all() or res["skipped_steps"] \
+                or gather_mean.launches:
+            raise AssertionError(f"fullbatch {conv}: losses {losses}, "
+                                 f"{res['skipped_steps']} skipped, "
+                                 f"{gather_mean.launches} launches")
+        b_ms, c_ms = statistics.median(build_ms), statistics.median(copy_ms)
+        x_bytes = int(np.asarray(raw["x"]).nbytes)
+        out[conv] = {
+            "loss_rel_err": lerr, "grad_err": gerr, "losses": losses,
+            "ms_per_step": step_ms, "host_build_ms": b_ms,
+            "host_to_device_ms": c_ms, "host_to_device_share": c_ms / step_ms,
+            "host_build_share": b_ms / step_ms,
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_busy_share": prof["device_busy_ms"] / step_ms,
+            "x_bytes": x_bytes, "repeats_bit_for_bit": repeat,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "gather_mean_launches": gather_mean.launches, "profile": prof}
+        log(f"fullbatch {conv}: {MP_TIMED} steps on {MP_DATASET} "
+            f"({g.node_count} nodes, x {x_bytes} bytes a batch): "
+            f"{step_ms:.2f} ms a step; host batch build {b_ms:.2f} ms "
+            f"({b_ms / step_ms:.1%}), host-to-device copy {c_ms:.2f} ms "
+            f"({c_ms / step_ms:.1%}); device busy "
+            f"{prof['device_busy_ms']:.3f} ms a step "
+            f"({prof['device_busy_ms'] / step_ms:.1%}); loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; gather_mean launches "
+            f"{gather_mean.launches}")
+        del est, it
+    return out
+
+
+def phase_mp_quality() -> dict:
+    """The layerwise and message-passing runners on the card, seeds 0-2,
+    their defaults on cora, in one process over one cora engine (and
+    one FullBatchDataFlow static batch, common.shared_graphs), against
+    their RESULTS.md rows and the JAX package's own 10-seed means
+    (MP_QUALITY). Fails on a non-finite run, a skipped step, a mean
+    below MP_FLOOR, or a mean that meets neither gate."""
+    mods = {"run_fastgcn": run_fastgcn, "run_gcn": run_gcn,
+            "run_gat": run_gat, "run_appnp": run_appnp,
+            "run_agnn": run_agnn, "run_arma": run_arma,
+            "run_sgcn": run_sgcn, "run_tagcn": run_tagcn,
+            "run_adaptivegcn": run_adaptivegcn, "run_dna": run_dna}
+    out = {}
+    with common.shared_graphs():
+        for name, (runner, argv, row, ref, ref_sd, port_sd) in \
+                MP_QUALITY.items():
+            vals, secs = [], []
+            for seed in QUALITY_SEEDS:
+                res, dt = _quiet_run(mods[runner],
+                                     [*argv, "--seed", str(seed)],
+                                     f"{name} seed {seed}")
+                vals.append(float(res["test_metric"]))
+                secs.append(dt)
+            mean = float(np.mean(vals))
+            se = float(np.sqrt(port_sd ** 2 / len(vals) + ref_sd ** 2 / 10))
+            row_met = abs(mean - row) <= QUALITY_BAND
+            ref_met = abs(mean - ref) <= 2 * se
+            log(f"quality: {name}: test micro-F1 "
+                + ", ".join(f"{v:.4f}" for v in vals)
+                + f" (seeds {list(QUALITY_SEEDS)}, "
+                + ", ".join(f"{x:.1f}s" for x in secs)
+                + f"), mean {mean:.4f}; RESULTS.md row {row} +- "
+                f"{QUALITY_BAND}: {'met' if row_met else 'not met'}; the "
+                f"reference's 10-seed mean {ref} +- 2 standard errors "
+                f"{2 * se:.4f}: {'met' if ref_met else 'not met'}")
+            if not mean >= MP_FLOOR:
+                raise AssertionError(f"{name}: mean {mean} < {MP_FLOOR}")
+            if not (row_met or ref_met):
+                raise AssertionError(f"{name}: mean {mean} meets neither "
+                                     "quality gate")
+            out[name] = {"values": vals, "seconds": secs, "mean": mean,
+                         "row": row, "row_met": row_met, "oracle": ref,
+                         "two_se": 2 * se, "oracle_met": ref_met}
+    return out
+
+
 def phase_hostfed_quality() -> dict:
     """The port's host-fed runners on the card, seeds 0-2, against their
     RESULTS.md rows and the JAX package's own 10-seed means
@@ -2306,6 +2676,103 @@ def phase_serve(v1, dir_v1: str, v2, dir_v2: str, root: str,
     return out
 
 
+# the quality phases run in two worker processes, started after the
+# build and joined before the first timed phase: their runs are small on
+# the card and bound by the host, so they overlap the host-bound graph
+# set-up (phase 3) and no timed phase. The layerwise and message-passing
+# runners share one process (one cora engine, common.shared_graphs).
+QUALITY_WORKERS = (("quality", "slice7_quality", "unsup_quality",
+                    "hostfed_quality"), ("mp_quality",))
+
+
+def run_quality_group(names) -> dict:
+    """The quality phases `names` in this process, TF32 off as phase 1
+    sets it; {name: record}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phases = {"quality": phase_quality,
+              "slice7_quality": phase_slice7_quality,
+              "unsup_quality": phase_unsup_quality,
+              "hostfed_quality": phase_hostfed_quality,
+              "mp_quality": phase_mp_quality}
+    out, t0 = {}, time.monotonic()
+    for name in names:
+        out[name] = phases[name]()
+        log(f"[{time.monotonic() - t0:.1f}s in its worker] {name} done")
+    return out
+
+
+def _quality_worker(names, conn) -> None:
+    """A quality worker's body: run_quality_group with its log captured;
+    sends ("ok", records, log) or ("error", traceback, log)."""
+    import traceback
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = run_quality_group(names)
+        conn.send(("ok", out, buf.getvalue()))
+    except BaseException:  # the parent reports it and fails the run
+        conn.send(("error", traceback.format_exc(), buf.getvalue()))
+    finally:
+        conn.close()
+
+
+def start_quality_workers() -> list:
+    """One spawned process per QUALITY_WORKERS group, each with its own
+    CUDA context; [(names, process, pipe)]."""
+    ctx = multiprocessing.get_context("spawn")
+    workers = []
+    for names in QUALITY_WORKERS:
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_quality_worker, args=(names, send),
+                           daemon=True)
+        proc.start()
+        send.close()
+        workers.append((names, proc, recv))
+    return workers
+
+
+def finish_quality_workers(workers, record: dict) -> None:
+    """Wait for every worker, print its log, merge its records; raise if
+    one failed or died."""
+    failed = []
+    for names, proc, recv in workers:
+        try:
+            status, payload, text = recv.recv()
+        except EOFError:
+            proc.join()
+            status, payload, text = "error", (
+                f"the worker of {names} died (exit code {proc.exitcode}) "
+                "and sent nothing"), ""
+        proc.join()
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        if status == "ok":
+            record.update(payload)
+        else:
+            failed.append(payload)
+    if failed:
+        raise AssertionError("a quality worker failed:\n"
+                             + "\n".join(failed))
+
+
+def stop_quality_workers(workers) -> None:
+    """Stop any worker still running (the run failed before joining)."""
+    for _, proc, _ in workers:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+
+
+def mark(record: dict, what: str, t_start: float) -> None:
+    """The seconds from the start to the end of a phase, logged and
+    kept in the record (phase_end_seconds)."""
+    t = time.monotonic() - t_start
+    record.setdefault("phase_end_seconds", {})[what] = t
+    log(f"[{t:.1f}s] {what} done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2325,7 +2792,14 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     record = {"device": phase_device()}
     record["build"], baseline = phase_build(args.baseline_source)
-    store, table, graph, record["graph"] = phase_graph(dev)
+    workers = start_quality_workers()
+    try:
+        store, table, graph, record["graph"] = phase_graph(dev)
+        mark(record, "graph", t_start)
+        finish_quality_workers(workers, record)
+        mark(record, "quality (workers beside the graph set-up)", t_start)
+    finally:
+        stop_quality_workers(workers)
     model = DeviceSampledGraphSage(
         NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
         uniform_sampling=table.uniform_rows,
@@ -2344,6 +2818,7 @@ def main(argv=None) -> int:
                                       cache_rows)
     del deepest, probe, cache_rows
     record["slice"], ids, emb = phase_slice(inf, model)
+    mark(record, "kernels, slice", t_start)
     del ids, emb
     record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     bundles = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2354,9 +2829,11 @@ def main(argv=None) -> int:
     record["train"], est = phase_train(store, table, graph, dev)
     record["export_v1"], v1 = phase_export(est, dir_v1, "v1",
                                            "v1 (phase 6's weights)")
+    mark(record, "train, export v1", t_start)
     record["loop"], est = phase_loop(store, table, graph, dev)
     record["export_v2"], v2 = phase_export(est, dir_v2, "v2",
                                            "v2 (the K = 32 phase's weights)")
+    mark(record, "loop, export v2", t_start)
     del est
     record["loop"]["graph_vs_eager"] = check_graph_vs_eager(
         lambda k: flagship_estimator(store, table, graph, dev,
@@ -2364,16 +2841,20 @@ def main(argv=None) -> int:
         flagship_estimator(store, table, graph, dev).train_input_fn())
     record["loop_extra"] = [phase_loop(store, table, graph, dev, k)[0]
                             for k in args.extra_loop_k]
+    mark(record, "loop graph vs eager", t_start)
     # the unsupervised family on the same graph: negatives over every
     # node's unit weight, as bench.py builds them (bench.py:411-419)
     neg = DeviceNodeSampler(graph, node_type=-1, device=dev)
     record["unsup"] = phase_unsup(store, table, neg, graph, dev)
+    mark(record, "unsup", t_start)
     record["walk"] = phase_walk(table, neg, graph, dev)
     record["embedding_backward"] = probe_embedding_backward(table, dev)
+    mark(record, "walk", t_start)
     # slice 7: the fused and alias layouts of the same table, the
     # flagship over each, the activation cache, the unsupervised family
     # over the alias layout
     record["layouts"], fused, alias = phase_layouts(table, dev)
+    mark(record, "layouts", t_start)
     record["fused"] = phase_layout_flagship(
         store, table, graph, dev, fused, "fused",
         against=("split weighted", lambda k: flagship_estimator(
@@ -2381,16 +2862,22 @@ def main(argv=None) -> int:
             steps_per_loop=k)))
     record["alias"] = phase_layout_flagship(store, table, graph, dev,
                                             alias, "alias")
+    mark(record, "fused, alias", t_start)
     record["act_cache"] = phase_act_cache(store, table, graph, dev)
+    mark(record, "act cache", t_start)
     record["alias_unsup"] = phase_alias_unsup(store, table, neg, alias,
                                               graph, dev)
     record["hostfed"] = phase_hostfed(store, graph, dev)
+    mark(record, "alias family, host-fed", t_start)
+    # slice 9: the layerwise family on the same tables (split and alias),
+    # then full-batch message passing on the pubmed stand-in
+    record["layerwise"] = phase_layerwise(store, table, graph, alias, dev)
+    mark(record, "layerwise", t_start)
     del neg, fused, alias
-    record["quality"] = phase_quality()
-    record["slice7_quality"] = phase_slice7_quality()
-    record["unsup_quality"] = phase_unsup_quality()
-    record["hostfed_quality"] = phase_hostfed_quality()
+    record["fullbatch"] = phase_fullbatch(dev)
+    mark(record, "fullbatch", t_start)
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
+    mark(record, "small", t_start)
     # the training tables go before the bundles' tables go on the card
     del store, table, graph, inf, model
     gc.collect()
@@ -2399,6 +2886,7 @@ def main(argv=None) -> int:
         f"after freeing the training tables")
     try:
         record["serve"] = phase_serve(v1, dir_v1, v2, dir_v2, bundles, dev)
+        mark(record, "serve", t_start)
     finally:
         shutil.rmtree(bundles, ignore_errors=True)
     main_case = record["kernels"]["cases"][0]
@@ -2449,6 +2937,14 @@ def main(argv=None) -> int:
         "alias_walk_launches_per_replay":
             record["alias_unsup"]["walk"]["gather_mean_launches_per_replay"],
         "hostfed_launches": record["hostfed"]["gather_mean_launches"],
+        "layerwise_launches": record["layerwise"]["k1"][
+            "gather_mean_launches"],
+        "layerwise_loop_device_launches": record["layerwise"]["k32_split"][
+            "gather_mean_device_launches"],
+        "layerwise_alias_loop_device_launches": record["layerwise"][
+            "k32_alias"]["gather_mean_device_launches"],
+        "fullbatch_launches": sum(r["gather_mean_launches"]
+                                  for r in record["fullbatch"].values()),
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

@@ -14,11 +14,16 @@ DeviceSampledScalableSage's encoder/w_{l}, the host-fed
 SupervisedGraphSage's encoder/agg_{d}/... and out/..., the host-fed
 UnsupervisedGraphSage's encoder/agg_{d}/... and ctx_emb/table, or the
 host-fed DeepWalk's and LINE's emb/table and ctx/table (LINE order 1:
-emb/table alone), maps to the port's
+emb/table alone), the layerwise models' encoder/w_{i}/kernel (or the
+FastGCN runner's enc/w_{i}/kernel), or the conv stacks'
+gnn/<Conv>_{i}/... (lin/kernel, bias, att_src, att_dst, beta, eps,
+lin_{k}, v_{s}_{t}, w_{s}_{t}, mlp_{i}, q/k/v, lin_root, lin_nbr) and
+the DNA runner's proj and dna_{i}, maps to the port's
 state_dict keys by joining the path with "." and renaming kernel →
 weight. Flax kernels are [in, out]; the port's weights are [out, in],
 so kernels are transposed both ways. Tables [rows, dim] and other
-vectors (AttLayer's query) keep their layout.
+vectors (AttLayer's query, GAT's att_src / att_dst [1, H, D], AGNN's
+beta, GIN's eps, a conv's bias) keep their layout.
 
 The scalable models' `cache` collection (encoder/cache_{l}/h, float32
 or bfloat16 rows) is the port's buffers encoder.cache_{l}.h: it comes
@@ -36,6 +41,8 @@ import numpy as np
 import torch
 
 _CACHE_LEAF = "h"
+# leaves other than Dense kernels, which keep their layout
+_PLAIN = ("bias", "table", "query", "att_src", "att_dst", "beta", "eps")
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -82,7 +89,7 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                                  f"convert, got shape {arr.shape}")
             out[".".join(scope + ["weight"])] = torch.from_numpy(
                 np.ascontiguousarray(arr.T))
-        elif name in ("bias", "table", "query"):
+        elif name in _PLAIN:
             out[".".join(scope + [name])] = torch.from_numpy(arr.copy())
         else:
             raise ValueError(f"{'/'.join(path)}: unknown param {name!r}")
@@ -107,7 +114,7 @@ def state_dict_to_flax_variables(state_dict: Mapping[str, torch.Tensor]
             node, arr = tree["params"], t.detach().cpu().numpy()
             if name == "weight":
                 name, arr = "kernel", np.ascontiguousarray(arr.T)
-            elif name not in ("bias", "table", "query"):
+            elif name not in _PLAIN:
                 raise ValueError(f"{key}: unknown param {name!r}")
         for s in scope:
             node = node.setdefault(s, {})

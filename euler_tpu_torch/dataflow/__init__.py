@@ -1,7 +1,8 @@
 """Host-side batch builders over the graph engine (counterpart of
-euler_tpu/dataflow: the fanout flow; the whole, full-batch, layerwise
-and relation flows wait for the slices that own their models)."""
+euler_tpu/dataflow: the fanout, whole, full-batch and layerwise flows;
+the relation flow waits for the relational slice)."""
 
 from euler_tpu_torch.dataflow.base_dataflow import (  # noqa: F401
-    DataFlow, FanoutDataFlow,
+    DataFlow, FanoutDataFlow, FastGCNDataFlow, FullBatchDataFlow,
+    LayerwiseDataFlow, WholeDataFlow,
 )

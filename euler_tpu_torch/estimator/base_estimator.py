@@ -234,7 +234,12 @@ class BaseEstimator:
     # -- the step ----------------------------------------------------------
     @property
     def uses_dropout(self) -> bool:
-        return getattr(self.model, "dropout", 0.0) > 0.0
+        """Whether a training step needs a dropout generator: any of the
+        model's modules with a `dropout` rate above 0 (the embedding's,
+        SuperviseModel.dropout, or an encoder's or conv stack's input
+        dropout)."""
+        return any(getattr(m, "dropout", 0.0) > 0.0
+                   for m in self.model.modules())
 
     def dropout_seed(self, step: int) -> int:
         # the last word keeps this stream apart from the sampling stream

@@ -12,7 +12,11 @@ batch through one of three input paths, as the reference does:
   ("rows"; bench.py --host_sampler's path), labels from the store's
   label table or, without one, from the engine;
 - the device sampler (a feature_store and a device_sampler): root rows
-  and a sample seed; the model draws the fanout on the device.
+  and a sample seed; the model draws the fanout on the device. With
+  eval_via_flow, evaluation and inference batches instead come from the
+  host eval_dataflow (FastGCN trains on pools drawn on the device and
+  evaluates on the host flow's exact 1-hop closures), labels from the
+  engine.
 
 Device-sampler seeds come in two streams, seed = stream<<31 | counter:
 stream 0 for training, stream 1 for evaluation and inference, so how
@@ -44,15 +48,24 @@ class NodeEstimator(BaseEstimator):
     (default dataflow). label_fid / label_dim: the engine's dense label
     feature. feature_store: a DeviceFeatureStore (batches carry rows
     into its tables); device_sampler: a DeviceNeighborTable (needs the
-    store). params: batch_size (32), train_node_type (0),
-    eval_node_type (1), infer_node_type (-1 = all nodes), and
-    BaseEstimator's keys."""
+    store); eval_via_flow: with a device_sampler, evaluation and
+    inference go through the host eval_dataflow (the reference's
+    estimators.py:26-65, 90-105). params: batch_size (32),
+    train_node_type (0), eval_node_type (1), infer_node_type (-1 = all
+    nodes), and BaseEstimator's keys."""
 
     def __init__(self, model, params: Dict[str, Any], graph, dataflow,
                  label_fid="label", label_dim: Optional[int] = None,
                  model_dir: Optional[str] = None, feature_store=None,
                  eval_dataflow=None, device_sampler=None,
-                 device: DeviceLike = None):
+                 eval_via_flow: bool = False, device: DeviceLike = None):
+        if eval_via_flow and device_sampler is None:
+            raise ValueError("eval_via_flow only applies with a "
+                             "device_sampler (host mode already "
+                             "evaluates through the flow)")
+        if eval_via_flow and (eval_dataflow or dataflow) is None:
+            raise ValueError("eval_via_flow needs an eval_dataflow (or "
+                             "dataflow) to build the host eval batches")
         if device_sampler is not None and feature_store is None:
             raise ValueError("device_sampler requires a feature_store")
         super().__init__(model, params, model_dir, device)
@@ -73,6 +86,7 @@ class NodeEstimator(BaseEstimator):
         self.infer_node_type = int(cfg.get("infer_node_type", -1))
         self.feature_store = feature_store
         self.device_sampler = device_sampler
+        self.eval_via_flow = bool(eval_via_flow)
         self._seed_counters = {_TRAIN_STREAM: 0, _EVAL_STREAM: 0}
         self._split_cache: Dict[int, np.ndarray] = {}
         if feature_store is not None:
@@ -95,6 +109,14 @@ class NodeEstimator(BaseEstimator):
         configured (device sampler / feature store / host arrays)."""
         store = self.feature_store
         if self.device_sampler is not None:
+            if self.eval_via_flow and stream == _EVAL_STREAM:
+                # the host protocol's whole batch (levels, adjacencies,
+                # features) goes to the device as it is; labels from the
+                # engine (the batch carries no rows into the label table)
+                batch = flow(roots)
+                batch["labels"] = self._labels(roots)
+                batch["infer_ids"] = roots
+                return batch
             return self._sampler_batch(roots, stream)
         batch = flow(roots)
         if store is not None:

@@ -1,0 +1,26 @@
+"""AGNN on a citation stand-in (counterpart of
+examples/agnn/run_agnn.py, with the same defaults).
+
+    python -m euler_tpu_torch.examples.run_agnn [--dataset cora] \\
+        [--seed 0] [--device cpu]
+
+BaseGNNNet('agnn') over FullBatchDataFlow in a NodeEstimator
+(common.run_citation); prints the result dict of fit_citation
+(test_metric is the test split's micro-F1 at the best-val weights).
+--seed seeds the engine's root draws, the init and the dropout.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+from euler_tpu_torch.examples.common import citation_argparser, run_citation
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    args = citation_argparser().parse_args(argv)
+    return run_citation("agnn", args, conv_kwargs=None)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """GraphSAGE models (counterpart of euler_tpu/models/graphsage.py:21-85,
-87-352, 404-488): `gather_feature_rows`, `_fanout_layers`,
+87-488): `gather_feature_rows`, `_fanout_layers`,
 `SupervisedGraphSage` and `UnsupervisedGraphSage` (host-fed),
 `_GatherEncode`, `DeviceSampledGraphSage`, `DeviceSampledScalableSage`
-with `refresh_act_cache`, and `DeviceSampledUnsupervisedSage`.
+with `refresh_act_cache`, `DeviceSampledLayerwiseGCN` and
+`DeviceSampledUnsupervisedSage`.
 
 The host-fed models read each hop's features from the batch: "layers"
 shipped from the host (the engine's features), or "rows" gathered from
@@ -46,6 +47,7 @@ from euler_tpu_torch.mp_utils.base import (
     ModelOutput, SuperviseModel, UnsuperviseModel, ranking_loss,
 )
 from euler_tpu_torch.ops.gather_mean import gather_mean, take_rows
+from euler_tpu_torch.parallel.device_layerwise import sample_layerwise_rows
 from euler_tpu_torch.parallel.device_sampler import (
     sample_hop, sample_hop_fused,
 )
@@ -53,8 +55,8 @@ from euler_tpu_torch.parallel.device_walk import sample_global_rows
 from euler_tpu_torch.parallel.feature_store import dequantize_rows
 from euler_tpu_torch.platform import seed_words
 from euler_tpu_torch.utils.encoders import (
-    GCNEncoder, GenieEncoder, SageEncoder, ScalableGCNEncoder,
-    ScalableSageEncoder,
+    GCNEncoder, GenieEncoder, LayerEncoder, SageEncoder,
+    ScalableGCNEncoder, ScalableSageEncoder,
 )
 from euler_tpu_torch.utils.layers import Embedding
 
@@ -458,6 +460,79 @@ def refresh_act_cache(est, n_rows: Optional[int] = None, chunk: int = 8192,
                 cache.h[live] = 0
     finally:
         model.refreshing = False
+
+
+class DeviceSampledLayerwiseGCN(SuperviseModel):
+    """FastGCN/LADIES with its sampling on the device (counterpart of
+    euler_tpu/models/graphsage.py:355-401): per-layer pools, the dense
+    adjacency between levels (parallel/device_layerwise.py) and the
+    feature rows of every level (gather_feature_rows: take_rows and the
+    int8 dequant; no neighbor mean, so no gather_mean) from the device
+    tables, then LayerEncoder ("encoder", Dense w_{i}). The batch holds
+    rows [roots int32], sample_seed and the tables, as
+    DeviceSampledGraphSage's; its sampling stream is seeded from (31,
+    sample_seed), as the reference's key(31). An optional
+    batch["sample_uniforms"] (one tensor per layer: [m_l], or [3, m_l]
+    with an alias table) replays a draw.
+
+    A host-built batch ("layers" and "adjs", NodeEstimator's
+    eval_via_flow) goes straight to the encoder: the FastGCN protocol
+    evaluates on exact 1-hop closures. A fused-only batch raises
+    ValueError (the pool weights come from the cum rows), as the
+    reference's does; row-sharded tables (table_mesh) are not ported.
+    layer_dropout: LayerEncoder's input dropout per layer; dropout:
+    SuperviseModel's, on the embedding."""
+
+    stream_word = 31
+
+    def __init__(self, num_classes: int, in_dim: int,
+                 multilabel: bool = True, dim: int = 32,
+                 layer_sizes: Sequence[int] = (128, 128),
+                 layer_dropout: float = 0.0, dropout: float = 0.0,
+                 table_mesh=None,
+                 generator: Optional[torch.Generator] = None):
+        if table_mesh is not None:
+            raise NotImplementedError(
+                "row-sharded tables for device layerwise sampling are "
+                "not ported yet: ROADMAP.md Queue A, 'Multi-GPU'")
+        self.layer_sizes = tuple(int(m) for m in layer_sizes)
+        enc = LayerEncoder(in_dim, dim, len(self.layer_sizes),
+                           dropout=layer_dropout, generator=generator)
+        super().__init__(num_classes, multilabel, enc.out_dim,
+                         dropout=dropout, generator=generator)
+        self.encoder = enc
+        self._spec = {"num_classes": self.num_classes,
+                      "multilabel": self.multilabel, "dropout": self.dropout,
+                      "table_mesh": None, "dim": int(dim),
+                      "layer_dropout": float(layer_dropout)}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass
+        fields."""
+        return {"model_class": "DeviceSampledLayerwiseGCN", **self._spec}
+
+    def sample_levels(self, batch: Dict[str, Any]):
+        """(levels, adjs) of this batch's layerwise draw."""
+        if batch.get("nbrcum_table") is not None:
+            raise ValueError(
+                "DeviceSampledLayerwiseGCN needs the split nbr/cum "
+                "tables (pool weights come from the cum rows) — build "
+                "DeviceNeighborTable with fused=False")
+        roots = batch["rows"][0]
+        uniforms = batch.get("sample_uniforms")
+        gen = None if uniforms is not None else batch_stream(
+            batch, roots.device, self.stream_word)
+        return sample_layerwise_rows(
+            batch["nbr_table"], batch["cum_table"], roots, self.layer_sizes,
+            generator=gen, uniforms=uniforms,
+            alias_table=batch.get("alias_table"))
+
+    def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
+        gen = batch.get("dropout_generator")
+        if batch.get("adjs") is not None:
+            return self.encoder(batch["layers"], batch["adjs"], gen)
+        levels, adjs = self.sample_levels(batch)
+        return self.encoder(gather_feature_rows(batch, levels), adjs, gen)
 
 
 class DeviceSampledUnsupervisedSage(nn.Module):

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from euler_tpu_torch.utils import metrics as M
-from euler_tpu_torch.utils.layers import Dense, Embedding
+from euler_tpu_torch.utils.layers import Dense, Embedding, dropout
 from euler_tpu_torch.utils.losses import sigmoid_binary_cross_entropy
 
 
@@ -54,22 +54,10 @@ class SuperviseModel(nn.Module):
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
         raise NotImplementedError
 
-    def _drop(self, emb: torch.Tensor, gen: Optional[torch.Generator]
-              ) -> torch.Tensor:
-        """flax nn.Dropout: keep with probability 1-p, scale kept units
-        by 1/(1-p)."""
-        if gen is None:
-            raise ValueError("dropout in training mode needs the batch's "
-                             "dropout_generator (the estimator's step "
-                             "stream)")
-        keep_p = 1.0 - self.dropout
-        u = torch.rand(emb.shape, generator=gen, device=emb.device)
-        return torch.where(u < keep_p, emb / keep_p, torch.zeros_like(emb))
-
     def forward(self, batch: Dict[str, Any]) -> ModelOutput:
         emb = self.embed(batch)
         if self.dropout > 0.0 and self.training:
-            emb = self._drop(emb, batch.get("dropout_generator"))
+            emb = dropout(emb, self.dropout, batch.get("dropout_generator"))
         labels = batch.get("labels")
         if labels is None:
             labels = batch["label_table"][batch["rows"][0].long()]

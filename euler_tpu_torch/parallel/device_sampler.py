@@ -28,6 +28,8 @@ built here is byte-identical to the reference's from the same CSR.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -42,6 +44,8 @@ _ROADMAP_SHARDED = "not ported yet: ROADMAP.md Queue A, 'Multi-GPU'"
 # arrays a chunk, so it chunks finer.
 _CHUNK_ROWS = 262_144
 _ALIAS_CHUNK_ROWS = 32_768
+# rows a thread fills at a time in a table build (_fill_table_parallel)
+_FILL_CHUNK_ROWS = 16_384
 
 # Packed alias word layout (reference: the note at ALIAS_SENTINEL): one
 # int32 per slot, bits 16..30 the alias column, bits 0..15 the
@@ -135,6 +139,32 @@ def _fill_table_rows(C: int, pad: int, global_rows: np.ndarray,
             nbr_tab[dead] = pad
             w_tab[dead] = 0.0
     return nbr_tab, w_tab
+
+
+def _fill_table_parallel(C: int, offsets: np.ndarray, nbr_rows: np.ndarray,
+                         ws: np.ndarray, seed: int, out_nbr: np.ndarray,
+                         out_w: np.ndarray) -> None:
+    """_fill_table_rows over every row of a CSR, in chunks of
+    _FILL_CHUNK_ROWS rows filled by a pool of threads (numpy releases
+    the GIL in its sorts and elementwise passes). A row's slots depend
+    only on its own edges and its global row (the per-edge uniforms are
+    stateless), so the tables equal one pass over all rows byte for
+    byte, as the reference builds them."""
+    n = len(offsets) - 1
+    bounds = list(range(0, n, _FILL_CHUNK_ROWS)) + [n]
+
+    def fill(lo: int, hi: int) -> None:
+        a, b = int(offsets[lo]), int(offsets[hi])
+        _fill_table_rows(C, n, np.arange(lo, hi, dtype=np.int64),
+                         np.diff(offsets[lo:hi + 1]), nbr_rows[a:b],
+                         ws[a:b], seed, out_nbr=out_nbr[lo:hi],
+                         out_w=out_w[lo:hi])
+
+    chunks = list(zip(bounds[:-1], bounds[1:]))
+    with ThreadPoolExecutor(min(len(chunks), os.cpu_count() or 1)
+                            or 1) as pool:
+        for f in [pool.submit(fill, lo, hi) for lo, hi in chunks]:
+            f.result()
 
 
 def _detect_uniform_rows(nbr_tab: np.ndarray, w_tab: np.ndarray,
@@ -276,7 +306,8 @@ def build_alias_tables(nbr_tab: np.ndarray,
     copy is made.
 
     Copy of euler_tpu/parallel/device_sampler.py:build_alias_tables,
-    without its rows-rebuilt counter."""
+    without its rows-rebuilt counter, its row blocks built on a pool of
+    threads."""
     if (cum_tab is None) == (w_tab is None):
         raise ValueError(
             "build_alias_tables needs exactly one of cum_tab / w_tab")
@@ -287,8 +318,10 @@ def build_alias_tables(nbr_tab: np.ndarray,
             f"must be <= 255, got {C}")
     pad = n_rows - 1
     out = np.empty((n_rows, C), dtype=np.int32)
-    for lo in range(0, n_rows, max(int(chunk_rows), 1)):
-        hi = min(lo + max(int(chunk_rows), 1), n_rows)
+    step = max(int(chunk_rows), 1)
+
+    def block(lo: int) -> None:
+        hi = min(lo + step, n_rows)
         nb = np.asarray(nbr_tab[lo:hi])
         if w_tab is not None:
             w = np.asarray(w_tab[lo:hi]).astype(np.float32, copy=False)
@@ -298,6 +331,14 @@ def build_alias_tables(nbr_tab: np.ndarray,
             w = np.diff(cc, axis=1,
                         prepend=np.zeros((cc.shape[0], 1), np.float32))
         out[lo:hi] = _alias_rows_block(nb, w, pad)
+
+    # each row block is independent: a pool of threads builds them
+    # (numpy releases the GIL in its passes), the words unchanged
+    starts = range(0, n_rows, step)
+    with ThreadPoolExecutor(min(len(starts), os.cpu_count() or 1)
+                            or 1) as pool:
+        for f in [pool.submit(block, lo) for lo in starts]:
+            f.result()
     return out
 
 
@@ -381,9 +422,8 @@ class DeviceNeighborTable:
         C = int(cap)
         nbr_tab = np.full((n + 1, C), n, dtype=np.int32)
         w_tab = np.zeros((n + 1, C), dtype=np.float32)
-        _fill_table_rows(C, n, np.arange(n, dtype=np.int64), deg,
-                         nbr_rows, ws, seed,
-                         out_nbr=nbr_tab[:n], out_w=w_tab[:n])
+        _fill_table_parallel(C, offsets, nbr_rows, ws, seed,
+                             out_nbr=nbr_tab[:n], out_w=w_tab[:n])
         stats = {
             "hub_frac": float((deg > C).mean()) if n else 0.0,
             "edge_keep_frac": float(np.minimum(deg, C).sum()

@@ -1,7 +1,7 @@
 """Fanout encoders (counterpart of euler_tpu/utils/encoders.py:58-339):
 `SageEncoder`, `GCNEncoder`, `GenieEncoder`, and the activation-cache
 pair `ScalableGCNEncoder` / `ScalableSageEncoder` with `_ema_update`
-and `_ScalableCache`.
+and `_ScalableCache`; and the layerwise `LayerEncoder` (:255-279).
 
 The fanout encoders that reduce the deepest hop with a plain mean (sage
 with the mean aggregator, gcn) also take that hop as its neighbor mean
@@ -26,7 +26,7 @@ from torch import nn
 from euler_tpu_torch.ops.gather_mean import gather_mean
 from euler_tpu_torch.utils.aggregators import get_aggregator
 from euler_tpu_torch.utils.layers import (
-    AttLayer, Dense, LSTMLayer, bucketize_ids,
+    AttLayer, Dense, Dropout, LSTMLayer, bucketize_ids,
 )
 
 
@@ -393,3 +393,41 @@ class ScalableSageEncoder(_ScalableEncoder):
     @staticmethod
     def _combine(w, h_self, m, k):
         return w(torch.cat([h_self, m.to(h_self.dtype)], dim=-1))
+
+
+class LayerEncoder(nn.Module):
+    """The layerwise (FastGCN/LADIES) encoder: h_{l} = Â_l · W_l(h_{l+1})
+    from the deepest pool up, relu between layers, no bias (Dense
+    `w_{i}`). layers[l]: the level-l features [m_l, D], layers[-1] the
+    deepest pool, layers[0] the batch nodes; adjs[l]: the dense
+    row-normalized [m_l, m_{l+1}] adjacency between levels (built by
+    LayerwiseDataFlow or sample_layerwise_rows). dropout: the input
+    dropout before each layer (the standard FastGCN setup), in training
+    mode only, drawn from `generator`."""
+
+    def __init__(self, in_dim: int, dim: int, num_layers: int,
+                 dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = int(num_layers)
+        self.drop = Dropout(dropout)
+        self.out_dim = int(dim)
+        for i in range(self.num_layers):
+            width = in_dim if i == self.num_layers - 1 else dim
+            self.add_module(f"w_{i}", Dense(width, dim, use_bias=False,
+                                            generator=generator))
+
+    def forward(self, layers: Sequence[torch.Tensor],
+                adjs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if len(adjs) != self.num_layers or len(layers) != len(adjs) + 1:
+            raise ValueError(f"need {self.num_layers} adjacencies and "
+                             f"{self.num_layers + 1} levels, got "
+                             f"{len(adjs)} and {len(layers)}")
+        h = layers[-1]
+        for i in range(self.num_layers - 1, -1, -1):
+            h = self.drop(h, generator)
+            h = adjs[i] @ getattr(self, f"w_{i}")(h)
+            if i > 0:
+                h = torch.relu(h)
+        return h

@@ -45,6 +45,36 @@ class Dense(nn.Module):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout in training: keep each unit with probability
+    1 - rate, scaled by 1 / (1 - rate), the mask drawn from `generator`
+    (the batch's dropout_generator, the estimator's step stream). Its
+    bits are torch's, not JAX's."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs the batch's "
+                         "dropout_generator (the estimator's step "
+                         "stream)")
+    keep_p = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep_p, x / keep_p, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout as a module: `dropout` (the rate) in training
+    mode, the identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.dropout = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self.dropout <= 0.0 or not self.training:
+            return x
+        return dropout(x, self.dropout, generator)
+
+
 def bucketize_ids(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """Node ids → table rows: ids as int32, then modulo num_buckets with
     the sign of the divisor (floor mod, as jnp's `%`), so a negative id

@@ -101,6 +101,34 @@ def test_alias_tables_byte_identical(weighted, source, monkeypatch):
     assert (want[-1] == -1).all() and (want == -1).any(1).sum() > 5
 
 
+def test_table_fill_in_row_chunks_matches_one_pass(monkeypatch):
+    """The port fills a table's rows in chunks on a thread pool; with
+    chunks of 7 rows (hubs, zero-degree rows, zero-weight edges and a
+    dead hub among them) its tables equal the reference's one pass over
+    all rows byte for byte."""
+    rng = np.random.default_rng(5)
+    n = 90
+    deg = rng.integers(0, 3 * CAP, n)
+    deg[:4] = 0
+    offsets = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    nbrs = rng.integers(0, n, offsets[-1]).astype(np.int32)
+    ws = rng.uniform(0.0, 3.0, len(nbrs)).astype(np.float32)
+    ws[rng.random(len(nbrs)) < 0.1] = 0.0
+    hub = int(np.argmax(deg))
+    ws[offsets[hub]:offsets[hub + 1]] = 0.0
+    want_nbr = np.full((n + 1, CAP), n, np.int32)
+    want_w = np.zeros((n + 1, CAP), np.float32)
+    J._fill_table_rows(CAP, n, np.arange(n, dtype=np.int64), deg, nbrs, ws,
+                       3, out_nbr=want_nbr[:n], out_w=want_w[:n])
+    monkeypatch.setattr(P, "_FILL_CHUNK_ROWS", 7)
+    tab = P.DeviceNeighborTable.from_csr(offsets, nbrs, ws, cap=CAP, seed=3,
+                                         device="cpu", keep_host=True)
+    got_nbr, got_cum = tab.host_tables
+    assert got_nbr.tobytes() == want_nbr.tobytes()
+    assert got_cum.tobytes() == np.cumsum(want_w, axis=1,
+                                          dtype=np.float32).tobytes()
+
+
 def _alias_uniforms(key, n, count):
     return np.array(jax.random.uniform(key, (2, n, count)))
 

@@ -896,3 +896,164 @@ def test_cuda_flagship_step_over_engine_tables_launches_gather_mean():
     torch.cuda.synchronize()
     assert gather_mean.launches == before + 1
     assert np.isfinite(res["loss"])
+
+
+# -- slice 9: the layerwise family and the conv stacks ------------------------
+
+def _layerwise_estimator(setup, dev="cuda", alias=None, **cfg):
+    """DeviceSampledLayerwiseGCN (dim 32, pools (64, 64), layer dropout
+    0.5) on the cora setup's tables (int8 features with a float32
+    scale), batch 64, Adam lr 0.01; alias: an alias table placed beside
+    the split tables."""
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.models.graphsage import DeviceSampledLayerwiseGCN
+
+    store, tab, graph, _, _ = setup
+    model = DeviceSampledLayerwiseGCN(
+        7, 1433, multilabel=False, dim=32, layer_sizes=(64, 64),
+        layer_dropout=0.5, generator=torch.Generator().manual_seed(0))
+    est = NodeEstimator(model, {"batch_size": 64, "learning_rate": 0.01,
+                                "checkpoint_steps": 0,
+                                "log_steps": 1 << 30, **cfg},
+                        graph, None, feature_store=store,
+                        device_sampler=tab, device=dev)
+    if alias is not None:
+        est.static_batch["alias_table"] = alias
+    return est
+
+
+def _alias_of(tab, dev):
+    from euler_tpu_torch.parallel.device_sampler import build_alias_tables
+
+    return torch.from_numpy(build_alias_tables(
+        tab.neighbors.cpu().numpy(),
+        cum_tab=tab.cum_weights.cpu().numpy())).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "alias"])
+def test_cuda_layerwise_step_matches_the_cpu(layout):
+    """One DeviceSampledLayerwiseGCN step on the card against the same
+    step on the CPU, the same roots and replayed uniforms ([m] or
+    [3, m] a layer), eval mode (no dropout), TF32 off: the levels equal,
+    the adjacencies within 1e-6, the loss within rtol 1e-4 and the
+    gradients within atol 1e-5 of the largest (the adjacency's
+    row sums and the GEMMs add in another order on the card)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    roots = rng.integers(0, 2708, 64).astype(np.int32)
+    shape = (lambda m: (m,)) if layout == "split" else (lambda m: (3, m))
+    uniforms = [rng.random(shape(64), dtype=np.float32) for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        setup = _training_setup("cora", dev=dev)
+        est = _layerwise_estimator(
+            setup, dev=dev, alias=_alias_of(setup[1], dev)
+            if layout == "alias" else None)
+        model = est.model.eval()
+        batch = {"rows": [torch.from_numpy(roots).to(dev)],
+                 "sample_uniforms": [torch.from_numpy(u).to(dev)
+                                     for u in uniforms],
+                 **est.static_batch}
+        levels, adjs = model.sample_levels(batch)
+        res = model(batch)
+        res.loss.backward()
+        out[dev] = ([x.cpu() for x in levels], [a.cpu() for a in adjs],
+                    float(res.loss.detach()), {k: p.grad.cpu() for k, p in
+                                      model.named_parameters()})
+    (lc, ac, loss_c, gc), (lp, ap, loss_p, gp) = out["cuda"], out["cpu"]
+    for a, b in zip(lc, lp):
+        assert torch.equal(a, b)
+    for a, b in zip(ac, ap):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert loss_c == pytest.approx(loss_p, rel=1e-4)
+    for k, g in gp.items():
+        torch.testing.assert_close(gc[k], g, rtol=0,
+                                   atol=1e-5 * float(g.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "alias"])
+def test_cuda_layerwise_graph_windows_match_eager_steps(layout):
+    """DeviceSampledLayerwiseGCN at K = 4 (its stream word 31 re-seeded
+    per replay, dropout generators too) against eager steps on the same
+    batches: the same losses, parameters and Adam moments, bit for bit;
+    no gather_mean kernel in the graph. An evaluate() over host closure
+    batches after it neither captures nor replays."""
+    _need_card()
+    from euler_tpu_torch.dataflow import LayerwiseDataFlow
+
+    setup = _training_setup("cora")
+    alias = _alias_of(setup[1], "cuda") if layout == "alias" else None
+    feed = _layerwise_estimator(setup).train_input_fn()
+    batches = [next(feed) for _ in range(10)]
+    graphed = _layerwise_estimator(setup, alias=alias, steps_per_loop=4)
+    eager = _layerwise_estimator(setup, alias=alias)
+    rg = graphed.train(iter(batches), max_steps=10)
+    re_ = eager.train(iter(batches), max_steps=10)
+    loop = graphed._graphed
+    assert (loop.captures, loop.replays, loop.launches_per_replay) == \
+        (1, 1, 0)
+    assert rg["losses"] == re_["losses"]
+    _assert_same_state(graphed, eager)
+    flow = LayerwiseDataFlow(setup[2], [64, 64], sample=False,
+                             feature_ids=["feature"])
+    graphed.eval_via_flow, graphed.eval_dataflow = True, flow
+    res = graphed.evaluate(graphed.eval_sweep_input_fn(), 2)
+    assert np.isfinite(res["loss"])
+    assert (loop.captures, loop.replays) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", ["gcn", "gat"])
+def test_cuda_conv_step_matches_the_cpu(conv):
+    """One NodeEstimator step of the gcn or gat (8 heads) citation model
+    over FullBatchDataFlow on the cora stand-in, on the card against the
+    CPU, the same engine draws and no dropout, TF32 off: the loss within
+    rtol 1e-4, the gradients within atol 1e-5 of the largest (the card's
+    index_add adds with atomics, in another order)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from euler_tpu_torch.dataset import get_dataset
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.examples.common import ConvModel, full_batch_flow
+    from euler_tpu_torch.graph import seed
+
+    data = get_dataset("cora")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = ConvModel(7, 1433, conv, dim=16 if conv == "gat" else 32,
+                          conv_kwargs={"heads": 8},
+                          generator=torch.Generator().manual_seed(0))
+        est = NodeEstimator(model, {"batch_size": 128,
+                                    "checkpoint_steps": 0,
+                                    "log_steps": 1 << 30},
+                            data.engine, full_batch_flow(data),
+                            label_dim=7, device=dev)
+        seed(0)
+        res = est.train(est.train_input_fn, max_steps=1)
+        out[dev] = (res["loss"], {k: p.grad.cpu() for k, p in
+                                  est.model.named_parameters()})
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert lc == pytest.approx(lp, rel=1e-4)
+    for k, g in gp.items():
+        torch.testing.assert_close(gc[k], g, rtol=0,
+                                   atol=1e-5 * float(g.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runner", ["run_gat", "run_dna"])
+def test_cuda_conv_runner_repeats_bit_for_bit(runner):
+    """A citation runner with dropout (GAT's attention sums, DNA's
+    per-edge means) for 20 steps twice on the card with the same seed:
+    the same result dict, bit for bit (mp_ops' sums on CUDA are sorted
+    segment sums, not atomics)."""
+    _need_card()
+    import importlib
+
+    mod = importlib.import_module(f"euler_tpu_torch.examples.{runner}")
+    runs = [{k: v for k, v in mod.main(["--max_steps", "20", "--seed",
+                                       "1"]).items()
+             if k != "train_steps_per_sec"} for _ in range(2)]
+    assert runs[0] == runs[1]

@@ -67,6 +67,38 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         InferenceServer(bundle)
 
 
+@pytest.mark.parametrize("runner", [
+    "run_fastgcn", "run_gcn", "run_gat", "run_appnp", "run_agnn",
+    "run_arma", "run_sgcn", "run_tagcn", "run_adaptivegcn", "run_dna"])
+def test_slice9_entry_points_raise_without_cuda(runner, monkeypatch):
+    """Without a card the layerwise model's and a conv stack's
+    estimators raise (device=None is CUDA), and so does each new runner
+    without --device (also run_fastgcn --device_sampler) before it
+    builds anything."""
+    import importlib
+
+    import numpy as np
+
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.examples.common import ConvModel
+    from euler_tpu_torch.graph import GraphBuilder
+    from euler_tpu_torch.models.graphsage import DeviceSampledLayerwiseGCN
+
+    b = GraphBuilder()
+    b.add_nodes(np.arange(3, dtype=np.uint64))
+    graph = b.finalize()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for model in (DeviceSampledLayerwiseGCN(2, 4),
+                  ConvModel(2, 4, "gcn")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            NodeEstimator(model, {}, graph, None)
+    mod = importlib.import_module(f"euler_tpu_torch.examples.{runner}")
+    extra = [["--device_sampler"]] if runner == "run_fastgcn" else []
+    for argv in [[], *extra]:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.main(argv)
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -91,7 +123,20 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
                  "examples/run_geniepath.py",
                  "examples/run_scalable_sage.py", "core/lib.py",
                  "graph/api.py", "dataflow/base_dataflow.py",
-                 "dataset/base_dataset.py", "ops/walk_ops.py"):
+                 "dataset/base_dataset.py", "ops/walk_ops.py",
+                 "ops/mp_ops.py", "parallel/device_layerwise.py",
+                 "mp_utils/base_gnn.py", "convolution/__init__.py",
+                 "convolution/conv.py", "convolution/gcn_conv.py",
+                 "convolution/sage_conv.py", "convolution/gat_conv.py",
+                 "convolution/agnn_conv.py", "convolution/gin_conv.py",
+                 "convolution/graph_conv.py", "convolution/sgcn_conv.py",
+                 "convolution/tag_conv.py", "convolution/arma_conv.py",
+                 "convolution/appnp_conv.py", "convolution/dna_conv.py",
+                 "examples/run_fastgcn.py", "examples/run_gcn.py",
+                 "examples/run_gat.py", "examples/run_appnp.py",
+                 "examples/run_agnn.py", "examples/run_arma.py",
+                 "examples/run_sgcn.py", "examples/run_tagcn.py",
+                 "examples/run_adaptivegcn.py", "examples/run_dna.py"):
         assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))
