@@ -17,7 +17,9 @@ table layouts and the activation cache (bench.py --fused_sampler,
 --alias_sampler, --act_cache) on the same graph; then the host-fed path
 of bench.py --host_sampler (the engine samples the fanout on the host);
 then the layerwise family of bench.py --layerwise on the same tables and
-full-batch message passing (GCN, GAT) on the pubmed stand-in; then the
+full-batch message passing (GCN, GAT) on the pubmed stand-in; then graph
+classification on the mutag stand-in and GAE, DGI and LGCN on cora at
+their runners' widths; then the
 serving stack over bundles exported from the trained flagship
 (2,450,000 x 256 f32).
 Phases, in order; any failure raises and the exit code is not 0:
@@ -120,7 +122,20 @@ Phases, in order; any failure raises and the exit code is not 0:
               card against the CPU (loss rtol 1e-4, gradients 1e-5 of
               the largest), then 20 timed steps: ms a step, the host's
               batch build and host-to-device copy shares, busy share
- 10. quality  (in two worker processes started after phase 2 and joined
+ 9i. zoo      slice 10 at the runners' default widths: the four mutag
+              runners' GraphModels (gin + sum, gcn + sum of 4 layers of
+              64, gated + attention, gin + set2set; GraphEstimator, 16
+              graphs a batch), GAE and VGAE (a fixed eps) over
+              FullBatchDataFlow on cora, DGI (dim 512, cora's whole
+              graph on the card, one corruption a step) and LGCN (host
+              FanoutDataFlow, fanout 30, k 8): each one step on the card
+              against the CPU (loss rtol 1e-4, gradients 1e-5 of the
+              largest; DGI's PReLUs take the CPU's side of the kink,
+              the flips counted), then 20 timed steps: ms a step, the
+              host's batch build and its share, busy share, a finite
+              loss, no gather_mean launch; run_gin's dropout steps
+              twice, bit for bit
+ 10. quality  (in three worker processes started after phase 2 and joined
               after phase 3, before any timed phase: their runs are
               bound by the host and overlap the graph set-up; the
               layerwise and conv runners share one process and one cora
@@ -148,7 +163,14 @@ Phases, in order; any failure raises and the exit code is not 0:
               dna) on cora for seeds 0-2 in one process over one cora
               engine, each failing unless within 0.01 of its RESULTS.md
               row or 2 standard errors of the JAX package's own 10-seed
-              mean (tests/oracle_mp.py); each gate printed, met or not
+              mean (tests/oracle_mp.py); in the third process slice 10's
+              runners for seeds 0-2: run_gin, run_graphgcn,
+              run_gated_graph and run_set2set on mutag (rows 0.921,
+              0.895, 0.947, 0.921), run_lgcn (0.763), run_gae (0.881,
+              the eval AUC) and run_dgi (0.672, the probe) on cora, each
+              failing unless within 0.01 of its row or 2 standard errors
+              of the JAX package's own 10-seed mean
+              (tests/oracle_graph.py); each gate printed, met or not
  11. small    a small input through the card and through the CPU path
  12. serve    the training tables freed, then through the TCP stack on
               the card: InferenceServer loads v1 (verified) and uploads
@@ -204,9 +226,10 @@ from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
 from euler_tpu_torch.estimator.prefetch import make_feeder
 from euler_tpu_torch.examples import (
-    common, run_adaptivegcn, run_agnn, run_appnp, run_arma, run_deepwalk,
-    run_dna, run_fastgcn, run_gat, run_gcn, run_geniepath, run_graphsage,
-    run_line, run_sgcn, run_tagcn,
+    common, graph_common, run_adaptivegcn, run_agnn, run_appnp, run_arma,
+    run_deepwalk, run_dgi, run_dna, run_fastgcn, run_gae, run_gat,
+    run_gated_graph, run_gcn, run_geniepath, run_gin, run_graphgcn,
+    run_graphsage, run_lgcn, run_line, run_set2set, run_sgcn, run_tagcn,
 )
 from euler_tpu_torch.examples.common import (
     ConvModel, full_batch_flow, root_input_fn,
@@ -235,6 +258,7 @@ from euler_tpu_torch.estimator.retry import RetryPolicy
 from euler_tpu_torch.graph import seed as seed_engine
 from euler_tpu_torch.serving import InferenceServer, ModelBundle, ServingClient
 from euler_tpu_torch.tools.knn import brute_force
+from euler_tpu_torch.utils.layers import PReLU
 
 FULL_NODES = 2_450_000
 AVG_DEGREE, FEAT_DIM, NUM_CLASSES, CAP = 50, 100, 16, 32
@@ -367,6 +391,46 @@ MP_QUALITY = {
     "adaptivegcn cora": ("run_adaptivegcn", [], 0.817, 0.8135, 0.0052,
                          0.0121),
     "dna cora": ("run_dna", [], 0.809, 0.8205, 0.0212, 0.0202),
+}
+# slice 10, graph classification and the zoo at the runners' default
+# widths: the four mutag runners' GraphModels (name → conv, pool, the
+# runner's own defaults), GAE and VGAE (a fixed ε) and LGCN on cora, DGI
+# (dim 512) on cora's whole graph; ZOO_WARMUP steps, then ZOO_TIMED
+# timed steps each
+ZOO_WARMUP, ZOO_TIMED, ZOO_REPEAT_STEPS = 3, 20, 3
+GRAPH_MODELS = {
+    "gin": ("gin", "sum", {}),
+    "graphgcn": ("gcn", "sum", dict(num_layers=4, hidden_dim=64,
+                                    max_steps=1200)),
+    "gated_graph": ("gated", "attention", {}),
+    "set2set": ("gin", "set2set", {}),
+}
+# quality of slice 10's runners, seeds 0-2 on the card at their
+# defaults: each fails the run unless its mean is within 0.01 of its
+# RESULTS.md row or within 2 standard errors of the difference,
+# sqrt(sd_port^2 / 3 + sd_ref^2 / 10), from the JAX package's own
+# 10-seed mean (tests/oracle_graph.py --seeds 0 ... 9 on the CPU: mean,
+# sd), sd_port over the port's runner with --device cpu --seed 0-9 (the
+# same script, --port); below GRAPH_FLOOR it fails too. The mutag
+# metric is the eval sweep's accuracy (38 graphs), gae's the eval AUC
+# (RESULTS.md labels the row "mrr"), dgi's the ridge probe's accuracy.
+# name → (runner, argv, result key, row, ref mean, ref sd, port sd)
+GRAPH_FLOOR = 0.6
+GRAPH_QUALITY = {
+    "gin mutag": ("run_gin", [], "eval_metric", 0.921, 0.9053, 0.0136,
+                  0.0139),
+    "graphgcn mutag": ("run_graphgcn", [], "eval_metric", 0.895, 0.8737,
+                       0.0166, 0.0208),
+    "gated_graph mutag": ("run_gated_graph", [], "eval_metric", 0.947,
+                          0.9289, 0.0127, 0.0136),
+    "set2set mutag": ("run_set2set", [], "eval_metric", 0.921, 0.9211,
+                      0.0, 0.0124),
+    "lgcn cora": ("run_lgcn", [], "test_metric", 0.763, 0.7452, 0.0250,
+                  0.0308),
+    "gae cora": ("run_gae", [], "eval_metric", 0.881, 0.8784, 0.0126,
+                 0.0182),
+    "dgi cora": ("run_dgi", [], "eval_metric", 0.672, 0.6917, 0.0361,
+                 0.0327),
 }
 
 
@@ -846,8 +910,9 @@ def profile_device(fn, what: str, top_n: int = 10) -> dict:
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     top = [{"name": k[:90], "ms": us / 1e3, "calls": c}
            for us, k, c in rows[:top_n]]
-    # masked_fill runs on the path only in take_rows (the fill rule of
-    # the hop-0/1 gathers); its index compares count as "other"
+    # masked_fill runs on the path only in the jnp.take fill rule:
+    # take_rows (the hop-0/1 gathers) and mp_ops.gather (the conv
+    # paths' row gathers); its index compares count as "other"
     kinds = {"gather_mean": 0.0, "gemm": 0.0, "masked_fill": 0.0,
              "other": 0.0}
     for us, k, _ in rows:
@@ -858,7 +923,8 @@ def profile_device(fn, what: str, top_n: int = 10) -> dict:
     log(f"profile: {what}, wall {wall_ms:.3f} ms (profiled), device busy "
         f"{busy_ms:.3f} ms over {len(rows)} kernel names; gather_mean "
         f"{kinds['gather_mean']:.3f} ms, GEMMs {kinds['gemm']:.3f} ms, "
-        f"take_rows' masked fills {kinds['masked_fill']:.3f} ms, the rest "
+        f"the fill rule's masked fills {kinds['masked_fill']:.3f} ms, the "
+        f"rest "
         f"{kinds['other']:.3f} ms")
     for t in top:
         log(f"  {t['ms']:8.3f} ms  x{t['calls']:<3d} {t['name']}")
@@ -1908,8 +1974,8 @@ def phase_layerwise(store, table, graph, alias, dev) -> dict:
 
 
 def _mp_step_grads(model, raw, dev):
-    """One eval-mode forward (no dropout) and backward of a citation
-    model on a host batch: (loss, {name: gradient on the host})."""
+    """One eval-mode forward (no dropout) and backward of a model on a
+    host batch: (loss, {name: gradient on the host})."""
     model = model.to(dev).eval()
     model.zero_grad(set_to_none=True)
     out = model(base_estimator._to_device(raw, dev))
@@ -1931,11 +1997,11 @@ def check_mp_repeats(make_estimator, what: str, steps: int = 3) -> bool:
         runs.append((res["losses"], est.model.state_dict()))
     (la, sa), (lb, sb) = runs
     same = la == lb and all(torch.equal(v, sb[k]) for k, v in sa.items())
-    log(f"fullbatch {what}: {steps} steps twice from the same weights "
-        f"and draws: bit for bit {same}")
+    log(f"{what}: {steps} steps twice from the same weights and draws: "
+        f"bit for bit {same}")
     if not same:
-        raise AssertionError(f"fullbatch {what}: two runs of the same "
-                             f"steps differ: losses {la} vs {lb}")
+        raise AssertionError(f"{what}: two runs of the same steps differ: "
+                             f"losses {la} vs {lb}")
     return same
 
 
@@ -1987,7 +2053,7 @@ def phase_fullbatch(dev) -> dict:
                               checkpoint_steps=0, seed=0),
                 g, flow, label_fid="label", label_dim=data.num_classes,
                 device=dev)
-        repeat = check_mp_repeats(estimator, conv)
+        repeat = check_mp_repeats(estimator, f"fullbatch {conv}")
         est = estimator()
         it = est.train_input_fn()
         gather_mean.launches = 0
@@ -2040,6 +2106,216 @@ def phase_fullbatch(dev) -> dict:
             f"{losses[0]:.4f} -> {losses[-1]:.4f}; gather_mean launches "
             f"{gather_mean.launches}")
         del est, it
+    return out
+
+
+def _pin_prelu_kinks(model, masks: list, flips: list) -> list:
+    """Forward hooks on the model's PReLU modules. With `masks` empty
+    each call records its input's sign pattern (x >= 0) into it; else
+    each call takes the next recorded pattern in place of its own and
+    appends to `flips` how many of its inputs' signs differ from it.
+    Returns the hook handles."""
+    recording = not masks
+    queue = list(masks)
+
+    def hook(mod, args, out):
+        x = args[0]
+        if recording:
+            masks.append((x >= 0).cpu())
+            return None
+        mask = queue.pop(0).to(x.device)
+        flips.append(int(((x >= 0) != mask).sum()))
+        return torch.where(mask, x, mod.negative_slope.to(x.dtype) * x)
+
+    return [m.register_forward_hook(hook) for m in model.modules()
+            if isinstance(m, PReLU)]
+
+
+def _card_vs_cpu(what: str, make_model, raw: dict, dev) -> tuple:
+    """One eval-mode step of make_model() on the CPU, then on the card:
+    (loss relative error, the largest gradient error over the largest
+    gradient, the parameter where it is, PReLU inputs whose sign the
+    card saw otherwise); logged. A PReLU input within the devices'
+    rounding of 0 can take the other side of the kink on the card, and
+    one such flip moves a gradient by far more than rounding does (DGI
+    at dim 512 has 2.8M PReLU inputs, several of them within 1e-6 of
+    the largest of 0; on an H100 one flip moved a weight's gradient by
+    5.7e-4 of the largest). So the card's PReLUs take the CPU's sign
+    pattern, and the flips are counted: both devices then differentiate
+    the same piece of the function."""
+    cpu = torch.device("cpu")
+    masks, flips = [], []
+    model = make_model(cpu)
+    hooks = _pin_prelu_kinks(model, masks, flips)
+    lp, gp = _mp_step_grads(model, raw, cpu)
+    model = make_model(dev)
+    hooks += _pin_prelu_kinks(model, masks, flips)
+    lc, gc = _mp_step_grads(model, raw, dev)
+    for h in hooks:
+        h.remove()
+    top = max(float(v.abs().max()) for v in gp.values())
+    errs = {k: max_abs_err(gc[k], v) / max(top, 1e-30)
+            for k, v in gp.items()}
+    worst = max(errs, key=errs.get)
+    lerr = abs(lc - lp) / abs(lp)
+    log(f"zoo {what}: card vs CPU on one batch: loss {lc:.6f} vs {lp:.6f} "
+        f"(rel {lerr:.3g}, tol 1e-4), gradients max err {errs[worst]:.3g} "
+        f"of the largest (tol 1e-5, at {worst})"
+        + (f"; PReLU inputs on the other side of the kink on the card: "
+           f"{sum(flips)} of {sum(m.numel() for m in masks)}"
+           if masks else ""))
+    return lerr, errs[worst], worst, sum(flips)
+
+
+def _zoo_case(what: str, make_est, raw: dict, dev,
+              input_fn=None) -> dict:
+    """One model of phase 9i: one step's loss and gradients on the card
+    against the CPU from the same weights and host batch (eval mode, as
+    9h; _card_vs_cpu), then ZOO_WARMUP + ZOO_TIMED steps on the card
+    through its estimator (input_fn, default its train_input_fn): ms a
+    step, the host's batch build a step and its share, the busy share of
+    one profiled step, a finite loss, no skipped step and no gather_mean
+    launch."""
+    lerr, gerr, worst, flips = _card_vs_cpu(
+        what, lambda d: make_est(d).model, raw, dev)
+    if not (lerr <= 1e-4 and gerr <= 1e-5):
+        raise AssertionError(f"zoo {what}: the card disagrees with the CPU")
+    est = make_est(dev)
+    est.log_steps, est.ckpt_steps = 1 << 30, 0
+    it = (input_fn or est.train_input_fn)()
+    gather_mean.launches = 0
+    torch.cuda.synchronize()
+    losses = est.train(it, max_steps=ZOO_WARMUP)["losses"]
+    build_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        next(it)
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = est.train(it, max_steps=ZOO_WARMUP + ZOO_TIMED)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / ZOO_TIMED
+    losses += res["losses"]
+    prof = profile_device(lambda: est._train_step(_on_card(next(it), est)),
+                          f"one {what} step")
+    if not np.isfinite(losses).all() or res["skipped_steps"] \
+            or gather_mean.launches:
+        raise AssertionError(f"zoo {what}: losses {losses}, "
+                             f"{res['skipped_steps']} skipped, "
+                             f"{gather_mean.launches} launches")
+    b_ms = statistics.median(build_ms)
+    log(f"zoo {what}: {ZOO_TIMED} steps: {step_ms:.3f} ms a step; host "
+        f"batch build {b_ms:.3f} ms ({b_ms / step_ms:.1%}); device busy "
+        f"{prof['device_busy_ms']:.3f} ms a step "
+        f"({prof['device_busy_ms'] / step_ms:.1%}); loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}; gather_mean launches {gather_mean.launches}")
+    return {"loss_rel_err": lerr, "grad_err": gerr, "grad_err_at": worst,
+            "prelu_kink_flips": flips, "losses": losses,
+            "ms_per_step": step_ms, "host_build_ms": b_ms,
+            "host_build_share": b_ms / step_ms,
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_busy_share": prof["device_busy_ms"] / step_ms,
+            "gather_mean_launches": gather_mean.launches, "profile": prof}
+
+
+def phase_zoo(dev) -> dict:
+    """Slice 10 at the runners' default widths on one card: the four
+    mutag runners' GraphModels (GraphEstimator, 16 graphs a batch), GAE
+    and VGAE (FullBatchDataFlow on cora, 128 positive and 128 negative
+    pairs; VGAE with a fixed ε), DGI (dim 512, cora's whole graph in the
+    static batch, one corruption a step) and LGCN (host FanoutDataFlow,
+    fanout 30, k 8): each through _zoo_case; then run_gin's dropout
+    steps twice, bit for bit."""
+    cpu = torch.device("cpu")
+    out = {}
+    mutag = get_dataset("mutag")
+    for name, (conv, pool, defaults) in GRAPH_MODELS.items():
+        args = graph_common.graph_argparser(**defaults).parse_args([])
+
+        def make(d, conv=conv, pool=pool, args=args):
+            return graph_common.graph_estimator(conv, pool, args, mutag, d)
+        out[name] = _zoo_case(f"{name} mutag ({conv} + {pool}, dim "
+                              f"{args.hidden_dim}, {args.num_layers} "
+                              f"layers)", make,
+                              next(make(cpu).train_input_fn()), dev)
+    with common.shared_graphs():
+        cora = common.load_graph("cora", 0)
+        for variational in (False, True):
+            args = run_gae.build_parser().parse_args(
+                ["--variational"] if variational else [])
+
+            def make(d, args=args):
+                return run_gae.gae_estimator(args, cora, d)
+            seed_engine(0)
+            raw = next(make(cpu).train_input_fn())
+            if variational:
+                raw["eps"] = np.random.default_rng(0).normal(
+                    size=(raw["x"].shape[0], args.dim)).astype(np.float32)
+            out["vgae" if variational else "gae"] = _zoo_case(
+                f"{'vgae (a fixed eps)' if variational else 'gae'} cora",
+                make, raw, dev)
+        args = run_dgi.build_parser().parse_args([])
+        est, full, input_fn = run_dgi.dgi_estimator(args, cora, cpu)
+        raw = {**full, **next(input_fn())}
+        del est
+        out["dgi"] = _zoo_case(
+            f"dgi cora (dim {args.dim})",
+            lambda d: run_dgi.dgi_estimator(args, cora, d)[0], raw, dev,
+            input_fn=input_fn)
+        args = run_lgcn.parse_args([])
+        seed_engine(0)
+        raw = next(run_lgcn.lgcn_estimator(args, cora, cpu)
+                   .train_input_fn())
+        out["lgcn"] = _zoo_case(
+            f"lgcn cora (fanout {args.fanout}, k {args.k})",
+            lambda d: run_lgcn.lgcn_estimator(args, cora, d), raw, dev)
+    args = graph_common.graph_argparser().parse_args(["--seed", "1"])
+    out["gin_repeats_bit_for_bit"] = check_mp_repeats(
+        lambda: graph_common.graph_estimator("gin", "sum", args, mutag, dev),
+        f"zoo gin (dropout {args.dropout})", ZOO_REPEAT_STEPS)
+    return out
+
+
+def phase_graph_quality() -> dict:
+    """Slice 10's runners on the card, seeds 0-2, their defaults,
+    against their RESULTS.md rows and the JAX package's own 10-seed
+    means (GRAPH_QUALITY). Fails on a non-finite run, a skipped step, a
+    mean below GRAPH_FLOOR, or a mean that meets neither gate."""
+    mods = {"run_gin": run_gin, "run_graphgcn": run_graphgcn,
+            "run_gated_graph": run_gated_graph, "run_set2set": run_set2set,
+            "run_lgcn": run_lgcn, "run_gae": run_gae, "run_dgi": run_dgi}
+    out = {}
+    with common.shared_graphs():
+        for name, (runner, argv, key, row, ref, ref_sd, port_sd) in \
+                GRAPH_QUALITY.items():
+            vals, secs = [], []
+            for seed in QUALITY_SEEDS:
+                res, dt = _quiet_run(mods[runner],
+                                     [*argv, "--seed", str(seed)],
+                                     f"{name} seed {seed}")
+                vals.append(float(res[key]))
+                secs.append(dt)
+            mean = float(np.mean(vals))
+            se = float(np.sqrt(port_sd ** 2 / len(vals) + ref_sd ** 2 / 10))
+            row_met = abs(mean - row) <= QUALITY_BAND
+            ref_met = abs(mean - ref) <= 2 * se
+            log(f"quality: {name}: {key} "
+                + ", ".join(f"{v:.4f}" for v in vals)
+                + f" (seeds {list(QUALITY_SEEDS)}, "
+                + ", ".join(f"{x:.1f}s" for x in secs)
+                + f"), mean {mean:.4f}; RESULTS.md row {row} +- "
+                f"{QUALITY_BAND}: {'met' if row_met else 'not met'}; the "
+                f"reference's 10-seed mean {ref} +- 2 standard errors "
+                f"{2 * se:.4f}: {'met' if ref_met else 'not met'}")
+            if not mean >= GRAPH_FLOOR:
+                raise AssertionError(f"{name}: mean {mean} < {GRAPH_FLOOR}")
+            if not (row_met or ref_met):
+                raise AssertionError(f"{name}: mean {mean} meets neither "
+                                     "quality gate")
+            out[name] = {"values": vals, "seconds": secs, "mean": mean,
+                         "row": row, "row_met": row_met, "oracle": ref,
+                         "two_se": 2 * se, "oracle_met": ref_met}
     return out
 
 
@@ -2676,13 +2952,14 @@ def phase_serve(v1, dir_v1: str, v2, dir_v2: str, root: str,
     return out
 
 
-# the quality phases run in two worker processes, started after the
+# the quality phases run in three worker processes, started after the
 # build and joined before the first timed phase: their runs are small on
 # the card and bound by the host, so they overlap the host-bound graph
 # set-up (phase 3) and no timed phase. The layerwise and message-passing
-# runners share one process (one cora engine, common.shared_graphs).
+# runners share one process (one cora engine, common.shared_graphs),
+# slice 10's runners another.
 QUALITY_WORKERS = (("quality", "slice7_quality", "unsup_quality",
-                    "hostfed_quality"), ("mp_quality",))
+                    "hostfed_quality"), ("mp_quality",), ("graph_quality",))
 
 
 def run_quality_group(names) -> dict:
@@ -2694,7 +2971,8 @@ def run_quality_group(names) -> dict:
               "slice7_quality": phase_slice7_quality,
               "unsup_quality": phase_unsup_quality,
               "hostfed_quality": phase_hostfed_quality,
-              "mp_quality": phase_mp_quality}
+              "mp_quality": phase_mp_quality,
+              "graph_quality": phase_graph_quality}
     out, t0 = {}, time.monotonic()
     for name in names:
         out[name] = phases[name]()
@@ -2876,6 +3154,9 @@ def main(argv=None) -> int:
     del neg, fused, alias
     record["fullbatch"] = phase_fullbatch(dev)
     mark(record, "fullbatch", t_start)
+    # slice 10: graph classification and the GAE / DGI / LGCN zoo
+    record["zoo"] = phase_zoo(dev)
+    mark(record, "zoo", t_start)
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     mark(record, "small", t_start)
     # the training tables go before the bundles' tables go on the card
@@ -2945,6 +3226,9 @@ def main(argv=None) -> int:
             "k32_alias"]["gather_mean_device_launches"],
         "fullbatch_launches": sum(r["gather_mean_launches"]
                                   for r in record["fullbatch"].values()),
+        "zoo_launches": sum(r["gather_mean_launches"]
+                            for r in record["zoo"].values()
+                            if isinstance(r, dict)),
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

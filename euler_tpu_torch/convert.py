@@ -18,12 +18,21 @@ emb/table alone), the layerwise models' encoder/w_{i}/kernel (or the
 FastGCN runner's enc/w_{i}/kernel), or the conv stacks'
 gnn/<Conv>_{i}/... (lin/kernel, bias, att_src, att_dst, beta, eps,
 lin_{k}, v_{s}_{t}, w_{s}_{t}, mlp_{i}, q/k/v, lin_root, lin_nbr) and
-the DNA runner's proj and dna_{i}, maps to the port's
+the DNA runner's proj and dna_{i}, the graph models'
+gnn/<Conv>_{i}/... and gnn/<Pool>_0/... (AttentionPool's gate and proj,
+Set2SetPool's proj and OptimizedLSTMCell_0/{ii,...,ho}), GatedGraphConv's
+gru/{ir,iz,in,hr,hz,hn} (flax's GRUCell) and w_{t}, the GAE's enc/...,
+mu and logvar, DGI's encoder/..., PReLU_0/negative_slope and disc, and
+the LGCN runner's enc/conv/{kernel,bias}, maps to the port's
 state_dict keys by joining the path with "." and renaming kernel →
-weight. Flax kernels are [in, out]; the port's weights are [out, in],
-so kernels are transposed both ways. Tables [rows, dim] and other
-vectors (AttLayer's query, GAT's att_src / att_dst [1, H, D], AGNN's
-beta, GIN's eps, a conv's bias) keep their layout.
+weight. Flax Dense kernels are [in, out]; the port's weights are [out,
+in], so kernels are transposed both ways. A flax Conv kernel [width,
+in, out] is torch Conv1d's weight [out, in, width], its axes reversed
+both ways. The recurrent cells' gates are Dense layers by name in both
+packages, so their trees map as Dense trees do. Tables [rows, dim] and
+other vectors (AttLayer's query, GAT's att_src / att_dst [1, H, D],
+AGNN's beta, GIN's eps, a conv's bias, PReLU's scalar negative_slope,
+DGI's disc [dim, dim]) keep their layout.
 
 The scalable models' `cache` collection (encoder/cache_{l}/h, float32
 or bfloat16 rows) is the port's buffers encoder.cache_{l}.h: it comes
@@ -42,7 +51,8 @@ import torch
 
 _CACHE_LEAF = "h"
 # leaves other than Dense kernels, which keep their layout
-_PLAIN = ("bias", "table", "query", "att_src", "att_dst", "beta", "eps")
+_PLAIN = ("bias", "table", "query", "att_src", "att_dst", "beta", "eps",
+          "negative_slope", "disc")
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -84,11 +94,14 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         *scope, name = path
         arr = np.asarray(leaf)
         if name == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: only Dense kernels "
-                                 f"convert, got shape {arr.shape}")
+            if arr.ndim not in (2, 3):
+                raise ValueError(f"{'/'.join(path)}: only Dense and 1-D "
+                                 f"Conv kernels convert, got shape "
+                                 f"{arr.shape}")
+            # Dense [in, out] → [out, in]; Conv [w, in, out] → [out, in, w]
+            # (a copy: a [in, 1] kernel's transpose is a read-only view)
             out[".".join(scope + ["weight"])] = torch.from_numpy(
-                np.ascontiguousarray(arr.T))
+                np.array(arr.T, order="C"))
         elif name in _PLAIN:
             out[".".join(scope + [name])] = torch.from_numpy(arr.copy())
         else:
@@ -113,6 +126,7 @@ def state_dict_to_flax_variables(state_dict: Mapping[str, torch.Tensor]
         else:
             node, arr = tree["params"], t.detach().cpu().numpy()
             if name == "weight":
+                # a Dense or Conv1d weight, its axes reversed
                 name, arr = "kernel", np.ascontiguousarray(arr.T)
             elif name not in _PLAIN:
                 raise ValueError(f"{key}: unknown param {name!r}")

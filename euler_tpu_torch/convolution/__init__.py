@@ -1,7 +1,7 @@
 """Message-passing convolutions (counterpart of euler_tpu/convolution/):
-the eleven that the node-classification runners use. GatedGraphConv and
-RelationConv are not ported yet (ROADMAP.md Queue A, 'GNN library
-breadth')."""
+the eleven that the node-classification runners use and GatedGraphConv,
+which the gated_graph runner uses. RelationConv is not ported yet
+(ROADMAP.md Queue A, 'GNN library breadth')."""
 
 from euler_tpu_torch.convolution.conv import (  # noqa: F401
     Conv, aggregate, split_x,
@@ -11,6 +11,9 @@ from euler_tpu_torch.convolution.appnp_conv import APPNPConv  # noqa: F401
 from euler_tpu_torch.convolution.arma_conv import ARMAConv  # noqa: F401
 from euler_tpu_torch.convolution.dna_conv import DNAConv  # noqa: F401
 from euler_tpu_torch.convolution.gat_conv import GATConv  # noqa: F401
+from euler_tpu_torch.convolution.gated_graph_conv import (  # noqa: F401
+    GatedGraphConv,
+)
 from euler_tpu_torch.convolution.gcn_conv import GCNConv  # noqa: F401
 from euler_tpu_torch.convolution.gin_conv import GINConv  # noqa: F401
 from euler_tpu_torch.convolution.graph_conv import GraphConv  # noqa: F401

@@ -17,6 +17,9 @@ from __future__ import annotations
 from euler_tpu_torch.dataset.base_dataset import (  # noqa: F401
     FEATURE_FID, LABEL_FID, GraphData, build_engine, engine_from_arrays,
 )
+from euler_tpu_torch.dataset.graph_sets import (  # noqa: F401
+    GraphSetData, mutag_like,
+)
 from euler_tpu_torch.dataset.synthetic import (  # noqa: F401
     TEST_TYPE, TRAIN_TYPE, VAL_TYPE, GraphArrays, synthetic_citation,
 )
@@ -48,7 +51,11 @@ def dataset_arrays(name: str, **overrides) -> GraphArrays:
     return synthetic_citation(**{**_CITATION_SHAPES[name], **overrides})
 
 
-def get_dataset(name: str, **overrides) -> GraphData:
-    """The named citation stand-in loaded into the graph engine."""
+def get_dataset(name: str, **overrides):
+    """The named citation stand-in loaded into the graph engine (a
+    GraphData), or "mutag", the graph-classification stand-in (a
+    GraphSetData; overrides are mutag_like's arguments)."""
+    if name.lower() == "mutag":
+        return mutag_like(**overrides)
     return engine_from_arrays(dataset_arrays(name, **overrides),
                               name=name.lower())

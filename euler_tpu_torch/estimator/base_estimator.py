@@ -708,8 +708,10 @@ class BaseEstimator:
 
     def evaluate(self, input_fn, steps: int = 100) -> Dict[str, float]:
         """Mean loss and metric over up to `steps` batches, each batch
-        weighted by the sum of its metric_mask (1 without one), as the
-        reference weights them."""
+        weighted by the sum of its graph_mask, else of its metric_mask,
+        else by 1, as the reference weights them
+        (euler_tpu/estimator/base_estimator.py:829-835): a short final
+        batch of a sweep counts for its real entries only."""
         it = input_fn() if callable(input_fn) else input_fn
         self._maybe_restore()
         rows = []
@@ -721,7 +723,9 @@ class BaseEstimator:
                 except StopIteration:
                     break
                 out = self.model({**batch, **self.static_batch})
-                mask = batch.get("metric_mask")
+                mask = batch.get("graph_mask")
+                if mask is None:
+                    mask = batch.get("metric_mask")
                 w = (torch.ones((), device=self.device) if mask is None
                      else mask.to(torch.float32).sum())
                 rows.append(torch.stack([out.loss.float(),

@@ -1,5 +1,5 @@
-"""NodeEstimator and EdgeEstimator (counterpart of
-euler_tpu/estimator/estimators.py:19-287).
+"""NodeEstimator, EdgeEstimator, GraphEstimator and GaeEstimator
+(counterpart of euler_tpu/estimator/estimators.py:19-416).
 
 NodeEstimator draws each batch's roots with the graph engine's
 sample_node over a split (node type; -1 = every node) and builds the
@@ -253,6 +253,146 @@ class EdgeEstimator(BaseEstimator):
                           else batch.get("ids", src),
                           "src": src, "pos": dst, "negs": negs,
                           "infer_ids": src})
+            yield batch
+
+    def train_input_fn(self) -> Iterator[Dict]:
+        return self._batches()
+
+    def eval_input_fn(self) -> Iterator[Dict]:
+        return self._batches()
+
+
+class GraphEstimator(BaseEstimator):
+    """Whole-graph classification (the reference's graph_estimator.py,
+    euler_tpu/estimator/estimators.py:290-373): each step packs
+    num_graphs small graphs into one node table of static shape.
+
+    graphs: a list of {x [n, D], edge_index [2, e]}; labels [G]. params:
+    num_graphs (16), max_nodes and max_edges (0: the largest graph's
+    count times num_graphs), seed (0: the train draws' numpy stream and
+    the dropout stream), train_indices / eval_indices (default every
+    graph), and BaseEstimator's keys."""
+
+    def __init__(self, model, params: Dict[str, Any], graphs, labels,
+                 model_dir: Optional[str] = None, device: DeviceLike = None):
+        super().__init__(model, params, model_dir, device)
+        self.graphs = graphs
+        self.labels = np.asarray(labels)
+        cfg = self.params_cfg
+        self.num_graphs = int(cfg.get("num_graphs", 16))
+        self.max_nodes = int(cfg.get("max_nodes", 0)) or max(
+            g["x"].shape[0] for g in graphs) * self.num_graphs
+        self.max_edges = int(cfg.get("max_edges", 0)) or max(
+            g["edge_index"].shape[1] for g in graphs) * self.num_graphs
+        self.rng = np.random.default_rng(int(cfg.get("seed", 0)))
+
+    def _pack(self, idxs, n_real: Optional[int] = None) -> Dict[str, Any]:
+        """The graphs idxs packed into one batch padded to max_nodes and
+        max_edges: pad nodes join the last slot's graph, pad edges are
+        self-loops of the last row; graph_mask is 1 for the first n_real
+        slots (default all), 0 for shape padding."""
+        n_real = len(idxs) if n_real is None else n_real
+        xs, eis, gi, labels = [], [], [], []
+        offset = 0
+        for slot, gidx in enumerate(idxs):
+            g = self.graphs[gidx]
+            n = g["x"].shape[0]
+            xs.append(g["x"])
+            eis.append(g["edge_index"] + offset)
+            gi.append(np.full(n, slot, np.int32))
+            labels.append(self.labels[gidx])
+            offset += n
+        x = np.concatenate(xs).astype(np.float32)
+        ei = np.concatenate(eis, axis=1).astype(np.int32)
+        gi = np.concatenate(gi)
+        mask = np.zeros(len(idxs), np.float32)
+        mask[:n_real] = 1.0
+        n_pad = self.max_nodes - x.shape[0]
+        e_pad = self.max_edges - ei.shape[1]
+        if n_pad > 0:
+            x = np.concatenate([x, np.zeros((n_pad, x.shape[1]), np.float32)])
+            gi = np.concatenate([gi, np.full(n_pad, len(idxs) - 1, np.int32)])
+        if e_pad > 0:
+            sink = self.max_nodes - 1
+            ei = np.concatenate(
+                [ei, np.full((2, e_pad), sink, np.int32)], axis=1)
+        return {"x": x, "edge_index": ei, "graph_index": gi,
+                "labels": np.asarray(labels), "graph_mask": mask}
+
+    def _split(self, key: str) -> np.ndarray:
+        """The graph indices of params[key], default every graph."""
+        split = self.params_cfg.get(key)
+        return np.asarray(split) if split is not None else np.arange(
+            len(self.graphs))
+
+    def train_input_fn(self) -> Iterator[Dict]:
+        """num_graphs graphs a batch, drawn with replacement from the
+        train pool by the estimator's numpy stream."""
+        pool = self._split("train_indices")
+        while True:
+            yield self._pack(self.rng.choice(pool, self.num_graphs,
+                                             replace=True))
+
+    def eval_steps(self) -> int:
+        """Batches of one eval sweep."""
+        return max(-(-len(self._split("eval_indices")) // self.num_graphs), 1)
+
+    def eval_input_fn(self) -> Iterator[Dict]:
+        """Every eval graph once, in pool order; the last chunk is padded
+        with repeats of its last graph under graph_mask 0. evaluate()
+        must be given at least eval_steps() steps, or the tail of the
+        pool is never seen."""
+        pool = self._split("eval_indices")
+        for i in range(0, len(pool), self.num_graphs):
+            chunk = pool[i:i + self.num_graphs]
+            n_real = len(chunk)
+            if n_real < self.num_graphs:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1], self.num_graphs - n_real)])
+            yield self._pack(chunk, n_real)
+
+
+class GaeEstimator(BaseEstimator):
+    """Graph auto-encoder batches (the reference's gae_estimator.py,
+    euler_tpu/estimator/estimators.py:374-416): each batch is the
+    dataflow's node table for batch_size roots drawn by the engine's
+    sample_node over every node, num_pos positive edges drawn among the
+    batch's own edge columns and num_pos negative pairs among its first
+    n_real_nodes rows, both by the estimator's numpy stream
+    (default_rng(seed)). The dataflow's batch must carry n_real_nodes.
+    params: batch_size (32), num_pos (64), seed (0), and
+    BaseEstimator's keys."""
+
+    def __init__(self, model, params: Dict[str, Any], graph, dataflow,
+                 model_dir: Optional[str] = None, device: DeviceLike = None):
+        super().__init__(model, params, model_dir, device)
+        self.graph = graph
+        self.dataflow = dataflow
+        cfg = self.params_cfg
+        self.batch_size = int(cfg.get("batch_size", 32))
+        self.num_pos = int(cfg.get("num_pos", 64))
+        self.rng = np.random.default_rng(int(cfg.get("seed", 0)))
+
+    def _batches(self) -> Iterator[Dict]:
+        while True:
+            roots = self.graph.sample_node(self.batch_size, -1)
+            batch = self.dataflow(roots)
+            # positives are edges of this batch's own table (rows already
+            # index it), as the reference draws them
+            ei = batch["edge_index"]
+            cols = self.rng.integers(0, ei.shape[1], self.num_pos)
+            pos_src, pos_dst = ei[0][cols], ei[1][cols]
+            neg_src = self.rng.integers(0, batch["n_real_nodes"],
+                                        self.num_pos)
+            neg_dst = self.rng.integers(0, batch["n_real_nodes"],
+                                        self.num_pos)
+            batch.update({
+                "pos_src": pos_src.astype(np.int32),
+                "pos_dst": pos_dst.astype(np.int32),
+                "neg_src": neg_src.astype(np.int32),
+                "neg_dst": neg_dst.astype(np.int32),
+                "infer_ids": roots,
+            })
             yield batch
 
     def train_input_fn(self) -> Iterator[Dict]:

@@ -45,10 +45,11 @@ _CONV_BUILDERS = {
         num_layers=kw.get("arma_layers", 1), generator=g),
     "appnp": lambda d_in, dim, i, n, kw, g: C.APPNPConv(
         k_hop=kw.get("k_hop", 10), alpha=kw.get("alpha", 0.1)),
+    "gated": lambda d_in, dim, i, n, kw, g: C.GatedGraphConv(
+        d_in, dim, num_layers=kw.get("gate_layers", 2), generator=g),
 }
-# the reference's other two names: GatedGraphConv waits for the
-# graph-classification slice, RelationConv for the relational one
-_UNPORTED = ("gated", "relation")
+# the reference's other name: RelationConv waits for the relational slice
+_UNPORTED = ("relation",)
 
 
 def get_conv(name: str, in_dim: int, dim: int, layer_idx: int,
@@ -56,7 +57,7 @@ def get_conv(name: str, in_dim: int, dim: int, layer_idx: int,
              generator: Optional[torch.Generator] = None) -> nn.Module:
     """The conv `name` for layer layer_idx of num_layers, reading its
     options from kwargs (heads, k_hop, num_stacks, arma_layers,
-    alpha)."""
+    alpha, gate_layers)."""
     key = name.lower()
     if key in _UNPORTED:
         raise NotImplementedError(f"conv {name!r} is {_WAITS}")

@@ -1,7 +1,8 @@
 """Fanout encoders (counterpart of euler_tpu/utils/encoders.py:58-339):
 `SageEncoder`, `GCNEncoder`, `GenieEncoder`, and the activation-cache
 pair `ScalableGCNEncoder` / `ScalableSageEncoder` with `_ema_update`
-and `_ScalableCache`; and the layerwise `LayerEncoder` (:255-279).
+and `_ScalableCache`; the layerwise `LayerEncoder` (:255-279); and
+LGCN's `LGCEncoder` (:342-358).
 
 The fanout encoders that reduce the deepest hop with a plain mean (sage
 with the mean aggregator, gcn) also take that hop as its neighbor mean
@@ -20,13 +21,16 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from euler_tpu_torch.ops.gather_mean import gather_mean
 from euler_tpu_torch.utils.aggregators import get_aggregator
 from euler_tpu_torch.utils.layers import (
-    AttLayer, Dense, Dropout, LSTMLayer, bucketize_ids,
+    _TRUNC_STD, AttLayer, Dense, Dropout, LSTMLayer, bucketize_ids,
 )
 
 
@@ -431,3 +435,36 @@ class LayerEncoder(nn.Module):
             if i > 0:
                 h = torch.relu(h)
         return h
+
+
+class LGCEncoder(nn.Module):
+    """The LGCN encoder: for each feature channel the k largest values
+    among a node's neighbors, in descending order after the node's own
+    value, then a VALID 1-D convolution of width k + 1 over that
+    sequence of k + 1 positions (torch.nn.Conv1d "conv", weight [dim, D,
+    k + 1]; flax's Conv kernel is [k + 1, D, dim], and convert.py maps
+    the two). x [B, D], nbr [B, K, D] with K >= k → [B, dim]. Fresh init
+    is flax Conv's: lecun_normal over fan_in = (k + 1)·D, zero bias."""
+
+    def __init__(self, in_dim: int, dim: int, k: int = 4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.k, self.out_dim = int(k), int(dim)
+        self.conv = nn.Conv1d(in_dim, dim, self.k + 1)
+        std = math.sqrt(1.0 / (in_dim * (self.k + 1))) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.conv.weight, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+            self.conv.bias.zero_()
+
+    def forward(self, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+        # the top k per channel: values in descending order, as
+        # lax.top_k's, so the order among ties does not matter
+        topk = torch.topk(nbr.transpose(1, 2), self.k, dim=-1).values
+        seq = torch.cat([x[:, :, None], topk], dim=-1)      # [B, D, k+1]
+        # a VALID convolution as wide as its input has one output
+        # position, so it is one matrix product: a GEMM, the same bits
+        # every run on the card, where cuDNN's convolution backward may
+        # pick an algorithm that adds with atomics
+        w = self.conv.weight
+        return F.linear(seq.flatten(1), w.flatten(1), self.conv.bias)

@@ -1,7 +1,8 @@
 """Dense, Embedding, AttLayer and LSTMLayer with flax's initialisation
 (counterpart of euler_tpu/utils/layers.py:24-57 and :93-118, whose Dense
 is flax.linen.Dense and whose LSTM is flax's OptimizedLSTMCell under
-nn.RNN).
+nn.RNN), and flax's GRUCell and PReLU, which the reference's
+GatedGraphConv and DGI use.
 
 The weight is kept [out, in] as torch.nn.Linear keeps it; flax keeps its
 kernel [in, out], and euler_tpu_torch.convert transposes between them.
@@ -165,6 +166,46 @@ class OptimizedLSTMCell(nn.Module):
         new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         new_h = torch.sigmoid(o) * torch.tanh(new_c)
         return (new_c, new_h), new_h
+
+
+class GRUCell(nn.Module):
+    """flax.linen.GRUCell with its parameters by name: input transforms
+    ir/iz/in (bias, lecun_normal) and recurrent ones hr/hz (no bias) and
+    hn (bias), orthogonal. forward(h, x) → h', where
+    r = sigmoid(ir(x) + hr(h)), z = sigmoid(iz(x) + hz(h)),
+    n = tanh(in(x) + r·hn(h)) and h' = (1 - z)·n + z·h (torch.nn.GRUCell's
+    function with its hidden-side r and z biases held at 0)."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for g in ("r", "z", "n"):
+            self.add_module(f"i{g}", Dense(in_dim, dim, generator=generator))
+        for g in ("r", "z", "n"):
+            lin = Dense(dim, dim, use_bias=g == "n", generator=generator)
+            with torch.no_grad():
+                nn.init.orthogonal_(lin.weight, generator=generator)
+            self.add_module(f"h{g}", lin)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        r = torch.sigmoid(self.ir(x) + self.hr(h))
+        z = torch.sigmoid(self.iz(x) + self.hz(h))
+        n = torch.tanh(getattr(self, "in")(x) + r * self.hn(h))
+        return (1.0 - z) * n + z * h
+
+
+class PReLU(nn.Module):
+    """flax.linen.PReLU: x where x >= 0, else negative_slope·x, one
+    learned scalar slope starting at 0.01 (torch.nn.PReLU starts at
+    0.25)."""
+
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = nn.Parameter(
+            torch.tensor(float(negative_slope)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
 
 
 class LSTMLayer(nn.Module):

@@ -1,4 +1,5 @@
-"""Model metrics (counterpart of euler_tpu/utils/metrics.py:19,55,79-97)."""
+"""Model metrics (counterpart of euler_tpu/utils/metrics.py:19-114):
+accuracy, AUC, micro-F1, MRR, MR, hit@k and the name table get_metric."""
 
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["masked_mean", "micro_f1", "mrr", "mr", "hit_at_k"]
+__all__ = ["accuracy", "auc", "f1_score", "micro_f1", "mrr", "mr",
+           "hit_at_k", "masked_mean", "get_metric"]
 
 
 def masked_mean(x: torch.Tensor,
@@ -18,6 +20,39 @@ def masked_mean(x: torch.Tensor,
         return x.mean()
     m = mask.reshape(-1).to(torch.float32)
     return (x * m).sum() / m.sum().clamp_min(1.0)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multiclass (argmax over the last dim, against integer or one-hot
+    labels) or binary (logits thresholded at 0.5) accuracy; mask [B]
+    (0/1) leaves padded rows out of the mean."""
+    if logits.dim() > 1 and logits.shape[-1] > 1:
+        pred = logits.argmax(-1)
+        lab = labels if labels.dim() == logits.dim() - 1 \
+            else labels.argmax(-1)
+        return masked_mean((pred == lab).to(torch.float32), mask)
+    pred = (logits.reshape(-1) > 0.5).to(torch.int32)
+    lab = labels.reshape(-1).to(torch.int32)
+    return masked_mean((pred == lab).to(torch.float32), mask)
+
+
+def auc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Pairwise AUC from ranks: (sum of the positives' ranks - P(P+1)/2)
+    / (P N). The ranks are positions in a stable ascending sort, as the
+    reference's code ranks them (its docstring speaks of midranks, its
+    code gives tied scores distinct ranks in index order)."""
+    scores = scores.reshape(-1)
+    labels = labels.reshape(-1).to(torch.float32)
+    order = torch.argsort(scores, stable=True)
+    ranks = torch.empty_like(scores).index_copy_(
+        0, order, torch.arange(1, scores.shape[0] + 1, dtype=scores.dtype,
+                               device=scores.device))
+    n_pos = labels.sum()
+    n_neg = labels.shape[0] - n_pos
+    pos_rank_sum = (ranks * labels).sum()
+    return (pos_rank_sum - n_pos * (n_pos + 1) / 2) / (
+        n_pos * n_neg).clamp_min(1.0)
 
 
 def micro_f1(logits: torch.Tensor, labels: torch.Tensor,
@@ -44,6 +79,9 @@ def micro_f1(logits: torch.Tensor, labels: torch.Tensor,
     return 2 * tp / (2 * tp + fp + fn).clamp_min(1.0)
 
 
+f1_score = micro_f1
+
+
 def _ranks(scores: torch.Tensor) -> torch.Tensor:
     """Rank of column 0 (the positive) among all columns, per row:
     1 + the number of other columns scoring >= it (a tie counts
@@ -67,3 +105,21 @@ def mr(scores: torch.Tensor) -> torch.Tensor:
 def hit_at_k(scores: torch.Tensor, k: int) -> torch.Tensor:
     """Share of rows whose column 0 ranks within the top k."""
     return (_ranks(scores) <= k).to(torch.float32).mean()
+
+
+def get_metric(name: str):
+    """The metric function of a name (the reference's table: acc,
+    accuracy, auc, f1, micro_f1, mrr, mr, hit1, hit3, hit10)."""
+    table = {
+        "acc": accuracy, "accuracy": accuracy,
+        "auc": auc,
+        "f1": micro_f1, "micro_f1": micro_f1,
+        "mrr": mrr, "mr": mr,
+        "hit1": lambda s: hit_at_k(s, 1),
+        "hit3": lambda s: hit_at_k(s, 3),
+        "hit10": lambda s: hit_at_k(s, 10),
+    }
+    try:
+        return table[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown metric {name!r}") from None

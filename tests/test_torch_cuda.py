@@ -1057,3 +1057,97 @@ def test_cuda_conv_runner_repeats_bit_for_bit(runner):
                                        "1"]).items()
              if k != "train_steps_per_sec"} for _ in range(2)]
     assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_mp_ops_out_of_range_indices():
+    """mp_ops on the card with the reference's out-of-range case (src =
+    arange(12).reshape(4, 3), segment ids [0, 1, -1, 3] over 3, gather
+    rows [-1, 5]): the values jnp.take's fill mode and
+    jax.ops.segment_sum / segment_max give, which the CPU path gives
+    too; scatter_softmax's in-range entries equal the CPU's."""
+    _need_card()
+    from euler_tpu_torch.ops import mp_ops as mp
+
+    nan = float("nan")
+    src = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    index = torch.tensor([0, 1, -1, 3], dtype=torch.int32)
+    rows = torch.tensor([-1, 5], dtype=torch.int32)
+    summed = torch.tensor([[0., 1, 2], [3, 4, 5], [0, 0, 0]])
+    want = {"gather": torch.tensor([[9., 10, 11], [nan, nan, nan]]),
+            "scatter_add": summed, "scatter_max": summed,
+            "scatter_mean": summed,
+            "segment_count": torch.tensor([1., 1, 0])}
+    for dev in ("cuda", "cpu"):
+        s, i, r = src.to(dev), index.to(dev), rows.to(dev)
+        got = {"gather": mp.gather(s, r),
+               "scatter_add": mp.scatter_add(s, i, 3),
+               "scatter_max": mp.scatter_max(s, i, 3),
+               "scatter_mean": mp.scatter_mean(s, i, 3),
+               "segment_count": mp.segment_count(i, 3)}
+        for k, v in want.items():
+            torch.testing.assert_close(got[k].cpu(), v, rtol=0, atol=0,
+                                       equal_nan=True)
+    soft = [mp.scatter_softmax(src[:, 0].to(d), index.to(d), 3).cpu()
+            for d in ("cuda", "cpu")]
+    torch.testing.assert_close(soft[0][:2], soft[1][:2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["set2set", "attention"])
+def test_cuda_graph_model_step_matches_the_cpu(pool):
+    """One GraphEstimator step of GraphModel (gin + set2set, gated +
+    attention, the mutag runners' widths) on the same packed batch, on
+    the card against the CPU, no dropout, TF32 off: the loss within
+    rtol 1e-4, the gradients within 1e-5 of the largest."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from euler_tpu_torch.dataset import get_dataset
+    from euler_tpu_torch.estimator.estimators import GraphEstimator
+    from euler_tpu_torch.mp_utils.graph_gnn import GraphModel
+
+    data = get_dataset("mutag")
+    conv = "gin" if pool == "set2set" else "gated"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = GraphModel(data.feature_dim, conv, pool, 32, 2, 16, 2,
+                           generator=torch.Generator().manual_seed(0))
+        est = GraphEstimator(model, {"num_graphs": 16, "seed": 3,
+                                     "checkpoint_steps": 0,
+                                     "log_steps": 1 << 30},
+                             data.graphs, data.labels, device=dev)
+        res = est.train(est.train_input_fn, max_steps=1)
+        out[dev] = (res["loss"], {k: p.grad.cpu() for k, p in
+                                  est.model.named_parameters()})
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert lc == pytest.approx(lp, rel=1e-4)
+    top = max(float(g.abs().max()) for g in gp.values())
+    for k, g in gp.items():
+        torch.testing.assert_close(gc[k], g, rtol=0, atol=1e-5 * top)
+
+
+@pytest.mark.cuda
+def test_cuda_gin_runner_repeats_bit_for_bit():
+    """run_gin (dropout 0.5 on the readout) for 30 steps twice on the
+    card with the same seed: the same result dict, bit for bit."""
+    _need_card()
+    from euler_tpu_torch.examples import run_gin
+
+    runs = [{k: v for k, v in run_gin.main(["--max_steps", "30", "--seed",
+                                            "2"]).items()
+             if k != "train_steps_per_sec"} for _ in range(2)]
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_lgcn_runner_repeats_bit_for_bit():
+    """run_lgcn (dropout 0.5, the top-k Conv1d over host fanouts) for 30
+    steps twice on the card with the same seed: the same result dict,
+    bit for bit."""
+    _need_card()
+    from euler_tpu_torch.examples import run_lgcn
+
+    runs = [{k: v for k, v in run_lgcn.main(["--max_steps", "30", "--seed",
+                                             "2"]).items()
+             if k != "train_steps_per_sec"} for _ in range(2)]
+    assert runs[0] == runs[1]

@@ -151,6 +151,50 @@ def test_mp_op_matches_the_reference(fn):
     _close(s.grad, want_g)
 
 
+@pytest.mark.parametrize("fn", ["gather", "scatter_add", "scatter_mean",
+                                "scatter_max", "segment_count",
+                                "scatter_softmax"])
+def test_mp_op_out_of_range_indices_match_the_reference(fn):
+    """src = arange(12).reshape(4, 3), segment ids [0, 1, -1, 3] over 3
+    segments, gather rows [-1, 5]: gather wraps -1 and fills 5 with NaN
+    (jnp.take's fill mode), the segment ops drop -1 and 3
+    (jax.ops.segment_sum / segment_max), exact; scatter_softmax does not
+    raise and its in-range entries (0 and 1) equal the reference's
+    (rtol 1e-6; the dropped entries mean nothing in either). The
+    gradients of gather and scatter_add too: 0 for a filled or dropped
+    row."""
+    src = np.arange(12, dtype=np.float32).reshape(4, 3)
+    index = np.array([0, 1, -1, 3], np.int32)
+    if fn == "gather":
+        args = (src, np.array([-1, 5], np.int32))
+    elif fn == "segment_count":
+        args = (index, 3)
+    elif fn == "scatter_softmax":
+        args = (src[:, 0], index, 3)
+    else:
+        args = (src, index, 3)
+    want = np.asarray(getattr(jmp, fn)(*[
+        jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]))
+    t_args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+              for a in args]
+    got = getattr(pmp, fn)(*t_args).numpy()
+    if fn == "scatter_softmax":
+        _close(got[:2], want[:2], rtol=1e-6, atol=0)
+        assert np.isfinite(got).all()
+        return
+    np.testing.assert_array_equal(got, want)
+    if fn not in ("gather", "scatter_add"):
+        return
+    cot = np.arange(want.size, dtype=np.float32).reshape(want.shape) + 1
+    _, vjp = jax.vjp(lambda s: getattr(jmp, fn)(s, jnp.asarray(args[1]),
+                                               *args[2:]), jnp.asarray(src))
+    (want_g,) = vjp(jnp.asarray(cot))
+    s = t_args[0].clone().requires_grad_(True)
+    (torch.nan_to_num(getattr(pmp, fn)(s, *t_args[1:]))
+     * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_array_equal(s.grad.numpy(), np.asarray(want_g))
+
+
 # -- the convolutions ---------------------------------------------------------
 
 CONVS = ["gcn", "sage", "gat", "agnn", "gin", "graph", "sgcn", "tag",
@@ -263,17 +307,18 @@ def test_bipartite_input_matches_the_reference(cls):
 
 def test_get_conv_errors_and_fresh_init():
     """get_conv: an unknown name raises the reference's ValueError (the
-    same list of options), gated and relation raise NotImplementedError
-    naming the ROADMAP item. A fresh GAT has flax's glorot-uniform
-    attention bounds and AGNN's beta starts at 1."""
+    same list of options), relation raises NotImplementedError naming
+    the ROADMAP item, gated builds a GatedGraphConv. A fresh GAT has
+    flax's glorot-uniform attention bounds and AGNN's beta starts at
+    1."""
     with pytest.raises(ValueError) as err:
         get_conv("nope", 4, 4, 0, 2, {})
     with pytest.raises(ValueError) as jerr:
         jget_conv("nope", 4, 0, 2, {})
     assert str(err.value) == str(jerr.value)
-    for name in ("gated", "relation"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-            get_conv(name, 4, 4, 0, 2, {})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+        get_conv("relation", 4, 4, 0, 2, {})
+    assert isinstance(get_conv("gated", 4, 4, 0, 2, {}), C.GatedGraphConv)
     gat = C.GATConv(IN_DIM, 16, heads=8,
                     generator=torch.Generator().manual_seed(0))
     limit = np.sqrt(6.0 / (8 + 16))

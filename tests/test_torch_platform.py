@@ -99,6 +99,33 @@ def test_slice9_entry_points_raise_without_cuda(runner, monkeypatch):
             mod.main(argv)
 
 
+def test_slice10_entry_points_raise_without_cuda(monkeypatch):
+    """Without a card the graph-classification and GAE estimators, and
+    a BaseEstimator over DGI, raise (device=None is CUDA) before they
+    build anything."""
+    import numpy as np
+
+    from euler_tpu_torch.dataset.graph_sets import mutag_like
+    from euler_tpu_torch.estimator.base_estimator import BaseEstimator
+    from euler_tpu_torch.estimator.estimators import (
+        GaeEstimator, GraphEstimator,
+    )
+    from euler_tpu_torch.models.dgi import DGI
+    from euler_tpu_torch.mp_utils.base_gae import BaseGraphGAE
+    from euler_tpu_torch.mp_utils.graph_gnn import GraphModel
+
+    data = mutag_like(num_graphs=4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GraphEstimator(GraphModel(7, "gated", "set2set", num_graphs=2),
+                       {}, data.graphs, data.labels)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GaeEstimator(BaseGraphGAE(3, variational=True), {}, None,
+                     lambda roots: {"n_real_nodes": np.int64(1)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BaseEstimator(DGI(3, dim=4), {})
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -136,7 +163,17 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
                  "examples/run_gat.py", "examples/run_appnp.py",
                  "examples/run_agnn.py", "examples/run_arma.py",
                  "examples/run_sgcn.py", "examples/run_tagcn.py",
-                 "examples/run_adaptivegcn.py", "examples/run_dna.py"):
+                 "examples/run_adaptivegcn.py", "examples/run_dna.py",
+                 "utils/metrics.py", "utils/to_dense.py",
+                 "dataset/graph_sets.py", "convolution/gated_graph_conv.py",
+                 "graph_pool/__init__.py", "graph_pool/base_pool.py",
+                 "mp_utils/graph_gnn.py", "mp_utils/base_gae.py",
+                 "models/dgi.py", "utils/encoders.py",
+                 "estimator/estimators.py", "examples/graph_common.py",
+                 "examples/run_gin.py", "examples/run_graphgcn.py",
+                 "examples/run_gated_graph.py", "examples/run_set2set.py",
+                 "examples/run_gae.py", "examples/run_dgi.py",
+                 "examples/run_lgcn.py"):
         assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))
