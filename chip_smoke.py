@@ -19,7 +19,10 @@ of bench.py --host_sampler (the engine samples the fanout on the host);
 then the layerwise family of bench.py --layerwise on the same tables and
 full-batch message passing (GCN, GAT) on the pubmed stand-in; then graph
 classification on the mutag stand-in and GAE, DGI and LGCN on cora at
-their runners' widths; then the
+their runners' widths; then the rest of the node zoo (host-fed GeniePath
+and ScalableGraphSage, the solutions) on cora and the knowledge-graph
+family (TransE/H/R/D, DistMult, R-GCN) on the fb15k237 stand-in, with
+RelationConv and GroupGNNNet on cora; then the
 serving stack over bundles exported from the trained flagship
 (2,450,000 x 256 f32).
 Phases, in order; any failure raises and the exit code is not 0:
@@ -135,7 +138,25 @@ Phases, in order; any failure raises and the exit code is not 0:
               host's batch build and its share, busy share, a finite
               loss, no gather_mean launch; run_gin's dropout steps
               twice, bit for bit
- 10. quality  (in three worker processes started after phase 2 and joined
+ 9j. slice 11 at the runners' default widths: host-fed GeniePath
+              (fanouts 15, 10, dim 64) and ScalableGraphSage (one hop
+              of 10, dim 32, its float32 cache read by gather_mean: one
+              launch a step) on cora; SuperviseSolution and
+              UnsuperviseSolution (dot, cosine) on cora; TransE, TransH,
+              TransR, TransD and DistMult (dim 64, 256 triples, 16
+              negatives) and RGCNLinkModel (dim 32, 8 relations x
+              fanout 8) on the fb15k237 stand-in; RelationConv inside
+              BaseGNNNet and GroupGNNNet over cora's whole graph with 4
+              synthetic relations (an edge's source row mod 4; groups
+              by its parity): each one step on the card against the CPU
+              (loss rtol 1e-4, gradients 1e-5 of the largest;
+              ScalableGraphSage after one training step, so the
+              compared step reads the cache the first wrote), then 20
+              timed steps: ms a step, the host's batch build and its
+              share, busy share, gather_mean launches (1 a step on
+              ScalableGraphSage, 0 elsewhere); TransE and the R-GCN
+              runner's steps twice, bit for bit
+ 10. quality  (in four worker processes started after phase 2 and joined
               after phase 3, before any timed phase: their runs are
               bound by the host and overlap the graph set-up; the
               layerwise and conv runners share one process and one cora
@@ -170,7 +191,19 @@ Phases, in order; any failure raises and the exit code is not 0:
               the eval AUC) and run_dgi (0.672, the probe) on cora, each
               failing unless within 0.01 of its row or 2 standard errors
               of the JAX package's own 10-seed mean
-              (tests/oracle_graph.py); each gate printed, met or not
+              (tests/oracle_graph.py); slice 11's runners for seeds
+              0-2: in the fourth process run_geniepath and
+              run_scalable_sage host-fed on cora (rows 0.763, 0.731)
+              and run_solution (0.774), then run_sample_solution once
+              against its floor; after the message-passing runners
+              run_transx --model TransE/TransH/TransR/TransD and
+              run_distmult (0.914, 0.915, 0.860, 0.880, 0.901) and
+              run_rgcn (0.730) on the fb15k237 stand-in (RESULTS.md
+              names those rows "fb15k"; the runners' default dataset is
+              fb15k237), each failing unless within 0.01 of its row or
+              2 standard errors of the JAX package's own 10-seed mean
+              (tests/oracle_hostfed.py, tests/oracle_kg.py); each gate
+              printed, met or not
  11. small    a small input through the card and through the CPU path
  12. serve    the training tables freed, then through the TCP stack on
               the card: InferenceServer loads v1 (verified) and uploads
@@ -227,9 +260,11 @@ from euler_tpu_torch.estimator.infer import NodeInferencer
 from euler_tpu_torch.estimator.prefetch import make_feeder
 from euler_tpu_torch.examples import (
     common, graph_common, run_adaptivegcn, run_agnn, run_appnp, run_arma,
-    run_deepwalk, run_dgi, run_dna, run_fastgcn, run_gae, run_gat,
-    run_gated_graph, run_gcn, run_geniepath, run_gin, run_graphgcn,
-    run_graphsage, run_lgcn, run_line, run_set2set, run_sgcn, run_tagcn,
+    run_deepwalk, run_dgi, run_distmult, run_dna, run_fastgcn, run_gae,
+    run_gat, run_gated_graph, run_gcn, run_geniepath, run_gin,
+    run_graphgcn, run_graphsage, run_lgcn, run_line, run_rgcn,
+    run_sample_solution, run_scalable_sage, run_set2set, run_sgcn,
+    run_solution, run_tagcn, run_transx,
 )
 from euler_tpu_torch.examples.common import (
     ConvModel, full_batch_flow, root_input_fn,
@@ -254,6 +289,8 @@ from euler_tpu_torch.parallel.device_walk import (
     DeviceNodeSampler, gen_pair_offsets,
 )
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+from euler_tpu_torch.mp_utils.base import SuperviseModel
+from euler_tpu_torch.mp_utils.group_gnn import GroupGNNNet
 from euler_tpu_torch.estimator.retry import RetryPolicy
 from euler_tpu_torch.graph import seed as seed_engine
 from euler_tpu_torch.serving import InferenceServer, ModelBundle, ServingClient
@@ -432,6 +469,58 @@ GRAPH_QUALITY = {
     "dgi cora": ("run_dgi", [], "eval_metric", 0.672, 0.6917, 0.0361,
                  0.0327),
 }
+
+# slice 11 (phase 9j): cora's whole graph gets S11_RELATIONS synthetic
+# relations for RelationConv and GroupGNNNet (an edge's source row mod
+# S11_RELATIONS; GroupGNNNet's two groups by its parity)
+S11_RELATIONS = 4
+S11_KG_MODELS = ("TransE", "TransH", "TransR", "TransD", "DistMult")
+# quality of slice 11's runners (SLICE11_QUALITY on cora, KG_QUALITY
+# on the fb15k237 stand-in), seeds 0-2 on the card at their defaults,
+# gated as GRAPH_QUALITY is: the JAX package's 10-seed means
+# and sds from tests/oracle_hostfed.py (geniepath, scalable_sage,
+# solution) and tests/oracle_kg.py (the rest), the port's sds from the
+# same scripts with --port. The KG runners run on their default dataset,
+# the fb15k237 stand-in (RESULTS.md names the rows "fb15k"); their
+# metric is the eval MRR, the cora runners' the test micro-F1.
+# name → (runner, argv, result key, row, ref mean, ref sd, port sd[,
+# seeds]). The host-fed scalable_sage runs seeds 0-9 on the card (3 s a
+# run): on an H100 host (torch 2.11) its test micro-F1 spreads with an
+# sd of 0.0276 over seeds 0-9, against 0.0144 for the same seeds on the
+# CPU where the oracles ran (torch 2.13); that host's card and CPU give
+# the same result for a seed (0.6586 at seed 0), and seeds 0-2 alone
+# (0.6586, 0.6770, 0.6828) sit 2.5 of its sds below its 10-seed mean
+# (0.7027; PERF.md). The 10-seed mean is held to the same rule, with
+# its standard error over 10 seeds.
+SCALABLE_SEEDS = tuple(range(10))
+S11_FLOOR = 0.6
+SLICE11_QUALITY = {
+    "geniepath cora (host-fed)": ("run_geniepath", [], "test_metric",
+                                  0.763, 0.7515, 0.0334, 0.0233),
+    "scalable_sage cora (host-fed)": ("run_scalable_sage", [],
+                                      "test_metric", 0.731, 0.7129, 0.0189,
+                                      0.0144, SCALABLE_SEEDS),
+    "solution cora": ("run_solution", [], "test_metric", 0.774, 0.7998,
+                      0.0217, 0.0172),
+}
+KG_QUALITY = {
+    "transe fb15k237": ("run_transx", ["--model", "TransE"], "eval_metric",
+                        0.914, 0.9083, 0.0038, 0.0034),
+    "transh fb15k237": ("run_transx", ["--model", "TransH"], "eval_metric",
+                        0.915, 0.9074, 0.0039, 0.0041),
+    "transr fb15k237": ("run_transx", ["--model", "TransR"], "eval_metric",
+                        0.860, 0.8478, 0.0036, 0.0039),
+    "transd fb15k237": ("run_transx", ["--model", "TransD"], "eval_metric",
+                        0.880, 0.8806, 0.0048, 0.0044),
+    "distmult fb15k237": ("run_distmult", [], "eval_metric", 0.901, 0.8959,
+                          0.0041, 0.0040),
+    "rgcn fb15k237": ("run_rgcn", [], "eval_metric", 0.730, 0.7169, 0.0093,
+                      0.0093),
+}
+# run_sample_solution has no RESULTS.md row: one run (seed 0) must reach
+# this eval micro-F1. Its evaluation reads the training file's batches;
+# the reference's runner and the port's each gave 1.0 in one CPU run.
+SAMPLE_SOLUTION_FLOOR = 0.95
 
 
 def log(msg: str) -> None:
@@ -680,7 +769,9 @@ def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
     rows [n, k] and feature table, the cora runner's shapes, the path's
     table one byte off alignment, and the activation cache's two reads
     (cache_rows [B, 15]: layer 0 over the int8 feature table, layer 1
-    over a seeded bfloat16 cache [N+1, 128] with a float32 output).
+    over a seeded bfloat16 cache [N+1, 128] with a float32 output), and
+    the host-fed ScalableGraphSage's cache read (a seeded float32 cache
+    [2708, 32], rows [64, 10]).
     Tolerances: float32 outputs within 1e-5 of the largest value
     (summation order and the 1/k and scale multiplies); bfloat16 outputs
     within 2^-7 of the largest (one bf16 rounding). With a baseline
@@ -712,6 +803,14 @@ def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
              lambda: q.to(torch.bfloat16) * scale_bf16, None),
             ("act cache layer 1: bf16 cache -> f32", cache, None, cache_rows,
              lambda: cache.float(), torch.float32)]
+    # the host-fed ScalableGraphSage's layer-1 read (run_scalable_sage's
+    # defaults on cora): a float32 cache [max_id + 1, 32], 64 roots x 10
+    gen = torch.Generator(device=dev).manual_seed(5)
+    f32_cache = torch.randn((2708, 32), generator=gen, device=dev)
+    f32_rows = torch.randint(0, 2708, (64, 10), generator=gen, device=dev,
+                             dtype=torch.int32)
+    cases.append(("host-fed scalable layer 1: f32 cache -> f32", f32_cache,
+                  None, f32_rows, lambda: f32_cache, None))
     results = []
     for name, table, scale, r_, dense_fn, out_dtype in cases:
         got = gather_mean(table, r_, scale, out_dtype=out_dtype)
@@ -1988,12 +2087,15 @@ def check_mp_repeats(make_estimator, what: str, steps: int = 3) -> bool:
     """Two trainings of `steps` steps from the same weights, engine seed
     and dropout stream on the card: the same losses and parameters, bit
     for bit (mp_ops' sums on CUDA are sorted segment sums, not
-    atomics)."""
+    atomics). make_estimator() gives an estimator, or (estimator,
+    input_fn) for one without train_input_fn."""
     runs = []
     for _ in range(2):
         est = make_estimator()
+        est, input_fn = est if isinstance(est, tuple) else (
+            est, est.train_input_fn)
         seed_engine(1)
-        res = est.train(est.train_input_fn, max_steps=steps)
+        res = est.train(input_fn, max_steps=steps)
         runs.append((res["losses"], est.model.state_dict()))
     (la, sa), (lb, sb) = runs
     same = la == lb and all(torch.equal(v, sb[k]) for k, v in sa.items())
@@ -2168,16 +2270,20 @@ def _card_vs_cpu(what: str, make_model, raw: dict, dev) -> tuple:
 
 
 def _zoo_case(what: str, make_est, raw: dict, dev,
-              input_fn=None) -> dict:
-    """One model of phase 9i: one step's loss and gradients on the card
-    against the CPU from the same weights and host batch (eval mode, as
-    9h; _card_vs_cpu), then ZOO_WARMUP + ZOO_TIMED steps on the card
-    through its estimator (input_fn, default its train_input_fn): ms a
-    step, the host's batch build a step and its share, the busy share of
-    one profiled step, a finite loss, no skipped step and no gather_mean
-    launch."""
-    lerr, gerr, worst, flips = _card_vs_cpu(
-        what, lambda d: make_est(d).model, raw, dev)
+              input_fn=None, launches_per_step: int = 0,
+              compare=None) -> dict:
+    """One model of phases 9i and 9j: one step's loss and gradients on
+    the card against the CPU from the same weights and host batch (eval
+    mode, as 9h; _card_vs_cpu, or compare() when given), then
+    ZOO_WARMUP + ZOO_TIMED steps on the card through its estimator
+    (input_fn, default its train_input_fn): ms a step, the host's batch
+    build a step and its share, the busy share of one profiled step, a
+    finite loss, no skipped step and launches_per_step gather_mean
+    launches a step (the count set to 0 just before the steps)."""
+    lerr, gerr, worst, flips = (compare() if compare is not None else
+                                _card_vs_cpu(what,
+                                             lambda d: make_est(d).model,
+                                             raw, dev))
     if not (lerr <= 1e-4 and gerr <= 1e-5):
         raise AssertionError(f"zoo {what}: the card disagrees with the CPU")
     est = make_est(dev)
@@ -2196,27 +2302,31 @@ def _zoo_case(what: str, make_est, raw: dict, dev,
     res = est.train(it, max_steps=ZOO_WARMUP + ZOO_TIMED)
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - t0) * 1e3 / ZOO_TIMED
+    launches = gather_mean.launches
     losses += res["losses"]
     prof = profile_device(lambda: est._train_step(_on_card(next(it), est)),
                           f"one {what} step")
     if not np.isfinite(losses).all() or res["skipped_steps"] \
-            or gather_mean.launches:
+            or launches != launches_per_step * (ZOO_WARMUP + ZOO_TIMED):
         raise AssertionError(f"zoo {what}: losses {losses}, "
                              f"{res['skipped_steps']} skipped, "
-                             f"{gather_mean.launches} launches")
+                             f"{launches} launches in "
+                             f"{ZOO_WARMUP + ZOO_TIMED} steps")
     b_ms = statistics.median(build_ms)
     log(f"zoo {what}: {ZOO_TIMED} steps: {step_ms:.3f} ms a step; host "
         f"batch build {b_ms:.3f} ms ({b_ms / step_ms:.1%}); device busy "
         f"{prof['device_busy_ms']:.3f} ms a step "
         f"({prof['device_busy_ms'] / step_ms:.1%}); loss {losses[0]:.4f} "
-        f"-> {losses[-1]:.4f}; gather_mean launches {gather_mean.launches}")
+        f"-> {losses[-1]:.4f}; gather_mean launches {launches} in "
+        f"{ZOO_WARMUP + ZOO_TIMED} steps")
     return {"loss_rel_err": lerr, "grad_err": gerr, "grad_err_at": worst,
             "prelu_kink_flips": flips, "losses": losses,
             "ms_per_step": step_ms, "host_build_ms": b_ms,
             "host_build_share": b_ms / step_ms,
             "device_busy_ms": prof["device_busy_ms"],
             "device_busy_share": prof["device_busy_ms"] / step_ms,
-            "gather_mean_launches": gather_mean.launches, "profile": prof}
+            "gather_mean_launches": launches,
+            "steps": ZOO_WARMUP + ZOO_TIMED, "profile": prof}
 
 
 def phase_zoo(dev) -> dict:
@@ -2277,46 +2387,289 @@ def phase_zoo(dev) -> dict:
     return out
 
 
+class _TypedFlow:
+    """A whole-graph flow whose batches carry S11_RELATIONS synthetic
+    relations: edge_type = the edge's source row mod S11_RELATIONS, and
+    group_edge_index = the edges of even and of odd type (GroupGNNNet's
+    two groups)."""
+
+    def __init__(self, flow):
+        self.flow = flow
+        self._extra = None
+
+    def __call__(self, roots):
+        batch = self.flow(roots)
+        if self._extra is None:
+            ei = batch["edge_index"]
+            et = (ei[0] % S11_RELATIONS).astype(np.int32)
+            self._extra = {"edge_type": et, "group_edge_index": [
+                np.ascontiguousarray(ei[:, et % 2 == g]) for g in (0, 1)]}
+        return {**batch, **self._extra}
+
+
+class _GroupModel(SuperviseModel):
+    """GroupGNNNet ("gnn", two groups of two GCN layers of width 32) and
+    the dense head."""
+
+    def __init__(self, num_classes, in_dim, generator=None):
+        gnn = GroupGNNNet(in_dim, "gcn", 32, 2, 2, generator=generator)
+        super().__init__(num_classes, False, gnn.out_dim,
+                         generator=generator)
+        self.gnn = gnn
+
+    def embed(self, batch):
+        return self.gnn(batch)
+
+
+def _scalable_card_vs_cpu(make_est, raws: list, dev) -> tuple:
+    """ScalableGraphSage on the CPU and on the card from the same
+    weights: one training step on raws[0] each (an Adam step and the
+    cache write), their caches compared (within 1e-5 of the largest
+    value); then the card's model takes the CPU's parameters and caches
+    (an Adam step turns a gradient near 0 into a step of +-lr on either
+    side, so the two steps' weights are no common start) and both run
+    one training-mode forward and backward on raws[1], which reads the
+    rows the first step wrote: (loss relative error, the largest
+    gradient error over the largest gradient, its parameter, 0),
+    logged."""
+    cpu = torch.device("cpu")
+    models, caches = [], []
+    for d in (cpu, dev):
+        est = make_est(d)
+        est.ckpt_steps = 0
+        est.train(iter([raws[0]]), max_steps=1)
+        caches.append(est.model.encoder.cache_1.h.detach().cpu().clone())
+        models.append((est.model, d, est.max_id))
+    cerr = max_abs_err(caches[1], caches[0]) / max(
+        float(caches[0].abs().max()), 1e-30)
+    models[1][0].load_state_dict(models[0][0].state_dict())
+    out = []
+    for model, d, max_id in models:
+        model.train()
+        model.zero_grad(set_to_none=True)
+        res = model(base_estimator._to_device(raws[1], d, max_id))
+        res.loss.backward()
+        out.append((float(res.loss.detach()),
+                    {k: p.grad.detach().cpu()
+                     for k, p in model.named_parameters()}))
+    (lp, gp), (lc, gc_) = out
+    top = max(float(v.abs().max()) for v in gp.values())
+    errs = {k: max_abs_err(gc_[k], v) / max(top, 1e-30)
+            for k, v in gp.items()}
+    worst = max(errs, key=errs.get)
+    lerr = abs(lc - lp) / abs(lp)
+    log(f"zoo scalable_sage: the cache after one training step on the "
+        f"card within {cerr:.3g} of its largest value (tol 1e-5); card vs "
+        f"CPU on the next step from the CPU's weights and cache: loss "
+        f"{lc:.6f} vs {lp:.6f} (rel {lerr:.3g}, tol 1e-4), gradients max "
+        f"err {errs[worst]:.3g} of the largest (tol 1e-5, at {worst})")
+    if not cerr <= 1e-5:
+        raise AssertionError("scalable_sage: the card's cache disagrees")
+    return lerr, errs[worst], worst, 0
+
+
+def phase_slice11(dev) -> dict:
+    """Slice 11 at the runners' default widths on one card (phase 9j):
+    each model through _zoo_case (card vs CPU, 20 timed steps); the
+    host-fed ScalableGraphSage launches gather_mean once a step (its
+    layer-1 cache read, a float32 cache [2708, 32] at n 64, k 10) and
+    is compared after a first training step; then TransE's and the
+    R-GCN runner's steps twice, bit for bit."""
+    cpu = torch.device("cpu")
+    out = {}
+    with common.shared_graphs():
+        cora = common.load_graph("cora", 0)
+        args = run_geniepath.parse_args([])
+
+        def make(d, args=args):
+            return run_geniepath.build_estimator(args, cora, d)
+        seed_engine(0)
+        raw = next(make(cpu).train_input_fn())
+        out["geniepath"] = _zoo_case(
+            f"geniepath cora host-fed (fanouts {args.fanouts}, dim "
+            f"{args.hidden_dim})", make, raw, dev)
+        args = run_scalable_sage.build_parser().parse_args([])
+
+        def make(d, args=args):
+            return run_scalable_sage.build_estimator(args, cora, d)
+        seed_engine(0)
+        it = make(cpu).train_input_fn()
+        raws = [next(it), next(it)]
+        out["scalable_sage"] = _zoo_case(
+            f"scalable_sage cora host-fed (one hop of {args.fanout}, dim "
+            f"{args.hidden_dim}, f32 cache)", make, raws[0], dev,
+            launches_per_step=args.num_layers - 1,
+            compare=lambda: _scalable_card_vs_cpu(make, raws, dev))
+        for mode, logits in (("supervise", "dot"), ("unsupervise", "dot"),
+                             ("unsupervise", "cosine")):
+            args = run_solution.build_parser().parse_args(
+                ["--mode", mode, "--logits", logits])
+
+            def make(d, args=args):
+                return run_solution.build_estimator(args, cora, d)[0]
+            seed_engine(0)
+            _, sol = run_solution.build_estimator(args, cora, cpu)
+            raw = next(sol.input_fn())
+            name = f"solution {mode}" + (f" ({logits})"
+                                         if mode == "unsupervise" else "")
+            out[name] = _zoo_case(
+                f"{name} cora (fanouts {args.fanouts}, dim {args.dim})",
+                make, raw, dev, input_fn=sol.input_fn)
+        flow = _TypedFlow(full_batch_flow(cora))
+        for name, make_model in (
+                ("relation", lambda g: ConvModel(
+                    cora.num_classes, cora.feature_dim, "relation", dim=32,
+                    conv_kwargs={"num_relations": S11_RELATIONS},
+                    generator=g)),
+                ("group", lambda g: _GroupModel(
+                    cora.num_classes, cora.feature_dim, generator=g))):
+            def make(d, make_model=make_model):
+                return NodeEstimator(
+                    make_model(torch.Generator().manual_seed(0)),
+                    dict(batch_size=128, learning_rate=0.01),
+                    cora.engine, flow, label_fid="label",
+                    label_dim=cora.num_classes, device=d)
+            seed_engine(0)
+            raw = next(make(cpu).train_input_fn())
+            out[name] = _zoo_case(
+                f"{'RelationConv in BaseGNNNet' if name == 'relation' else 'GroupGNNNet (GCN)'} "
+                f"cora, {S11_RELATIONS} synthetic relations", make, raw,
+                dev)
+    kg = get_dataset("fb15k237")
+    for model in S11_KG_MODELS:
+        args = run_transx.build_parser(model).parse_args([])
+
+        def make(d, args=args):
+            return run_transx.kg_estimator(args, kg, d)[0]
+        seed_engine(0)
+        est, input_fn = run_transx.kg_estimator(args, kg, cpu)
+        raw = next(input_fn())
+        out[model] = _zoo_case(
+            f"{model} fb15k237 (dim {args.dim}, batch {args.batch_size}, "
+            f"{args.num_negs} negatives)", make, raw, dev,
+            input_fn=run_transx.kg_estimator(args, kg, cpu)[1])
+    args = run_rgcn.build_parser().parse_args([])
+
+    def make(d):
+        return run_rgcn.rgcn_estimator(args, kg, d)[0]
+    seed_engine(0)
+    raw = next(run_rgcn.rgcn_estimator(args, kg, cpu)[1]())
+    out["rgcn"] = _zoo_case(
+        f"rgcn fb15k237 (dim {args.dim}, {args.num_rel_sample} relations x "
+        f"fanout {args.fanout})", make, raw, dev,
+        input_fn=run_rgcn.rgcn_estimator(args, kg, cpu)[1])
+    targs = run_transx.build_parser().parse_args([])
+    out["transe_repeats_bit_for_bit"] = check_mp_repeats(
+        lambda: run_transx.kg_estimator(targs, kg, dev), "zoo TransE",
+        ZOO_REPEAT_STEPS)
+    out["rgcn_repeats_bit_for_bit"] = check_mp_repeats(
+        lambda: run_rgcn.rgcn_estimator(args, kg, dev), "zoo rgcn",
+        ZOO_REPEAT_STEPS)
+    return out
+
+
+def _gated_runs(table: dict, mods: dict, label: str = "") -> dict:
+    """Each quality entry, name → (runner, argv, result key, row, floor,
+    ref mean, ref sd, port sd, seeds), run on the card for its seeds
+    through _quiet_run and logged, met or not: met when the mean lies
+    within QUALITY_BAND of the RESULTS.md row or within 2 standard
+    errors, sqrt(port_sd^2 / seeds + ref_sd^2 / 10), of the reference's
+    10-seed mean. Fails on a non-finite run, a skipped step, a mean
+    below its floor or one that meets neither gate."""
+    out = {}
+    for name, (runner, argv, key, row, floor, ref, ref_sd, port_sd,
+               seeds) in table.items():
+        what = label + name
+        vals, secs = [], []
+        for seed in seeds:
+            res, dt = _quiet_run(mods[runner], [*argv, "--seed", str(seed)],
+                                 f"{what} seed {seed}")
+            vals.append(float(res[key]))
+            secs.append(dt)
+        mean = float(np.mean(vals))
+        se = float(np.sqrt(port_sd ** 2 / len(vals) + ref_sd ** 2 / 10))
+        row_met = abs(mean - row) <= QUALITY_BAND
+        ref_met = abs(mean - ref) <= 2 * se
+        log(f"quality: {what}: {key} " + ", ".join(f"{v:.4f}" for v in vals)
+            + f" (seeds {list(seeds)}, "
+            + ", ".join(f"{x:.1f}s" for x in secs)
+            + f"), mean {mean:.4f}; RESULTS.md row {row} +- {QUALITY_BAND}: "
+            f"{'met' if row_met else 'not met'}; the reference's 10-seed "
+            f"mean {ref} +- 2 standard errors {2 * se:.4f}: "
+            f"{'met' if ref_met else 'not met'}")
+        if not mean >= floor:
+            raise AssertionError(f"{what}: mean {mean} < {floor}")
+        if not (row_met or ref_met):
+            raise AssertionError(f"{what}: mean {mean} meets neither "
+                                 "quality gate")
+        out[name] = {"values": vals, "seconds": secs, "seeds": list(seeds),
+                     "mean": mean, "row": row, "row_met": row_met,
+                     "oracle": ref, "two_se": 2 * se, "oracle_met": ref_met}
+    return out
+
+
+def _slice11_entries(table: dict) -> dict:
+    """SLICE11_QUALITY / KG_QUALITY entries in _gated_runs' layout
+    (floor S11_FLOOR, seeds QUALITY_SEEDS unless the entry names its
+    own)."""
+    return {name: (runner, argv, key, row, S11_FLOOR, ref, ref_sd,
+                   port_sd, seeds[0] if seeds else QUALITY_SEEDS)
+            for name, (runner, argv, key, row, ref, ref_sd, port_sd,
+                       *seeds) in table.items()}
+
+
+def phase_slice11_quality() -> dict:
+    """Slice 11's cora runners on the card, seeds 0-2, their defaults,
+    against their RESULTS.md rows and the JAX package's own 10-seed means
+    (SLICE11_QUALITY), in one process over one cora engine; then
+    run_sample_solution once (seed 0) against SAMPLE_SOLUTION_FLOOR."""
+    import tempfile
+
+    mods = {"run_geniepath": run_geniepath,
+            "run_scalable_sage": run_scalable_sage,
+            "run_solution": run_solution}
+    with common.shared_graphs():
+        out = _gated_runs(_slice11_entries(SLICE11_QUALITY), mods)
+        with tempfile.TemporaryDirectory() as tmp:
+            res, dt = _quiet_run(run_sample_solution,
+                                 ["--model_dir", tmp, "--seed", "0"],
+                                 "sample_solution")
+    met = res["eval_metric"] >= SAMPLE_SOLUTION_FLOOR
+    log(f"quality: sample_solution cora (seed 0, {dt:.1f}s): eval "
+        f"micro-F1 {res['eval_metric']:.4f} (floor "
+        f"{SAMPLE_SOLUTION_FLOOR}: {'met' if met else 'not met'})")
+    if not met:
+        raise AssertionError(f"sample_solution: {res['eval_metric']} < "
+                             f"{SAMPLE_SOLUTION_FLOOR}")
+    out["sample_solution cora"] = {"value": res["eval_metric"],
+                                   "seconds": dt,
+                                   "floor": SAMPLE_SOLUTION_FLOOR}
+    return out
+
+
+def phase_kg_quality() -> dict:
+    """The knowledge-graph runners on the card, seeds 0-2, their
+    defaults on the fb15k237 stand-in, against their RESULTS.md rows and
+    the JAX package's own 10-seed means (KG_QUALITY), over one graph."""
+    mods = {"run_transx": run_transx, "run_distmult": run_distmult,
+            "run_rgcn": run_rgcn}
+    with common.shared_graphs():
+        return _gated_runs(_slice11_entries(KG_QUALITY), mods)
+
+
 def phase_graph_quality() -> dict:
     """Slice 10's runners on the card, seeds 0-2, their defaults,
     against their RESULTS.md rows and the JAX package's own 10-seed
-    means (GRAPH_QUALITY). Fails on a non-finite run, a skipped step, a
-    mean below GRAPH_FLOOR, or a mean that meets neither gate."""
+    means (GRAPH_QUALITY), floor GRAPH_FLOOR (_gated_runs)."""
     mods = {"run_gin": run_gin, "run_graphgcn": run_graphgcn,
             "run_gated_graph": run_gated_graph, "run_set2set": run_set2set,
             "run_lgcn": run_lgcn, "run_gae": run_gae, "run_dgi": run_dgi}
-    out = {}
     with common.shared_graphs():
-        for name, (runner, argv, key, row, ref, ref_sd, port_sd) in \
-                GRAPH_QUALITY.items():
-            vals, secs = [], []
-            for seed in QUALITY_SEEDS:
-                res, dt = _quiet_run(mods[runner],
-                                     [*argv, "--seed", str(seed)],
-                                     f"{name} seed {seed}")
-                vals.append(float(res[key]))
-                secs.append(dt)
-            mean = float(np.mean(vals))
-            se = float(np.sqrt(port_sd ** 2 / len(vals) + ref_sd ** 2 / 10))
-            row_met = abs(mean - row) <= QUALITY_BAND
-            ref_met = abs(mean - ref) <= 2 * se
-            log(f"quality: {name}: {key} "
-                + ", ".join(f"{v:.4f}" for v in vals)
-                + f" (seeds {list(QUALITY_SEEDS)}, "
-                + ", ".join(f"{x:.1f}s" for x in secs)
-                + f"), mean {mean:.4f}; RESULTS.md row {row} +- "
-                f"{QUALITY_BAND}: {'met' if row_met else 'not met'}; the "
-                f"reference's 10-seed mean {ref} +- 2 standard errors "
-                f"{2 * se:.4f}: {'met' if ref_met else 'not met'}")
-            if not mean >= GRAPH_FLOOR:
-                raise AssertionError(f"{name}: mean {mean} < {GRAPH_FLOOR}")
-            if not (row_met or ref_met):
-                raise AssertionError(f"{name}: mean {mean} meets neither "
-                                     "quality gate")
-            out[name] = {"values": vals, "seconds": secs, "mean": mean,
-                         "row": row, "row_met": row_met, "oracle": ref,
-                         "two_se": 2 * se, "oracle_met": ref_met}
-    return out
+        return _gated_runs(
+            {name: (runner, argv, key, row, GRAPH_FLOOR, ref, ref_sd,
+                    port_sd, QUALITY_SEEDS)
+             for name, (runner, argv, key, row, ref, ref_sd, port_sd)
+             in GRAPH_QUALITY.items()}, mods)
 
 
 def phase_mp_quality() -> dict:
@@ -2324,84 +2677,31 @@ def phase_mp_quality() -> dict:
     their defaults on cora, in one process over one cora engine (and
     one FullBatchDataFlow static batch, common.shared_graphs), against
     their RESULTS.md rows and the JAX package's own 10-seed means
-    (MP_QUALITY). Fails on a non-finite run, a skipped step, a mean
-    below MP_FLOOR, or a mean that meets neither gate."""
+    (MP_QUALITY), floor MP_FLOOR (_gated_runs)."""
     mods = {"run_fastgcn": run_fastgcn, "run_gcn": run_gcn,
             "run_gat": run_gat, "run_appnp": run_appnp,
             "run_agnn": run_agnn, "run_arma": run_arma,
             "run_sgcn": run_sgcn, "run_tagcn": run_tagcn,
             "run_adaptivegcn": run_adaptivegcn, "run_dna": run_dna}
-    out = {}
     with common.shared_graphs():
-        for name, (runner, argv, row, ref, ref_sd, port_sd) in \
-                MP_QUALITY.items():
-            vals, secs = [], []
-            for seed in QUALITY_SEEDS:
-                res, dt = _quiet_run(mods[runner],
-                                     [*argv, "--seed", str(seed)],
-                                     f"{name} seed {seed}")
-                vals.append(float(res["test_metric"]))
-                secs.append(dt)
-            mean = float(np.mean(vals))
-            se = float(np.sqrt(port_sd ** 2 / len(vals) + ref_sd ** 2 / 10))
-            row_met = abs(mean - row) <= QUALITY_BAND
-            ref_met = abs(mean - ref) <= 2 * se
-            log(f"quality: {name}: test micro-F1 "
-                + ", ".join(f"{v:.4f}" for v in vals)
-                + f" (seeds {list(QUALITY_SEEDS)}, "
-                + ", ".join(f"{x:.1f}s" for x in secs)
-                + f"), mean {mean:.4f}; RESULTS.md row {row} +- "
-                f"{QUALITY_BAND}: {'met' if row_met else 'not met'}; the "
-                f"reference's 10-seed mean {ref} +- 2 standard errors "
-                f"{2 * se:.4f}: {'met' if ref_met else 'not met'}")
-            if not mean >= MP_FLOOR:
-                raise AssertionError(f"{name}: mean {mean} < {MP_FLOOR}")
-            if not (row_met or ref_met):
-                raise AssertionError(f"{name}: mean {mean} meets neither "
-                                     "quality gate")
-            out[name] = {"values": vals, "seconds": secs, "mean": mean,
-                         "row": row, "row_met": row_met, "oracle": ref,
-                         "two_se": 2 * se, "oracle_met": ref_met}
-    return out
+        return _gated_runs(
+            {name: (runner, argv, "test_metric", row, MP_FLOOR, ref,
+                    ref_sd, port_sd, QUALITY_SEEDS)
+             for name, (runner, argv, row, ref, ref_sd, port_sd)
+             in MP_QUALITY.items()}, mods)
 
 
 def phase_hostfed_quality() -> dict:
     """The port's host-fed runners on the card, seeds 0-2, against their
     RESULTS.md rows and the JAX package's own 10-seed means
-    (HOSTFED_QUALITY). Fails on a non-finite run, a skipped step, a
-    mean below its floor, or a mean that meets neither gate."""
+    (HOSTFED_QUALITY, each with its floor; _gated_runs)."""
     mods = {"run_graphsage": run_graphsage, "run_deepwalk": run_deepwalk,
             "run_line": run_line}
-    out = {}
-    for name, (runner, argv, key, row, floor, ref, ref_sd,
-               port_sd) in HOSTFED_QUALITY.items():
-        vals, secs = [], []
-        for seed in QUALITY_SEEDS:
-            res, dt = _quiet_run(mods[runner], [*argv, "--seed", str(seed)],
-                                 f"{name} seed {seed}")
-            vals.append(float(res[key]))
-            secs.append(dt)
-        mean = float(np.mean(vals))
-        se = float(np.sqrt(port_sd ** 2 / len(vals) + ref_sd ** 2 / 10))
-        row_met = abs(mean - row) <= QUALITY_BAND
-        ref_met = abs(mean - ref) <= 2 * se
-        log(f"quality: host-fed {name}: {key} "
-            + ", ".join(f"{v:.4f}" for v in vals)
-            + f" (seeds {list(QUALITY_SEEDS)}, "
-            + ", ".join(f"{x:.1f}s" for x in secs)
-            + f"), mean {mean:.4f}; RESULTS.md row {row} +- {QUALITY_BAND}: "
-            f"{'met' if row_met else 'not met'}; the reference's 10-seed "
-            f"mean {ref} +- 2 standard errors {2 * se:.4f}: "
-            f"{'met' if ref_met else 'not met'}")
-        if not mean >= floor:
-            raise AssertionError(f"host-fed {name}: mean {mean} < {floor}")
-        if not (row_met or ref_met):
-            raise AssertionError(f"host-fed {name}: mean {mean} meets "
-                                 "neither quality gate")
-        out[name] = {"values": vals, "seconds": secs, "mean": mean,
-                     "row": row, "row_met": row_met, "oracle": ref,
-                     "two_se": 2 * se, "oracle_met": ref_met}
-    return out
+    return _gated_runs(
+        {name: (runner, argv, key, row, floor, ref, ref_sd, port_sd,
+                QUALITY_SEEDS)
+         for name, (runner, argv, key, row, floor, ref, ref_sd, port_sd)
+         in HOSTFED_QUALITY.items()}, mods, label="host-fed ")
 
 
 def phase_slice7_quality() -> dict:
@@ -2952,14 +3252,16 @@ def phase_serve(v1, dir_v1: str, v2, dir_v2: str, root: str,
     return out
 
 
-# the quality phases run in three worker processes, started after the
+# the quality phases run in four worker processes, started after the
 # build and joined before the first timed phase: their runs are small on
 # the card and bound by the host, so they overlap the host-bound graph
 # set-up (phase 3) and no timed phase. The layerwise and message-passing
-# runners share one process (one cora engine, common.shared_graphs),
-# slice 10's runners another.
+# runners share one process (one cora engine, common.shared_graphs) with
+# the knowledge-graph runners, slice 10's runners another, slice 11's
+# cora runners a fourth.
 QUALITY_WORKERS = (("quality", "slice7_quality", "unsup_quality",
-                    "hostfed_quality"), ("mp_quality",), ("graph_quality",))
+                    "hostfed_quality"), ("mp_quality", "kg_quality"),
+                   ("graph_quality",), ("slice11_quality",))
 
 
 def run_quality_group(names) -> dict:
@@ -2972,7 +3274,9 @@ def run_quality_group(names) -> dict:
               "unsup_quality": phase_unsup_quality,
               "hostfed_quality": phase_hostfed_quality,
               "mp_quality": phase_mp_quality,
-              "graph_quality": phase_graph_quality}
+              "graph_quality": phase_graph_quality,
+              "slice11_quality": phase_slice11_quality,
+              "kg_quality": phase_kg_quality}
     out, t0 = {}, time.monotonic()
     for name in names:
         out[name] = phases[name]()
@@ -3157,6 +3461,9 @@ def main(argv=None) -> int:
     # slice 10: graph classification and the GAE / DGI / LGCN zoo
     record["zoo"] = phase_zoo(dev)
     mark(record, "zoo", t_start)
+    # slice 11: the rest of the node zoo and the knowledge-graph family
+    record["slice11"] = phase_slice11(dev)
+    mark(record, "slice 11", t_start)
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     mark(record, "small", t_start)
     # the training tables go before the bundles' tables go on the card
@@ -3229,6 +3536,14 @@ def main(argv=None) -> int:
         "zoo_launches": sum(r["gather_mean_launches"]
                             for r in record["zoo"].values()
                             if isinstance(r, dict)),
+        "scalable_hostfed_launches": record["slice11"]["scalable_sage"][
+            "gather_mean_launches"],
+        "scalable_hostfed_steps": record["slice11"]["scalable_sage"][
+            "steps"],
+        "slice11_other_launches": sum(
+            r["gather_mean_launches"]
+            for k, r in record["slice11"].items()
+            if isinstance(r, dict) and k != "scalable_sage"),
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

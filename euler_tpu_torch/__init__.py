@@ -16,6 +16,17 @@ absent. Pass `device="cpu"` to run the plain PyTorch versions on the
 CPU (the tests do).
 """
 
-from euler_tpu_torch.platform import resolve_device
+import os
+
+# torch runs its CPU ops on an OpenMP team whose idle workers busy-wait
+# by default. When the scheduler puts the calling thread on the CPU of a
+# spinning worker, each parallel op waits out a scheduler slice: the CPU
+# paths then run 10-30 times slower, at random. PASSIVE puts idle
+# workers to sleep. libgomp reads it once, when torch loads it, so it
+# holds where this package is imported before torch; a value the caller
+# set stays.
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
+
+from euler_tpu_torch.platform import resolve_device  # noqa: E402
 
 __all__ = ["resolve_device"]

@@ -23,7 +23,12 @@ gnn/<Conv>_{i}/... and gnn/<Pool>_0/... (AttentionPool's gate and proj,
 Set2SetPool's proj and OptimizedLSTMCell_0/{ii,...,ho}), GatedGraphConv's
 gru/{ir,iz,in,hr,hz,hn} (flax's GRUCell) and w_{t}, the GAE's enc/...,
 mu and logvar, DGI's encoder/..., PReLU_0/negative_slope and disc, and
-the LGCN runner's enc/conv/{kernel,bias}, maps to the port's
+the LGCN runner's enc/conv/{kernel,bias}, RelationConv's and the R-GCN
+runner's w_rel [R, in, out] with RelationConv's lin_root, the KG models'
+ent, rel, norm, proj, rel_p and ent_p tables, the solutions' enc/...,
+head/logits and ctx/table, ShallowEncoder's id_emb and feat,
+SparseSageEncoder's sp_emb/table and sage/agg_{d}, and GroupGNNNet's
+gnn_{g} (or gnn) and combine, maps to the port's
 state_dict keys by joining the path with "." and renaming kernel →
 weight. Flax Dense kernels are [in, out]; the port's weights are [out,
 in], so kernels are transposed both ways. A flax Conv kernel [width,
@@ -32,7 +37,8 @@ both ways. The recurrent cells' gates are Dense layers by name in both
 packages, so their trees map as Dense trees do. Tables [rows, dim] and
 other vectors (AttLayer's query, GAT's att_src / att_dst [1, H, D],
 AGNN's beta, GIN's eps, a conv's bias, PReLU's scalar negative_slope,
-DGI's disc [dim, dim]) keep their layout.
+DGI's disc [dim, dim], a stacked relation weight w_rel) keep their
+layout.
 
 The scalable models' `cache` collection (encoder/cache_{l}/h, float32
 or bfloat16 rows) is the port's buffers encoder.cache_{l}.h: it comes
@@ -52,7 +58,7 @@ import torch
 _CACHE_LEAF = "h"
 # leaves other than Dense kernels, which keep their layout
 _PLAIN = ("bias", "table", "query", "att_src", "att_dst", "beta", "eps",
-          "negative_slope", "disc")
+          "negative_slope", "disc", "w_rel")
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:

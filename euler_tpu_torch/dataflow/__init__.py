@@ -1,8 +1,8 @@
 """Host-side batch builders over the graph engine (counterpart of
-euler_tpu/dataflow: the fanout, whole, full-batch and layerwise flows;
-the relation flow waits for the relational slice)."""
+euler_tpu/dataflow: the fanout, whole, full-batch, layerwise and
+relation flows, and Block)."""
 
 from euler_tpu_torch.dataflow.base_dataflow import (  # noqa: F401
-    DataFlow, FanoutDataFlow, FastGCNDataFlow, FullBatchDataFlow,
-    LayerwiseDataFlow, WholeDataFlow,
+    Block, DataFlow, FanoutDataFlow, FastGCNDataFlow, FullBatchDataFlow,
+    LayerwiseDataFlow, RelationDataFlow, WholeDataFlow,
 )

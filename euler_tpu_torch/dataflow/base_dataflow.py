@@ -1,8 +1,7 @@
 """Mini-batch builders over the graph engine (copy of
-euler_tpu/dataflow/base_dataflow.py:41-285: `DataFlow`,
+euler_tpu/dataflow/base_dataflow.py: `Block`, `DataFlow`,
 `FanoutDataFlow`, `WholeDataFlow`, `FullBatchDataFlow`,
-`LayerwiseDataFlow` and `FastGCNDataFlow`; RelationDataFlow is not
-ported yet, ROADMAP.md Queue A, 'GNN library breadth').
+`LayerwiseDataFlow`, `FastGCNDataFlow` and `RelationDataFlow`).
 
 A dataflow is a host-side callable roots → batch dict of numpy arrays.
 Three geometries, as the reference's:
@@ -17,11 +16,22 @@ Nothing here is torch; the estimator moves the batch to the device.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from euler_tpu_torch.graph import GraphEngine
+
+
+@dataclass
+class Block:
+    """One hop of a sampled subgraph (the reference's Block)."""
+
+    n_id: np.ndarray          # [n_src] source node ids (uint64)
+    res_n_id: np.ndarray      # [n_tgt] target node ids
+    edge_index: np.ndarray    # [2, E] int32 (src_row, tgt_row)
+    size: tuple               # (n_src, n_tgt)
 
 
 class DataFlow:
@@ -262,3 +272,38 @@ class FastGCNDataFlow(LayerwiseDataFlow):
     """FastGCN: layerwise sampling with independent pools per layer; the
     engine's layerwise sampler already draws each layer by importance,
     so it is LayerwiseDataFlow."""
+
+
+class RelationDataFlow(DataFlow):
+    """Per-relation fanout batches for relational models (the
+    reference's RelationDataFlow): one typed sample_neighbor of `fanout`
+    per relation 0..num_relations-1, stacked.
+
+    Batch dict: ids [B] (the roots), nbr_ids and nbr_weights [R, B, K];
+    with feature_ids also x [B, D] and nbr_x [R, B, K, D]."""
+
+    def __init__(self, graph, fanout: int, num_relations: int, **kw):
+        super().__init__(graph, **kw)
+        self.fanout = fanout
+        self.num_relations = num_relations
+
+    def __call__(self, roots: np.ndarray) -> Dict:
+        roots = np.ascontiguousarray(roots, dtype=np.uint64).ravel()
+        per_rel_ids = []
+        per_rel_w = []
+        for r in range(self.num_relations):
+            nb, w, _ = self.graph.sample_neighbor(
+                roots, self.fanout, edge_types=[r], default_id=self.default_id)
+            per_rel_ids.append(nb)
+            per_rel_w.append(w)
+        batch = {
+            "ids": roots,
+            "nbr_ids": np.stack(per_rel_ids),   # [R, B, K]
+            "nbr_weights": np.stack(per_rel_w),
+        }
+        if self.feature_ids:
+            batch["x"] = self.features(roots)
+            batch["nbr_x"] = np.stack(
+                [self.features(i.ravel()).reshape(len(roots), self.fanout, -1)
+                 for i in per_rel_ids])
+        return batch

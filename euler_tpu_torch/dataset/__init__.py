@@ -1,7 +1,9 @@
 """Datasets of the port (synthetic stand-ins in the graph engine).
 
 `get_dataset(name)` returns the named citation stand-in as an
-engine-backed GraphData (base_dataset.py), as the reference's does
+engine-backed GraphData (base_dataset.py), "mutag" as a GraphSetData,
+and the knowledge graphs fb15k, fb15k237 and wn18 as a KGData
+(kg_sets.load_kg), as the reference's does
 (euler_tpu/dataset/__init__.py:72-81); `dataset_arrays(name)` gives the
 same stand-in as arrays (synthetic.GraphArrays). The shapes and
 calibrated difficulty knobs are a copy of euler_tpu/dataset/__init__.py
@@ -20,6 +22,7 @@ from euler_tpu_torch.dataset.base_dataset import (  # noqa: F401
 from euler_tpu_torch.dataset.graph_sets import (  # noqa: F401
     GraphSetData, mutag_like,
 )
+from euler_tpu_torch.dataset.kg_sets import KGData, load_kg  # noqa: F401
 from euler_tpu_torch.dataset.synthetic import (  # noqa: F401
     TEST_TYPE, TRAIN_TYPE, VAL_TYPE, GraphArrays, synthetic_citation,
 )
@@ -51,11 +54,17 @@ def dataset_arrays(name: str, **overrides) -> GraphArrays:
     return synthetic_citation(**{**_CITATION_SHAPES[name], **overrides})
 
 
+_KG_SETS = ("fb15k", "fb15k237", "wn18")
+
+
 def get_dataset(name: str, **overrides):
     """The named citation stand-in loaded into the graph engine (a
-    GraphData), or "mutag", the graph-classification stand-in (a
-    GraphSetData; overrides are mutag_like's arguments)."""
+    GraphData), "mutag", the graph-classification stand-in (a
+    GraphSetData; overrides are mutag_like's arguments), or a knowledge
+    graph (a KGData; overrides are load_kg's num_triples and seed)."""
     if name.lower() == "mutag":
         return mutag_like(**overrides)
+    if name.lower() in _KG_SETS:
+        return load_kg(name.lower(), **overrides)
     return engine_from_arrays(dataset_arrays(name, **overrides),
                               name=name.lower())

@@ -1,5 +1,5 @@
-"""NodeEstimator, EdgeEstimator, GraphEstimator and GaeEstimator
-(counterpart of euler_tpu/estimator/estimators.py:19-416).
+"""NodeEstimator, EdgeEstimator, GraphEstimator, GaeEstimator and
+SampleEstimator (counterpart of euler_tpu/estimator/estimators.py:19-445).
 
 NodeEstimator draws each batch's roots with the graph engine's
 sample_node over a split (node type; -1 = every node) and builds the
@@ -394,6 +394,42 @@ class GaeEstimator(BaseEstimator):
                 "infer_ids": roots,
             })
             yield batch
+
+    def train_input_fn(self) -> Iterator[Dict]:
+        return self._batches()
+
+    def eval_input_fn(self) -> Iterator[Dict]:
+        return self._batches()
+
+
+class SampleEstimator(BaseEstimator):
+    """Training from a line-oriented sample file (the reference's
+    estimators.py:SampleEstimator): blank lines skipped, every
+    batch_size stripped lines handed to parse_fn(lines) → batch, the
+    file read again from the top when it ends, forever. A tail shorter
+    than batch_size at the end of the file is dropped, as the reference
+    drops it. params: batch_size (32) and BaseEstimator's keys."""
+
+    def __init__(self, model, params: Dict[str, Any], sample_file: str,
+                 parse_fn, model_dir: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(model, params, model_dir, device=device)
+        self.sample_file = sample_file
+        self.parse_fn = parse_fn
+        self.batch_size = int(self.params_cfg.get("batch_size", 32))
+
+    def _batches(self) -> Iterator[Dict]:
+        while True:
+            with open(self.sample_file) as f:
+                lines = []
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    lines.append(line)
+                    if len(lines) == self.batch_size:
+                        yield self.parse_fn(lines)
+                        lines = []
 
     def train_input_fn(self) -> Iterator[Dict]:
         return self._batches()

@@ -1,6 +1,7 @@
 """GraphSAGE models (counterpart of euler_tpu/models/graphsage.py:21-85,
-87-488): `gather_feature_rows`, `_fanout_layers`,
-`SupervisedGraphSage` and `UnsupervisedGraphSage` (host-fed),
+87-488, 513-528): `gather_feature_rows`, `_fanout_layers`,
+`SupervisedGraphSage`, `UnsupervisedGraphSage` and `ScalableGraphSage`
+(host-fed),
 `_GatherEncode`, `DeviceSampledGraphSage`, `DeviceSampledScalableSage`
 with `refresh_act_cache`, `DeviceSampledLayerwiseGCN` and
 `DeviceSampledUnsupervisedSage`.
@@ -24,7 +25,8 @@ gathered rows, that hop goes through ops.gather_mean (one kernel launch
 on CUDA) and its [n·k, D] layer is never built: the sage encoder with
 the mean aggregator, the gcn encoder ((x + k·mean) / (k + 1)), and both
 neighbor reads of the scalable model (the feature rows of layer 0, the
-cache rows of layer 1 and up). The genie encoder and the pool
+cache rows of layer 1 and up; the host-fed ScalableGraphSage reads its
+cache rows so too). The genie encoder and the pool
 aggregators transform each neighbor before pooling, so they gather the
 deepest hop with take_rows.
 
@@ -419,6 +421,57 @@ class DeviceSampledScalableSage(SuperviseModel):
         """After a training step's guard: skip (1.0 on a skipped step,
         a device scalar; None without the guard) puts the step's cache
         writes back."""
+        for cache in self.encoder.caches():
+            cache.settle(skip)
+
+
+class ScalableGraphSage(SuperviseModel):
+    """Host-fed historical-activation GraphSAGE (counterpart of
+    euler_tpu/models/graphsage.py:ScalableGraphSage): the host flow's one
+    hop (FanoutDataFlow with one fanout) feeds ScalableSageEncoder
+    ("encoder"): the roots ids[0] with their features layers[0], and
+    their k neighbors ids[1] / layers[1] as [B, k]. Layer 0 takes the
+    mean of the neighbors' features; layer l >= 1 reads their rows of
+    the float32 cache encoder.cache_{l}.h [max_id + 1, dim], one
+    gather_mean launch on CUDA (num_layers - 1 launches a forward).
+    Training writes the roots' rows, as DeviceSampledScalableSage's
+    caches do (buffers in the state_dict, settled after the guard)."""
+
+    def __init__(self, num_classes: int, in_dim: int,
+                 multilabel: bool = True, dim: int = 32,
+                 num_layers: int = 2, max_id: int = 0,
+                 store_decay: float = 0.9, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        enc = ScalableSageEncoder(in_dim, dim, num_layers, max_id,
+                                  store_decay=store_decay,
+                                  generator=generator)
+        super().__init__(num_classes, multilabel, enc.out_dim,
+                         dropout=dropout, generator=generator)
+        self.encoder = enc
+        self._spec = {"num_classes": self.num_classes,
+                      "multilabel": self.multilabel, "dropout": self.dropout,
+                      "table_mesh": None, "dim": int(dim),
+                      "num_layers": int(num_layers), "max_id": int(max_id)}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass
+        fields."""
+        return {"model_class": "ScalableGraphSage", **self._spec}
+
+    def embed(self, batch: Dict[str, Any],
+              neighbor_mean: Callable = gather_mean) -> torch.Tensor:
+        ids, layers = batch["ids"], batch["layers"]
+        root, x = ids[0], layers[0]
+        b = root.shape[0]
+        nbr_ids = ids[1].reshape(b, -1)
+        nbr_x = layers[1].reshape(b, nbr_ids.shape[1], -1)
+        return self.encoder(root, x, nbr_ids, nbr_x.mean(1),
+                            write=self.training,
+                            neighbor_mean=neighbor_mean)
+
+    def settle_cache_writes(self, skip: Optional[torch.Tensor]) -> None:
+        """After a training step's guard: skip (1.0 on a skipped step)
+        puts the step's cache writes back."""
         for cache in self.encoder.caches():
             cache.settle(skip)
 

@@ -23,8 +23,6 @@ from euler_tpu_torch import convolution as C
 from euler_tpu_torch.ops import mp_ops as mp
 from euler_tpu_torch.utils.layers import Dense, Dropout
 
-_WAITS = "not ported yet: ROADMAP.md Queue A, 'GNN library breadth'"
-
 _CONV_BUILDERS = {
     "gcn": lambda d_in, dim, i, n, kw, g: C.GCNConv(d_in, dim, generator=g),
     "sage": lambda d_in, dim, i, n, kw, g: C.SAGEConv(d_in, dim,
@@ -47,9 +45,9 @@ _CONV_BUILDERS = {
         k_hop=kw.get("k_hop", 10), alpha=kw.get("alpha", 0.1)),
     "gated": lambda d_in, dim, i, n, kw, g: C.GatedGraphConv(
         d_in, dim, num_layers=kw.get("gate_layers", 2), generator=g),
+    "relation": lambda d_in, dim, i, n, kw, g: C.RelationConv(
+        d_in, dim, num_relations=kw.get("num_relations", 1), generator=g),
 }
-# the reference's other name: RelationConv waits for the relational slice
-_UNPORTED = ("relation",)
 
 
 def get_conv(name: str, in_dim: int, dim: int, layer_idx: int,
@@ -57,16 +55,13 @@ def get_conv(name: str, in_dim: int, dim: int, layer_idx: int,
              generator: Optional[torch.Generator] = None) -> nn.Module:
     """The conv `name` for layer layer_idx of num_layers, reading its
     options from kwargs (heads, k_hop, num_stacks, arma_layers,
-    alpha, gate_layers)."""
-    key = name.lower()
-    if key in _UNPORTED:
-        raise NotImplementedError(f"conv {name!r} is {_WAITS}")
+    alpha, gate_layers, num_relations)."""
     try:
-        build = _CONV_BUILDERS[key]
+        build = _CONV_BUILDERS[name.lower()]
     except KeyError:
         raise ValueError(
             f"unknown conv {name!r}; options "
-            f"{sorted([*_CONV_BUILDERS, *_UNPORTED])}") from None
+            f"{sorted(_CONV_BUILDERS)}") from None
     return build(in_dim, dim, layer_idx, num_layers, kwargs, generator)
 
 
@@ -95,6 +90,8 @@ class BaseGNNNet(nn.Module):
 
     appnp predicts, then propagates: mlp_0 (relu), mlp_1, then one
     APPNPConv. sgcn is one SGCNConv of k_hop (default num_layers) steps.
+    relation's convs also take the batch's edge_type (None: relation 0
+    for every edge).
     dropout: the input dropout before each conv (and before appnp's
     mlp), active in training mode only. out_dim: the last layer's width
     (0: dim); self.out_dim is the embedding's width (heads x dim for
@@ -149,7 +146,11 @@ class BaseGNNNet(nn.Module):
         else:
             h = x
             for i, conv in enumerate(convs):
-                h = conv(self.drop(h, gen), edge_index, n)
+                if self.conv_name == "relation":
+                    h = conv(self.drop(h, gen), edge_index,
+                             batch.get("edge_type"), n)
+                else:
+                    h = conv(self.drop(h, gen), edge_index, n)
                 if i < self.num_layers - 1:
                     h = torch.relu(h)
         return _roots(h, batch)

@@ -1,5 +1,7 @@
-"""Fanout encoders (counterpart of euler_tpu/utils/encoders.py:58-339):
-`SageEncoder`, `GCNEncoder`, `GenieEncoder`, and the activation-cache
+"""Node encoders (counterpart of euler_tpu/utils/encoders.py:31-358):
+`ShallowEncoder` (:31-55); the fanout encoders `SageEncoder`,
+`GCNEncoder`, `GenieEncoder`, `SparseSageEncoder` (:282-300), and the
+activation-cache
 pair `ScalableGCNEncoder` / `ScalableSageEncoder` with `_ema_update`
 and `_ScalableCache`; the layerwise `LayerEncoder` (:255-279); and
 LGCN's `LGCEncoder` (:342-358).
@@ -30,7 +32,8 @@ from torch import nn
 from euler_tpu_torch.ops.gather_mean import gather_mean
 from euler_tpu_torch.utils.aggregators import get_aggregator
 from euler_tpu_torch.utils.layers import (
-    _TRUNC_STD, AttLayer, Dense, Dropout, LSTMLayer, bucketize_ids,
+    _TRUNC_STD, AttLayer, Dense, Dropout, Embedding, LSTMLayer,
+    SparseEmbedding, bucketize_ids,
 )
 
 
@@ -468,3 +471,67 @@ class LGCEncoder(nn.Module):
         # pick an algorithm that adds with atomics
         w = self.conv.weight
         return F.linear(seq.flatten(1), w.flatten(1), self.conv.bias)
+
+
+class ShallowEncoder(nn.Module):
+    """Id embedding and/or dense features (counterpart of
+    euler_tpu/utils/encoders.py:ShallowEncoder): id_emb, an Embedding
+    [max_id + 1, dim] when max_id > 0, and feat, a Dense in_dim → dim
+    over the features when use_feature (and the call passes them),
+    combined by "concat" or "add". out_dim is the concatenated width."""
+
+    def __init__(self, dim: int, max_id: int = 0, use_feature: bool = True,
+                 combiner: str = "concat", in_dim: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if combiner not in ("concat", "add"):
+            raise ValueError(f"combiner must be concat or add, got "
+                             f"{combiner!r}")
+        self.combiner = combiner
+        self.use_feature = bool(use_feature) and in_dim > 0
+        if max_id > 0:
+            self.id_emb = Embedding(max_id + 1, dim, generator=generator)
+        if self.use_feature:
+            self.feat = Dense(in_dim, dim, generator=generator)
+        if max_id <= 0 and not self.use_feature:
+            raise ValueError("ShallowEncoder has neither id embedding nor "
+                             "features")
+        parts = int(max_id > 0) + int(self.use_feature)
+        self.out_dim = dim * parts if combiner == "concat" else dim
+
+    def forward(self, ids: torch.Tensor,
+                feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        parts = []
+        if hasattr(self, "id_emb"):
+            parts.append(self.id_emb(ids))
+        if self.use_feature and feats is not None:
+            parts.append(self.feat(feats))
+        if not parts:
+            raise ValueError("ShallowEncoder has neither id embedding nor "
+                             "features")
+        if len(parts) == 1:
+            return parts[0]
+        if self.combiner == "add":
+            return sum(parts)
+        return torch.cat(parts, dim=-1)
+
+
+class SparseSageEncoder(nn.Module):
+    """SAGE over sparse-id features (counterpart of
+    euler_tpu/utils/encoders.py:SparseSageEncoder): each hop's padded
+    ids [n_h, L] through one SparseEmbedding ("sp_emb", mean combiner)
+    into a SageEncoder ("sage") of input width dim."""
+
+    def __init__(self, dim: int, fanouts: Sequence[int],
+                 num_embeddings: int, aggregator: str = "mean",
+                 concat: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.sp_emb = SparseEmbedding(num_embeddings, dim,
+                                      generator=generator)
+        self.sage = SageEncoder(dim, dim, fanouts, aggregator, concat,
+                                generator=generator)
+        self.out_dim = self.sage.out_dim
+
+    def forward(self, sparse_layers: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.sage([self.sp_emb(s) for s in sparse_layers])

@@ -1,5 +1,5 @@
-"""Dense, Embedding, AttLayer and LSTMLayer with flax's initialisation
-(counterpart of euler_tpu/utils/layers.py:24-57 and :93-118, whose Dense
+"""Dense, Embedding, SparseEmbedding, AttLayer and LSTMLayer with flax's
+initialisation (counterpart of euler_tpu/utils/layers.py:24-118, whose Dense
 is flax.linen.Dense and whose LSTM is flax's OptimizedLSTMCell under
 nn.RNN), and flax's GRUCell and PReLU, which the reference's
 GatedGraphConv and DGI use.
@@ -108,6 +108,43 @@ class Embedding(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         rows = bucketize_ids(ids, self.num_embeddings)
         return F.embedding(rows.long(), self.table)
+
+
+class SparseEmbedding(nn.Module):
+    """Embedding over padded variable-length sparse ids [B, L], combined
+    over L (counterpart of euler_tpu/utils/layers.py:SparseEmbedding):
+    the rows of bucketize_ids(ids), each masked to 0 where the id equals
+    `pad_id`, then "sum", "max" or "mean" (the sum over the unmasked
+    count, at least 1). "max" runs over the masked rows, so a pad slot
+    counts as a row of zeros, and `amax` shares a tie's gradient
+    equally, as jnp's max does. Parameter "table", initialised as
+    Embedding's."""
+
+    def __init__(self, num_embeddings: int, dim: int,
+                 combiner: str = "mean", pad_id: int = 0,
+                 init_scale: float = 0.05,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if combiner not in ("mean", "sum", "max"):
+            raise ValueError(f"combiner must be mean, sum or max, got "
+                             f"{combiner!r}")
+        self.num_embeddings = int(num_embeddings)
+        self.combiner = combiner
+        self.pad_id = int(pad_id)
+        self.table = nn.Parameter(
+            torch.rand((self.num_embeddings, dim), generator=generator)
+            * init_scale)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        rows = bucketize_ids(ids, self.num_embeddings)
+        emb = F.embedding(rows.long(), self.table)          # [B, L, D]
+        mask = (ids.to(torch.int32) != self.pad_id).to(emb.dtype)[..., None]
+        emb = emb * mask
+        if self.combiner == "sum":
+            return emb.sum(1)
+        if self.combiner == "max":
+            return emb.amax(1)
+        return emb.sum(1) / torch.clamp(mask.sum(1), min=1.0)
 
 
 class AttLayer(nn.Module):

@@ -5,13 +5,19 @@ quality phase, PERF.md):
     JAX_PLATFORMS=cpu python tests/oracle_hostfed.py graphsage \\
         [--seeds 0 1 ... 9]
     JAX_PLATFORMS=cpu python tests/oracle_hostfed.py deepwalk|line|unsup ...
+    JAX_PLATFORMS=cpu python tests/oracle_hostfed.py \
+        geniepath|scalable_sage|solution ...
 
 runs the reference runner without --device_sampler (its defaults):
 `examples/graphsage/run_graphsage.py --dataset cora` (the test micro-F1
 at the best-val weights), `examples/deepwalk/run_deepwalk.py` and
-`examples/line/run_line.py` on cora (the eval MRR), or
+`examples/line/run_line.py` on cora (the eval MRR),
 `examples/graphsage/run_graphsage.py --dataset ppi --mode unsupervised`
-(the eval MRR), once per --seeds value. Each run seeds the engine's
+(the eval MRR), `examples/geniepath/run_geniepath.py` and
+`examples/scalable_sage/run_scalable_sage.py` on cora (the test
+micro-F1 at the best-val weights), or `examples/solution/
+run_solution.py` (supervise on cora: the test batches' micro-F1 at the
+best-val weights), once per --seeds value. Each run seeds the engine's
 sampler with the seed and sets the estimator's params["seed"] to it
 (its init and dropout keys; the runners leave it at 0), as the port's
 --seed moves the engine's draws, the init and the dropout. It prints
@@ -21,8 +27,9 @@ same flags plus --device cpu --seed <seed>), whose spread over seeds
 enters the gates' standard error. Not a test: pytest does not collect
 it.
 
-Results on the CPU, seeds 0-9, are TEN_SEED below; chip_smoke.py's
-host-fed quality gates read them.
+Results on the CPU, seeds 0-9, are TEN_SEED (and, for the slice-11
+runners, PORT_SD) below; chip_smoke.py's host-fed quality gates read
+them.
 """
 
 import argparse
@@ -34,18 +41,26 @@ import statistics
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# runner → (script, argv, the key of the metric in its result); the
-# port's runners return the train_*/eval_* dict where the reference's
-# DeepWalk and LINE return the eval dict
+# runner → (script, argv, the key of the metric in the reference's
+# result, the key in the port's); the port's runners return the
+# train_*/eval_* dict where the reference's DeepWalk and LINE return the
+# eval dict, and their fit_citation dict where the reference's solution
+# returns the test evaluation
 RUNNERS = {
     "graphsage": ("graphsage/run_graphsage.py", ["--dataset", "cora"],
-                  "test_metric"),
+                  "test_metric", "test_metric"),
     "deepwalk": ("deepwalk/run_deepwalk.py", ["--dataset", "cora"],
-                 "metric"),
-    "line": ("line/run_line.py", ["--dataset", "cora"], "metric"),
+                 "metric", "eval_metric"),
+    "line": ("line/run_line.py", ["--dataset", "cora"], "metric",
+             "eval_metric"),
     "unsup": ("graphsage/run_graphsage.py",
               ["--dataset", "ppi", "--mode", "unsupervised"],
-              "eval_metric"),
+              "eval_metric", "eval_metric"),
+    "geniepath": ("geniepath/run_geniepath.py", [], "test_metric",
+                  "test_metric"),
+    "scalable_sage": ("scalable_sage/run_scalable_sage.py", [],
+                      "test_metric", "test_metric"),
+    "solution": ("solution/run_solution.py", [], "metric", "test_metric"),
 }
 
 # the reference's 10-seed results (seeds 0-9, this script on the CPU):
@@ -55,6 +70,16 @@ TEN_SEED = {
     "deepwalk": (0.9959442880749704, 0.00040843575486947413),
     "line": (0.9899687498807908, 0.0011241598651568025),
     "unsup": (0.5592304632067681, 0.01290693462615766),
+    "geniepath": (0.7515473889197787, 0.03336424682246929),
+    "scalable_sage": (0.7128626691764743, 0.018856458650031688),
+    "solution": (0.799765625, 0.021650791710328483),
+}
+# the port's runners over the same seeds (--port, on the CPU), for the
+# runners whose gates read it here: runner → standard deviation
+PORT_SD = {
+    "geniepath": 0.023329403762367213,
+    "scalable_sage": 0.014435043720522173,
+    "solution": 0.017238717878578516,
 }
 
 
@@ -72,9 +97,9 @@ def main() -> None:
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2])
     ap.add_argument("--port", action="store_true")
     args = ap.parse_args()
-    rel, argv, key = RUNNERS[args.runner]
+    rel, argv, key, port_key = RUNNERS[args.runner]
     if args.port:
-        return _port(args, rel, argv, key)
+        return _port(args, rel, argv, port_key)
     run = _runner(rel)
     from euler_tpu.estimator import base_estimator as B
     from euler_tpu.graph import seed
@@ -106,7 +131,6 @@ def _port(args, rel: str, argv, key: str) -> None:
     sys.path.insert(0, str(ROOT))
     mod = importlib.import_module(
         "euler_tpu_torch.examples." + rel.split("/")[1][:-3])
-    key = "eval_metric" if key == "metric" else key
     vals = []
     for s in args.seeds:
         with contextlib.redirect_stdout(io.StringIO()):

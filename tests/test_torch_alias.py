@@ -4,6 +4,7 @@ device_walk.py), on the CPU: tables byte-identical from the same arrays,
 picks bit-exact with the uniforms JAX draws replayed, the layouts'
 rejections the reference's."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import numpy as np
 import pytest

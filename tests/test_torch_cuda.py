@@ -5,6 +5,7 @@ on a machine with the card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import numpy as np
 import pytest
 import torch
@@ -1150,4 +1151,78 @@ def test_cuda_lgcn_runner_repeats_bit_for_bit():
     runs = [{k: v for k, v in run_lgcn.main(["--max_steps", "30", "--seed",
                                              "2"]).items()
              if k != "train_steps_per_sec"} for _ in range(2)]
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_f32_cache_read_matches_plain():
+    """The host-fed ScalableGraphSage's layer-1 read at run_scalable_sage's
+    defaults: a float32 cache [2708, 32] (max_id + 1 rows of cora), 64
+    roots x 10 neighbor rows, float32 out; the kernel against the plain
+    version, one launch."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(
+        rng.normal(size=(2708, 32)).astype(np.float32)).cuda()
+    rows = torch.from_numpy(
+        rng.integers(0, 2708, (64, 10)).astype(np.int32)).cuda()
+    before = gather_mean.launches
+    got = gather_mean(table, rows)
+    torch.cuda.synchronize()
+    assert gather_mean.launches == before + 1
+    _assert_matches_plain(got, gather_mean_reference(table, rows))
+
+
+def _kg_step(model, batch, dev):
+    """One forward and backward: (loss, {name: gradient on the host})."""
+    model = model.to(dev)
+    out = model({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    out.loss.backward()
+    return float(out.loss), {k: p.grad.cpu()
+                             for k, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["TransE", "RGCNLinkModel"])
+def test_cuda_kg_models_match_the_cpu(name):
+    """TransE (dim 64, 16 negatives) and the R-GCN runner's model (dim 32,
+    8 relations x fanout 8) at the fb15k237 stand-in's table sizes, one
+    step from the same weights and batch on the card and on the CPU: the
+    loss within rtol 1e-4, every gradient within 1e-5 of the largest."""
+    _need_card()
+    from euler_tpu_torch.examples.run_rgcn import RGCNLinkModel
+    from euler_tpu_torch.models.kg_models import TransE
+
+    rng = np.random.default_rng(12)
+    ent, rel, b = 14541, 237, 256
+    batch = {"h": rng.integers(0, ent, b), "t": rng.integers(0, ent, b),
+             "r": rng.integers(0, rel, b).astype(np.int32),
+             "neg_t": rng.integers(0, ent, (b, 16))}
+
+    def make():
+        g = torch.Generator().manual_seed(0)
+        if name == "TransE":
+            return TransE(ent, rel, dim=64, generator=g)
+        return RGCNLinkModel(ent, rel, 32, 8, generator=g)
+
+    if name == "RGCNLinkModel":
+        batch["h_nbrs"] = rng.integers(0, ent, (8, b, 8))
+    lc, gc = _kg_step(make(), batch, "cpu")
+    lg, gg = _kg_step(make(), batch, "cuda")
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    top = max(float(v.abs().max()) for v in gc.values())
+    for k, v in gc.items():
+        assert float((gg[k] - v).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.cuda
+def test_cuda_transe_runner_repeats_bit_for_bit():
+    """run_transx (TransE) for 30 steps twice on the card with the same
+    seed: the same result dict, bit for bit."""
+    _need_card()
+    from euler_tpu_torch.examples import run_transx
+
+    runs = [{k: v for k, v in run_transx.main(
+        ["--max_steps", "30", "--eval_steps", "5", "--seed", "3"]).items()
+        if k != "train_steps_per_sec"} for _ in range(2)]
     assert runs[0] == runs[1]

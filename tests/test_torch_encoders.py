@@ -6,6 +6,7 @@ for encoder x aggregator x layout on the reference's replayed uniforms;
 DeviceSampledUnsupervisedSage over the fused and alias layouts and
 DeviceSampledSkipGram over the alias layout, their loss and gradients."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -278,9 +279,9 @@ def test_slice7_runners_run_a_few_steps_on_the_cpu(runner, extra,
     """Each new runner path for 10 steps on a small stand-in (300 nodes,
     16 features, the cora split's shape shrunk) in the engine: finite,
     nothing skipped; without --device_sampler the geniepath and scalable
-    runners raise, naming the engine binding, and run_graphsage's
-    --act_cache refuses, as the reference's does; without --device it
-    needs the card."""
+    runners train host-fed for 10 steps too, where --encoder gcn exits
+    and run_graphsage's --act_cache refuses, as the reference's do;
+    without --device it needs the card."""
     import importlib
 
     from euler_tpu_torch.dataset import engine_from_arrays
@@ -301,8 +302,16 @@ def test_slice7_runners_run_a_few_steps_on_the_cpu(runner, extra,
     if "--mode" not in extra:
         assert 0.0 <= res["test_metric"] <= 1.0
     if runner != "run_graphsage":
-        with pytest.raises(NotImplementedError, match="Engine binding"):
-            mod.main(["--device", "cpu"])
+        host = [a for a in argv if a != "--device_sampler"]
+        if "gcn" in extra:
+            with pytest.raises(SystemExit, match="requires --device_sampler"):
+                mod.main([*host, "--device", "cpu"])
+            host = [a for a in host if a not in ("--encoder", "gcn")]
+        res = mod.main([*host, "--device", "cpu"])
+        assert res["train_global_step"] == 10
+        assert res["train_skipped_steps"] == 0
+        assert np.isfinite(res["train_loss"])
+        assert 0.0 <= res["test_metric"] <= 1.0
     elif "--act_cache" in extra:
         with pytest.raises(SystemExit, match="needs --device_sampler"):
             mod.main(["--device", "cpu", "--act_cache"])

@@ -11,6 +11,7 @@ Every comparison here is exact (byte for byte). The port's library is
 built once per checkout (about 20 s on 8 cores) and shared by every
 test that loads it."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import ctypes
 import os
 from pathlib import Path

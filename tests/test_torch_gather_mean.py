@@ -3,6 +3,7 @@
 rule for out-of-range rows, and the kernel's launch plan. The CUDA kernel
 against its plain version is in test_torch_cuda.py."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ tree; batches and the dataset exact; evaluate's weighted means rtol
 1e-6. The reference's programs are jitted at XLA's lowest backend
 optimization level (the same HLO, compiled faster)."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,8 +223,9 @@ def test_gated_graph_conv_matches_the_reference():
     _close_grads(_port_grads(conv), want_g)
     with pytest.raises(ValueError, match="input dim must be <= out_dim"):
         GatedGraphConv(8, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        get_conv("relation", 4, 4, 0, 2, {})
+    rel = get_conv("relation", 4, 4, 0, 2, {"num_relations": 3})
+    assert type(rel).__name__ == "RelationConv"
+    assert tuple(rel.w_rel.shape) == (3, 4, 4)
 
 
 POOLS = ["sum", "mean", "max", "attention", "set2set"]

@@ -3,6 +3,7 @@ aggregators and SageEncoder against flax with converted params, the full
 DeviceSampledGraphSage with replayed uniforms against its flax apply,
 and the inference sweep against embed_all's contract."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np

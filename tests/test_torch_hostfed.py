@@ -17,6 +17,7 @@ XLA's) carries its last-bit difference into the step at lr's scale.
 The reference's programs are jitted at XLA's lowest backend
 optimization level (the same HLO, compiled faster)."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ other estimator parity tests state it (Adam moves a parameter by about
 lr whatever its gradient's size). The reference's programs are jitted
 at XLA's lowest backend optimization level."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ segment sums add in another order than XLA's); mp_ops' forward outputs
 rtol 1e-6. The reference's programs are jitted at XLA's lowest backend
 optimization level (the same HLO, compiled faster)."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -307,8 +308,8 @@ def test_bipartite_input_matches_the_reference(cls):
 
 def test_get_conv_errors_and_fresh_init():
     """get_conv: an unknown name raises the reference's ValueError (the
-    same list of options), relation raises NotImplementedError naming
-    the ROADMAP item, gated builds a GatedGraphConv. A fresh GAT has
+    same list of options), relation builds a RelationConv with the
+    num_relations it is given, gated builds a GatedGraphConv. A fresh GAT has
     flax's glorot-uniform attention bounds and AGNN's beta starts at
     1."""
     with pytest.raises(ValueError) as err:
@@ -316,8 +317,9 @@ def test_get_conv_errors_and_fresh_init():
     with pytest.raises(ValueError) as jerr:
         jget_conv("nope", 4, 0, 2, {})
     assert str(err.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        get_conv("relation", 4, 4, 0, 2, {})
+    rel = get_conv("relation", 4, 4, 0, 2, {"num_relations": 3})
+    assert isinstance(rel, C.RelationConv)
+    assert tuple(rel.w_rel.shape) == (3, 4, 4)
     assert isinstance(get_conv("gated", 4, 4, 0, 2, {}), C.GatedGraphConv)
     gat = C.GATConv(IN_DIM, 16, heads=8,
                     generator=torch.Generator().manual_seed(0))

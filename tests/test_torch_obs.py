@@ -5,6 +5,7 @@ operations give the same snapshot(), Prometheus text, span tree, health
 snapshot and delivery order; and the retry rule (estimator/retry.py)
 pinned to euler_tpu/graph/remote.py's."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import threading
 
 import pytest

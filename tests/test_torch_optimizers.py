@@ -3,6 +3,7 @@ grads through each of the reference's optimizer names for 5 updates,
 and the skipped update (found_inf) that leaves params and state as they
 were."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax.numpy as jnp
 import numpy as np
 import optax

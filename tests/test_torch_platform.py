@@ -1,5 +1,6 @@
 """Device resolution and import hygiene of the PyTorch port."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import ast
 from pathlib import Path
 
@@ -126,6 +127,62 @@ def test_slice10_entry_points_raise_without_cuda(monkeypatch):
         BaseEstimator(DGI(3, dim=4), {})
 
 
+@pytest.mark.parametrize("argv", [
+    ["run_geniepath"], ["run_scalable_sage"], ["run_solution"],
+    ["run_solution", "--mode", "unsupervise"], ["run_sample_solution"],
+    ["run_transx"], ["run_transx", "--model", "TransR"], ["run_distmult"],
+    ["run_rgcn"]])
+def test_slice11_entry_points_raise_without_cuda(argv, monkeypatch,
+                                                 tmp_path):
+    """Without a card each slice-11 runner raises without --device
+    (device=None is CUDA) before it builds anything (run_sample_solution
+    writes no sample file), and so do SampleEstimator and a
+    BaseEstimator over each new model."""
+    import importlib
+
+    from euler_tpu_torch.estimator.base_estimator import BaseEstimator
+    from euler_tpu_torch.estimator.estimators import SampleEstimator
+    from euler_tpu_torch.examples.run_rgcn import RGCNLinkModel
+    from euler_tpu_torch.models.graphsage import ScalableGraphSage
+    from euler_tpu_torch.models.kg_models import TransE
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    mod = importlib.import_module(f"euler_tpu_torch.examples.{argv[0]}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv[1:])
+    assert list(tmp_path.iterdir()) == []
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SampleEstimator(TransE(4, 2, dim=3), {}, "samples.txt",
+                        lambda lines: {})
+    for model in (TransE(4, 2, dim=3), RGCNLinkModel(4, 2, 3, 2),
+                  ScalableGraphSage(2, 3, max_id=4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            BaseEstimator(model, {})
+
+
+def test_package_puts_idle_omp_workers_to_sleep(monkeypatch):
+    """Imported before torch, the package sets OMP_WAIT_POLICY=PASSIVE
+    for libgomp (torch's CPU thread pool), so idle workers sleep instead
+    of spinning beside the caller (a fresh interpreter); a policy the
+    caller set stays (the package's code run again with ACTIVE set)."""
+    import importlib
+    import os
+    import subprocess
+    import sys
+
+    code = ("import os, euler_tpu_torch, torch; "
+            "print(os.environ.get('OMP_WAIT_POLICY'))")
+    env = {k: v for k, v in os.environ.items() if k != "OMP_WAIT_POLICY"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "PASSIVE"
+    monkeypatch.setenv("OMP_WAIT_POLICY", "ACTIVE")
+    importlib.reload(euler_tpu_torch)
+    assert os.environ["OMP_WAIT_POLICY"] == "ACTIVE"
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -173,7 +230,17 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
                  "examples/run_gin.py", "examples/run_graphgcn.py",
                  "examples/run_gated_graph.py", "examples/run_set2set.py",
                  "examples/run_gae.py", "examples/run_dgi.py",
-                 "examples/run_lgcn.py"):
+                 "examples/run_lgcn.py", "utils/layers.py",
+                 "contrib/__init__.py", "contrib/spmm.py",
+                 "models/graphsage.py", "solution/__init__.py",
+                 "solution/base_solution.py",
+                 "examples/run_solution.py",
+                 "examples/run_sample_solution.py",
+                 "dataset/__init__.py", "dataset/kg_sets.py",
+                 "models/kg_models.py", "examples/run_transx.py",
+                 "examples/run_distmult.py", "examples/run_rgcn.py",
+                 "convolution/relation_conv.py", "dataflow/__init__.py",
+                 "mp_utils/group_gnn.py", "convert.py", "__init__.py"):
         assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))

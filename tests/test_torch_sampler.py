@@ -3,6 +3,7 @@ package (euler_tpu/parallel/device_sampler.py), on the CPU: tables
 byte-identical from the same CSR, picks bit-exact with the uniforms
 JAX draws replayed."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np

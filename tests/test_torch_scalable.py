@@ -5,6 +5,7 @@ step (params and cache converted from the flax init, uniforms replayed
 from the reference's key), the cache through evaluate, a skipped step
 and a checkpoint, and refresh_act_cache against the reference's."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np

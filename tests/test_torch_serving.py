@@ -5,6 +5,7 @@ applies, the copies pinned byte for byte, bundle files interchangeable
 in both directions, and export_bundle/infer against the reference
 estimator's on the cora stand-in."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import json
 import os
 import socket

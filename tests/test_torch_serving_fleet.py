@@ -11,6 +11,7 @@ torch's order where the reference sums them in XLA's, so it is held to
 rtol 1e-5, atol 1e-5 (a few ulps of values of order 10).
 """
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import socket
 import threading
 import time

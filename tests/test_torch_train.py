@@ -8,6 +8,7 @@ steps_per_loop, the input path with its counters, the feeder and the
 profiling hook (the K-step CUDA graph itself is tested on the card in
 tests/test_torch_cuda.py)."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import json
 import re
 import threading

@@ -4,6 +4,7 @@ after convert.py with replayed uniforms (float32 features, and int8 with
 a bfloat16 scale on a grid bfloat16 holds), the K-step loop's stream
 words, the ppi stand-in's shape and the unsupervised runner."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import inspect
 
 import jax

@@ -4,6 +4,7 @@ and the device walks (euler_tpu/parallel/device_walk.py) with replayed
 uniforms, skip-gram pair order, DeviceSampledSkipGram (DeepWalk,
 node2vec, LINE) after convert.py, and the DeepWalk and LINE runners."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np

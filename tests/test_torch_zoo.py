@@ -10,6 +10,7 @@ forward outputs rtol 1e-5 (atol 1e-6); gradients within 1e-5 of the
 largest gradient of the tree; batches exact. The reference's programs
 are jitted at XLA's lowest backend optimization level."""
 
+import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
 import jax
 import jax.numpy as jnp
 import numpy as np
