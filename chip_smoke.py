@@ -22,8 +22,11 @@ classification on the mutag stand-in and GAE, DGI and LGCN on cora at
 their runners' widths; then the rest of the node zoo (host-fed GeniePath
 and ScalableGraphSage, the solutions) on cora and the knowledge-graph
 family (TransE/H/R/D, DistMult, R-GCN) on the fb15k237 stand-in, with
-RelationConv and GroupGNNNet on cora; then the
-serving stack over bundles exported from the trained flagship
+RelationConv and GroupGNNNet on cora; then graphs that change:
+StreamingDriver deltas on the flagship's engine, the neighbor table
+patched row by row on the card, the loop captured again, a fresh bundle
+swapped into a server, growth, and the reference's acceptance round;
+then the serving stack over bundles exported from the trained flagship
 (2,450,000 x 256 f32).
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -156,11 +159,38 @@ Phases, in order; any failure raises and the exit code is not 0:
               share, busy share, gather_mean launches (1 a step on
               ScalableGraphSage, 0 elsewhere); TransE and the R-GCN
               runner's steps twice, bit for bit
- 10. quality  (in four worker processes started after phase 2 and joined
-              after phase 3, before any timed phase: their runs are
-              bound by the host and overlap the graph set-up; the
-              layerwise and conv runners share one process and one cora
-              engine) the port's GraphSAGE runner (fit_citation,
+ 9k. streaming  graphs that change, on the flagship's engine and its
+              table (host copy kept). (a) and (c) run right after phase
+              3, beside the quality workers, since the engine rebuilds
+              its whole snapshot for a delta (every later phase runs on
+              the patched graph and table): (a) a K = 32 estimator
+              captures a window and exports the phase's first bundle,
+              which an InferenceServer on the card loads; 65,536 new
+              weight-1 edges between existing nodes go through
+              StreamingDriver.apply_delta (engine seconds; patch_rows
+              ms, rows, "row_scatter"); the patch binds new tensors:
+              untouched rows bit-equal to a clone taken before, dirty
+              rows equal to the rows re-derived from the engine's lists,
+              card == host; the estimator replays over the old tensors,
+              then captures again after static_batch.update(
+              table.tables); graph against eager on the patched table
+              bit for bit; export_and_swap: the served rows of dirty
+              nodes the new bundle's; counters 1 delta, 1 export, 1
+              swap, alias_rows_patched_total == rows patched; (c) the
+              reference's acceptance round (tests/test_streaming.py:
+              752-827) with the estimator and the server on the card:
+              v2 served with one more id, its kNN returning the node
+              that did not exist at train start. (b) after phase 9g,
+              the last reader of the flagship's engine, 4,096 new nodes
+              with 8 edges each and their reverses go into the engine
+              on a thread of its own beside phases 9h-12; after phase
+              12 the table is patched: "replace", the old rows' pad
+              sentinels remapped, card == host
+ 10. quality  (in six worker processes started after phase 2 and joined
+              after phase 9k (a), (c), before any timed phase: their
+              runs are bound by the host and overlap the graph set-up;
+              the layerwise and conv runners share one process and one
+              cora engine) the port's GraphSAGE runner (fit_citation,
               --int8_features)
               on the cora stand-in for seeds 0, 1, 2: mean test
               micro-F1 at least 0.79 (the RESULTS.md row is 0.811); the
@@ -192,20 +222,27 @@ Phases, in order; any failure raises and the exit code is not 0:
               failing unless within 0.01 of its row or 2 standard errors
               of the JAX package's own 10-seed mean
               (tests/oracle_graph.py); slice 11's runners for seeds
-              0-2: in the fourth process run_geniepath and
-              run_scalable_sage host-fed on cora (rows 0.763, 0.731)
-              and run_solution (0.774), then run_sample_solution once
-              against its floor; after the message-passing runners
+              0-2: in the fourth process run_geniepath host-fed on cora
+              (row 0.763); in the sixth run_scalable_sage host-fed
+              (0.731, seeds 0-9) and run_solution (0.774) on cora, then
+              run_sample_solution once against its floor, after
               run_transx --model TransE/TransH/TransR/TransD and
               run_distmult (0.914, 0.915, 0.860, 0.880, 0.901) and
               run_rgcn (0.730) on the fb15k237 stand-in (RESULTS.md
               names those rows "fb15k"; the runners' default dataset is
               fb15k237), each failing unless within 0.01 of its row or
               2 standard errors of the JAX package's own 10-seed mean
-              (tests/oracle_hostfed.py, tests/oracle_kg.py); each gate
-              printed, met or not
+              (tests/oracle_hostfed.py, tests/oracle_kg.py) and
+              run_deepwalk on ml_1m; in the fifth process run_line; both
+              host-fed on the synthetic ml_1m graph for seeds 0-2 (rows
+              0.636, 0.680; LINE's 125,026 steps at steps_per_loop 32,
+              one CUDA graph replay per 32 host-fed steps), each failing
+              unless within 0.01 of its row or 2 standard errors of the
+              JAX package's own 10-seed mean (tests/oracle_data.py);
+              each gate printed, met or not
  11. small    a small input through the card and through the CPU path
- 12. serve    the training tables freed, then through the TCP stack on
+ 12. serve    the training tables freed (the neighbor table stays for
+              9k (b)), then through the TCP stack on
               the card: InferenceServer loads v1 (verified) and uploads
               its table; embed exact, score within its float32 bound,
               16 exact knn (8 ids, k 10) byte-identical to brute_force;
@@ -249,6 +286,7 @@ import time
 import numpy as np
 import torch
 
+from euler_tpu_torch import obs
 from euler_tpu_torch.core import lib as engine_lib
 from euler_tpu_torch.dataflow import FanoutDataFlow
 from euler_tpu_torch.dataset import engine_from_arrays, get_dataset
@@ -258,6 +296,7 @@ from euler_tpu_torch.estimator.base_estimator import BaseEstimator
 from euler_tpu_torch.estimator.estimators import NodeEstimator
 from euler_tpu_torch.estimator.infer import NodeInferencer
 from euler_tpu_torch.estimator.prefetch import make_feeder
+from euler_tpu_torch.estimator.streaming import StreamingDriver
 from euler_tpu_torch.examples import (
     common, graph_common, run_adaptivegcn, run_agnn, run_appnp, run_arma,
     run_deepwalk, run_dgi, run_distmult, run_dna, run_fastgcn, run_gae,
@@ -282,16 +321,17 @@ from euler_tpu_torch.ops.gather_mean import (
 )
 from euler_tpu_torch.parallel.device_layerwise import dense_adjacency
 from euler_tpu_torch.parallel.device_sampler import (
-    DeviceNeighborTable, build_alias_tables, fuse_tables_host, sample_hop,
-    slot_weights,
+    DeviceNeighborTable, _fill_table_rows, build_alias_tables,
+    fuse_tables_host, sample_hop, slot_weights,
 )
 from euler_tpu_torch.parallel.device_walk import (
     DeviceNodeSampler, gen_pair_offsets,
 )
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
-from euler_tpu_torch.mp_utils.base import SuperviseModel
+from euler_tpu_torch.mp_utils.base import ModelOutput, SuperviseModel
 from euler_tpu_torch.mp_utils.group_gnn import GroupGNNNet
 from euler_tpu_torch.estimator.retry import RetryPolicy
+from euler_tpu_torch.graph import GraphBuilder, delta_dirty_ids
 from euler_tpu_torch.graph import seed as seed_engine
 from euler_tpu_torch.serving import InferenceServer, ModelBundle, ServingClient
 from euler_tpu_torch.tools.knn import brute_force
@@ -521,6 +561,31 @@ KG_QUALITY = {
 # this eval micro-F1. Its evaluation reads the training file's batches;
 # the reference's runner and the port's each gave 1.0 in one CPU run.
 SAMPLE_SOLUTION_FLOOR = 0.95
+# phase 9k, graphs that change, on the flagship's graph and table: an
+# edge-only delta of STREAM_EDGES directed edges between existing nodes
+# (weight 1, as the flagship's), then growth by STREAM_GROW nodes with
+# STREAM_GROW_DEG edges each to existing nodes plus their reverses,
+# drawn from STREAM_SEED
+STREAM_EDGES, STREAM_GROW, STREAM_GROW_DEG, STREAM_SEED = 65_536, 4_096, \
+    8, 12
+# quality of DeepWalk and LINE on the synthetic MovieLens-1M graph
+# (dataset/ml_1m.py: 6,040 users, 3,706 items, 2,000,418 directed rated
+# edges), host-fed at the runners' defaults and auto step rules (DeepWalk
+# 1,522 steps; LINE 125,026 steps, run at steps_per_loop 32: the same
+# steps as K = 1, one CUDA graph replay per 32), seeds 0-2 on the card,
+# gated as GRAPH_QUALITY is against RESULTS.md's deepwalk | ml_1m 0.636
+# and line | ml_1m 0.680 and the JAX package's 10-seed CPU means
+# (tests/oracle_data.py: mean, sd; the port's sds from the same script
+# with --port). name → (runner, argv, result key, row, ref mean, ref sd,
+# port sd)
+DATA_FLOOR = 0.5
+DATA_QUALITY = {
+    "deepwalk ml_1m": ("run_deepwalk", ["--dataset", "ml_1m"], "eval_metric",
+                       0.636, 0.6366, 0.0037, 0.0036),
+    "line ml_1m": ("run_line", ["--dataset", "ml_1m", "--steps_per_loop",
+                                "32"], "eval_metric", 0.680, 0.6772, 0.0087,
+                   0.0073),
+}
 
 
 def log(msg: str) -> None:
@@ -707,7 +772,7 @@ def phase_graph(dev: torch.device):
     (bench.py:96-108, :334-366): the products-like arrays into the
     graph engine, then the neighbor table and the int8 feature store
     (bfloat16 scale) read from the engine. The host tables stay for
-    phase 9a's fused and alias layouts."""
+    phase 9a's fused and alias layouts and phase 9k's patches."""
     t0 = time.monotonic()
     g = products_like(FULL_NODES, AVG_DEGREE, FEAT_DIM, NUM_CLASSES)
     t_arrays = time.monotonic() - t0
@@ -1672,7 +1737,6 @@ def phase_layouts(table, dev: torch.device) -> tuple:
     t0 = time.monotonic()
     alias = build_alias_tables(nbr_h, cum_tab=cum_h)
     t_alias = time.monotonic() - t0
-    table.host_tables = None
     fused_dev = torch.from_numpy(fused).to(dev)
     del fused
     alias_dev = torch.from_numpy(alias).to(dev)
@@ -2568,6 +2632,395 @@ def phase_slice11(dev) -> dict:
     return out
 
 
+# -- phase 9k: graphs that change ------------------------------------------
+
+def _stream_counts() -> dict:
+    """The streaming and alias-row counters of the obs registry."""
+    reg = obs.default_registry()
+    return {k: reg.counter(k).value for k in (
+        "streaming_deltas_total", "streaming_exports_total",
+        "streaming_swaps_total", "alias_rows_patched_total")}
+
+
+def _dirty_rows(graph, dirty_ids) -> np.ndarray:
+    """The engine rows of a delta's dirty ids, unique and ascending (ids
+    the engine does not hold dropped)."""
+    rows = graph.node_rows(dirty_ids, missing=graph.node_count)
+    return np.unique(rows[rows < graph.node_count]).astype(np.int64)
+
+
+def _timed_delta(driver, table, delta: dict) -> tuple:
+    """driver.apply_delta(**delta) → (its dict, engine seconds, patch
+    seconds): the patch is timed inside (table.patch_rows wrapped), the
+    engine's apply_delta is the rest."""
+    acc = {"patch_rows": 0.0}
+    _timed_method(table, "patch_rows", acc)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = driver.apply_delta(**delta)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        del table.patch_rows
+    return out, total - acc["patch_rows"], acc["patch_rows"]
+
+
+def _check_table_rows(table, graph, rows: np.ndarray) -> None:
+    """The table's rows `rows` equal _fill_table_rows (and the cumsum)
+    re-derived from the engine's neighbor lists of those rows' ids under
+    the table's draw keys (seed 0, phase 3's), on the card and in the
+    host copy."""
+    ids = graph.all_node_ids()[rows]
+    offs, nbrs, ws, _ = graph.get_full_neighbor(ids)
+    pad = table.pad_row
+    nbr, w = _fill_table_rows(
+        table.cap, pad, rows, np.diff(offs.astype(np.int64)),
+        graph.node_rows(nbrs, missing=pad).astype(np.int32),
+        ws.astype(np.float32), 0)
+    cum = np.cumsum(w, axis=1, dtype=np.float32)
+    at = torch.from_numpy(rows).to(table.neighbors.device)
+    for name, got, host, want in (
+            ("nbr", table.neighbors, table.host_tables[0], nbr),
+            ("cum", table.cum_weights, table.host_tables[1], cum)):
+        if not (np.array_equal(got[at].cpu().numpy(), want)
+                and np.array_equal(host[rows], want)):
+            raise AssertionError(f"patched {name} rows differ from the rows "
+                                 "re-derived from the engine")
+
+
+def _check_device_is_host(table, what: str) -> None:
+    for got, host in ((table.neighbors, table.host_tables[0]),
+                      (table.cum_weights, table.host_tables[1])):
+        if not torch.equal(got, torch.from_numpy(host).to(got.device)):
+            raise AssertionError(f"{what}: the card's table differs from "
+                                 "its host copy")
+
+
+def phase_stream_delta(store, table, graph, root: str, full_build_s: float,
+                       dev: torch.device) -> dict:
+    """Phase 9k (a) and (c), on the flagship's graph and table (its host
+    copy kept) while the quality workers run: a K = 32 estimator trains a
+    window (the graph captured on the table's tensors) and exports the
+    phase's first bundle, which an InferenceServer on the card loads;
+    then STREAM_EDGES new edges go through StreamingDriver.apply_delta,
+    the patch is checked row by row, the estimator replays over the old
+    tensors and captures again after the re-merge, graph against eager
+    on the patched table, and export_and_swap promotes a fresh bundle
+    into the server; then the reference's acceptance round. Every later
+    phase runs on the patched graph and table. full_build_s: phase 3's
+    table build, printed beside the patch. Returns the record."""
+    n = graph.node_count
+    rng = np.random.default_rng(STREAM_SEED)
+    sample = graph.get_full_neighbor(graph.all_node_ids()[:256])[2]
+    if not (sample == 1.0).all():
+        raise AssertionError("the flagship's edges should weigh 1")
+    gather_mean.launches = 0
+    est = flagship_estimator(store, table, graph, dev, steps_per_loop=LOOP_K)
+    est.train(est.train_input_fn, max_steps=LOOP_K)   # eager, then capture
+    launches_prev = gather_mean.launches
+    t0 = time.monotonic()
+    prev = est.export_bundle(os.path.join(root, "stream0"), index=False,
+                             version="stream0")
+    t_prev = time.monotonic() - t0
+    launches_prev = gather_mean.launches - launches_prev
+    old = dict(table.tables)
+    old_copy = {k: v.clone() for k, v in old.items()}
+    src = rng.integers(0, n, STREAM_EDGES).astype(np.uint64)
+    dst = rng.integers(0, n, STREAM_EDGES).astype(np.uint64)
+    delta = {"edge_src": src, "edge_dst": dst,
+             "edge_weights": np.ones(STREAM_EDGES, np.float32)}
+    rows = _dirty_rows(graph, delta_dirty_ids(**delta))
+    count0 = _stream_counts()
+    srv = InferenceServer(prev, device=dev, service="stream_flagship",
+                          max_batch=64, flush_ms=2.0)
+    try:
+        with ServingClient(endpoints=f"hosts:127.0.0.1:{srv.port}",
+                           service="stream_flagship") as cli:
+            driver = StreamingDriver(est, graph, device_table=table,
+                                     serving_client=cli, export_dir=root)
+            a, t_engine, t_patch = _timed_delta(driver, table, delta)
+            st = a["table"]
+            if not (st["upload"] == "row_scatter"
+                    and st["rows_patched"] == rows.size
+                    and st["grown_rows"] == 0):
+                raise AssertionError(f"edge-only patch: {st}")
+            _check_device_is_host(table, "edge-only patch")
+            untouched = torch.ones(n + 1, dtype=torch.bool, device=dev)
+            untouched[torch.from_numpy(rows).to(dev)] = False
+            for k, t in table.tables.items():
+                if t.data_ptr() == old[k].data_ptr() or \
+                        est.static_batch[k] is not old[k]:
+                    raise AssertionError(f"{k}: the patch wrote in place, or "
+                                         "the estimator reads the new tensor")
+                if not (torch.equal(t[untouched], old_copy[k][untouched])
+                        and torch.equal(old[k], old_copy[k])):
+                    raise AssertionError(f"{k}: untouched rows changed")
+            _check_table_rows(table, graph, rows)
+            del old_copy, untouched
+            # the captured loop goes on over the old tensors; the re-merge
+            # captures again
+            est.train(est.train_input_fn, max_steps=2 * LOOP_K)
+            before_merge = (est._graphed.captures, est._graphed.replays)
+            est.static_batch.update(table.tables)
+            est.train(est.train_input_fn, max_steps=4 * LOOP_K)
+            loop = est._graphed
+            if before_merge != (1, 1) or (loop.captures, loop.replays) != \
+                    (2, 2) or loop.launches_per_replay != LOOP_K:
+                raise AssertionError(
+                    f"loop: captures/replays {before_merge} before the "
+                    f"re-merge, {(loop.captures, loop.replays)} after, "
+                    f"{loop.launches_per_replay} launches a replay")
+            gve = check_graph_vs_eager(
+                lambda k: flagship_estimator(store, table, graph, dev,
+                                             steps_per_loop=k),
+                flagship_estimator(store, table, graph, dev)
+                .train_input_fn(), what="flagship, patched table")
+            launches_train = gather_mean.launches - launches_prev
+            t0 = time.monotonic()
+            s = driver.export_and_swap(version="stream1", index=False)
+            t_export_swap = time.monotonic() - t0
+            launches_export = gather_mean.launches - launches_train - \
+                launches_prev
+            (reply,) = s["swap"].values()
+            info = cli.info()
+            q = np.unique(src[:8])
+            served = cli.embed(q)
+            new = ModelBundle.load(s["bundle_dir"], verify=False)
+            if info["bundle_version"] != "stream1" or \
+                    not np.array_equal(served, _resolve(new, q)) or \
+                    np.array_equal(served, _resolve(prev, q)):
+                raise AssertionError("the served rows of dirty nodes are not "
+                                     "the new bundle's")
+            del new
+    finally:
+        srv.stop()
+    moved = {k: v - count0[k] for k, v in _stream_counts().items()}
+    want = {"streaming_deltas_total": 1, "streaming_exports_total": 1,
+            "streaming_swaps_total": 1,
+            "alias_rows_patched_total": rows.size}
+    if moved != want:
+        raise AssertionError(f"counters moved {moved}, not {want}")
+    if launches_export == 0 or launches_train == 0:
+        raise AssertionError("streaming: gather_mean was not launched")
+    out = {"edges": STREAM_EDGES, "epoch": a["epoch"], "dirty": a["dirty"],
+           "table": st, "engine_apply_delta_seconds": t_engine,
+           "patch_rows_ms": t_patch * 1e3, "counters": moved,
+           "previous_export_seconds": t_prev,
+           "previous_export_launches": launches_prev,
+           "captures_before_merge": before_merge[0],
+           "replays_before_merge": before_merge[1],
+           "captures": loop.captures, "replays": loop.replays,
+           "gather_mean_launches_per_replay": loop.launches_per_replay,
+           "train_host_launches": launches_train,
+           "export_launches": launches_export,
+           "export_and_swap_seconds": t_export_swap, "swap_reply": reply,
+           "graph_vs_eager": gve}
+    log(f"streaming (a): {STREAM_EDGES} new edges on the {n}-node engine: "
+        f"apply_delta {t_engine:.3f}s (epoch {a['epoch']}); patch_rows "
+        f"{t_patch * 1e3:.1f} ms, {st['rows_patched']} rows "
+        f"(rebuild_frac {st['rebuild_frac']:.4f}, {st['upload']}) against "
+        f"the full build's {full_build_s:.1f}s; new tensors, untouched "
+        f"rows bit-equal, dirty rows re-derived from the engine, card == "
+        f"host; the loop replayed over the old tables, recaptured after "
+        f"the re-merge ({loop.captures} captures, {loop.replays} replays, "
+        f"gather_mean {loop.launches_per_replay} a replay, "
+        f"{launches_train} host launches); export_and_swap "
+        f"{t_export_swap:.2f}s (gather_mean {launches_export} launches), "
+        f"the served rows of dirty nodes the new bundle's; counters "
+        f"{moved}")
+    for v in ("stream0", "stream1"):
+        shutil.rmtree(os.path.join(root, v), ignore_errors=True)
+    del est, driver, prev, old
+    gc.collect()
+    return {"edge_only": out,
+            "round": stream_round(os.path.join(root, "round"), dev)}
+
+
+def start_stream_growth(graph) -> dict:
+    """Phase 9k (b), first half: STREAM_GROW new nodes, each with
+    STREAM_GROW_DEG edges to existing nodes and their reverses, applied
+    to the flagship's engine on a thread of its own (the engine rebuilds
+    its snapshot in native code, without the interpreter lock) while the
+    phases that do not read the flagship's engine run. Returns the
+    growth's state for finish_stream_growth."""
+    n = graph.node_count
+    rng = np.random.default_rng(STREAM_SEED + 1)
+    new_ids = np.arange(n, n + STREAM_GROW, dtype=np.uint64)
+    g_src = np.repeat(new_ids, STREAM_GROW_DEG)
+    g_dst = rng.integers(0, n, g_src.size).astype(np.uint64)
+    grow = {"node_ids": new_ids,
+            "node_types": np.full(STREAM_GROW, 2, np.int32),
+            "edge_src": np.concatenate([g_src, g_dst]),
+            "edge_dst": np.concatenate([g_dst, g_src]),
+            "edge_weights": np.ones(2 * g_src.size, np.float32)}
+    state = {"delta": grow, "n": n}
+
+    def apply():
+        t0 = time.perf_counter()
+        try:
+            state["epoch"] = graph.apply_delta(**grow)
+        except BaseException as e:  # re-raised by finish_stream_growth
+            state["error"] = e
+        state["seconds"] = time.perf_counter() - t0
+
+    state["thread"] = threading.Thread(target=apply, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def finish_stream_growth(table, graph, state: dict) -> dict:
+    """Phase 9k (b), second half: wait for the engine's growth, then
+    patch the flagship's table ("replace": grown_rows == STREAM_GROW),
+    the old rows' pad sentinels remapped, the dirty rows re-derived from
+    the engine, card == host."""
+    t0 = time.monotonic()
+    state["thread"].join()
+    waited = time.monotonic() - t0
+    if "error" in state:
+        raise state["error"]
+    n, grow = state["n"], state["delta"]
+    prev = table.host_tables[0]
+    count0 = _stream_counts()["alias_rows_patched_total"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = table.patch_rows(graph, delta_dirty_ids(**grow))
+    torch.cuda.synchronize()
+    t_patch = time.perf_counter() - t0
+    rows = _dirty_rows(graph, delta_dirty_ids(**grow))
+    if not (st["upload"] == "replace" and st["grown_rows"] == STREAM_GROW
+            and st["rows_patched"] == rows.size
+            and table.pad_row == n + STREAM_GROW
+            and table.neighbors.shape[0] == n + STREAM_GROW + 1
+            and _stream_counts()["alias_rows_patched_total"] - count0
+            == rows.size):
+        raise AssertionError(f"growth patch: {st}")
+    _check_device_is_host(table, "growth patch")
+    keep = np.ones(n, bool)
+    keep[rows[rows < n]] = False
+    remapped = np.where(prev[:n][keep] == n, n + STREAM_GROW, prev[:n][keep])
+    if not np.array_equal(table.host_tables[0][:n][keep], remapped):
+        raise AssertionError("growth: old rows' pad sentinels not remapped")
+    _check_table_rows(table, graph, rows)
+    out = {"nodes": STREAM_GROW, "edges": int(grow["edge_src"].size),
+           "epoch": state["epoch"], "table": st,
+           "engine_apply_delta_seconds": state["seconds"],
+           "waited_seconds": waited, "patch_rows_seconds": t_patch}
+    log(f"streaming (b): {STREAM_GROW} new nodes with "
+        f"{grow['edge_src'].size} edges: apply_delta {state['seconds']:.3f}s "
+        f"(on its own thread beside phases 9h-12; {waited:.1f}s waited "
+        f"after them); patch_rows {t_patch:.2f}s ({st['upload']}, "
+        f"grown_rows {st['grown_rows']}, {st['rows_patched']} rows "
+        f"re-derived); old pad sentinels remapped, card == host")
+    return out
+
+
+def _stream_toy_graph(n: int = 32):
+    """The reference's tests/test_streaming.py:_base_builder graph (n
+    nodes of two types, 4n weighted typed edges, a 3-dim "feat")."""
+    rng = np.random.default_rng(5)
+    b = GraphBuilder()
+    b.set_num_types(2, 2)
+    b.set_feature(0, 0, 3, "feat")
+    b.set_feature(1, 1, 0, "tags")
+    ids = np.arange(1, n + 1, dtype=np.uint64)
+    b.add_nodes(ids, types=(ids % 2).astype(np.int32),
+                weights=np.linspace(1, 2, n).astype(np.float32))
+    m = n * 4
+    src = rng.integers(1, n + 1, m).astype(np.uint64)
+    dst = rng.integers(1, n + 1, m).astype(np.uint64)
+    et = rng.integers(0, 2, m).astype(np.int32)
+    w = (rng.random(m) + 0.1).astype(np.float32)
+    b.add_edges(src, dst, types=et, weights=w)
+    b.set_node_dense(ids, 0, rng.random((n, 3), dtype=np.float32))
+    b.set_node_sparse(ids, 1, np.arange(n + 1, dtype=np.uint64) * 2,
+                      np.arange(2 * n, dtype=np.uint64))
+    return b.finalize()
+
+
+class _FeatEmb(torch.nn.Module):
+    """The reference acceptance test's model: proj = Dense(4) of a node's
+    3-dim feature, an MSE against the sum of its first 3 components."""
+
+    def __init__(self, dim: int = 4):
+        super().__init__()
+        self.dim = dim
+        self.proj = torch.nn.Linear(3, dim)
+
+    def forward(self, batch):
+        v = self.proj(batch["feat"])
+        target = batch["feat"][:, :self.dim - 1].sum(-1, keepdim=True)
+        loss = ((v - target) ** 2).mean()
+        return ModelOutput(v, loss, "mse", loss)
+
+
+def stream_round(root: str, dev: torch.device) -> dict:
+    """tests/test_streaming.py:752-827 with the estimator and the
+    InferenceServer on the card: 3 host-fed steps, bundle v1 served; one
+    round adds node 901 with an edge to node 1, fine-tunes 3 steps,
+    exports v2 and swaps it in; the fleet then serves v2 with one more
+    id, and its kNN returns node 901."""
+    g = _stream_toy_graph()
+    bsz = 8
+
+    def train_fn():
+        while True:
+            ids = g.sample_node(bsz, -1)
+            yield {"feat": g.get_dense_feature(ids, "feat"), "infer_ids": ids}
+
+    def sweep_fn():
+        ids = g.all_node_ids()
+        for i in range(0, len(ids), bsz):
+            part = ids[i:i + bsz]
+            if len(part) < bsz:
+                part = np.concatenate(
+                    [part, np.full(bsz - len(part), part[-1], np.uint64)])
+            yield {"feat": g.get_dense_feature(part, "feat"),
+                   "infer_ids": part}
+
+    torch.manual_seed(0)
+    est = BaseEstimator(_FeatEmb(), {"log_steps": 1000,
+                                     "checkpoint_steps": 0}, device=dev)
+    est.train(train_fn(), max_steps=3)
+    v1 = est.export_bundle(os.path.join(root, "v1"), input_fn=sweep_fn,
+                           nlist=2, nprobe=2, version="v1")
+    new_id = np.uint64(901)
+    t0 = time.monotonic()
+    with InferenceServer(os.path.join(root, "v1"), service="stream_round",
+                         max_batch=8, device=dev) as srv, \
+            ServingClient(endpoints=f"hosts:127.0.0.1:{srv.port}",
+                          service="stream_round") as cli:
+        driver = StreamingDriver(est, g, serving_client=cli, export_dir=root)
+        r = driver.round(
+            {"node_ids": np.array([new_id], np.uint64),
+             "edge_src": np.array([new_id], np.uint64),
+             "edge_dst": np.array([1], np.uint64)},
+            steps=3, train_input_fn=train_fn(), version="v2",
+            input_fn=sweep_fn, nlist=2, nprobe=2)
+        info = cli.info()
+        nbr_ids, _ = cli.knn(np.array([new_id], np.uint64),
+                             k=int(info["count"]))
+        served_on = srv._engine.table.device
+    secs = time.monotonic() - t0
+    ok = (r["delta"]["epoch"] == 1 and r["swap"] is not None
+          and info["bundle_version"] == "v2"
+          and info["count"] == len(v1.ids) + 1 and new_id in nbr_ids[0]
+          and new_id not in v1.ids and r["train"]["global_step"] == 6
+          and served_on.type == dev.type)
+    log(f"streaming (c): the reference's acceptance round on the card "
+        f"({secs:.2f}s): epoch {r['delta']['epoch']}, fine-tune to step "
+        f"{r['train']['global_step']}, served {info['bundle_version']} with "
+        f"{info['count']} ids (v1 {len(v1.ids)}), table on {served_on}; kNN "
+        f"of node 901 returns it: {new_id in nbr_ids[0]}")
+    if not ok:
+        raise AssertionError(f"streaming round: {r}, {info}")
+    return {"seconds": secs, "epoch": r["delta"]["epoch"],
+            "global_step": r["train"]["global_step"],
+            "bundle_version": info["bundle_version"],
+            "count": info["count"], "v1_count": len(v1.ids),
+            "knn_returns_new_node": True}
+
+
 def _gated_runs(table: dict, mods: dict, label: str = "") -> dict:
     """Each quality entry, name → (runner, argv, result key, row, floor,
     ref mean, ref sd, port sd, seeds), run on the card for its seeds
@@ -2618,18 +3071,32 @@ def _slice11_entries(table: dict) -> dict:
                        *seeds) in table.items()}
 
 
+_SLICE11_MODS = {"run_geniepath": run_geniepath,
+                 "run_scalable_sage": run_scalable_sage,
+                 "run_solution": run_solution}
+
+
+def phase_genie_quality() -> dict:
+    """The host-fed GeniePath runner on cora, the SLICE11_QUALITY entry
+    with the longest runs, in a worker of its own."""
+    with common.shared_graphs():
+        return _gated_runs(_slice11_entries(
+            {k: v for k, v in SLICE11_QUALITY.items()
+             if v[0] == "run_geniepath"}), _SLICE11_MODS)
+
+
 def phase_slice11_quality() -> dict:
-    """Slice 11's cora runners on the card, seeds 0-2, their defaults,
-    against their RESULTS.md rows and the JAX package's own 10-seed means
-    (SLICE11_QUALITY), in one process over one cora engine; then
-    run_sample_solution once (seed 0) against SAMPLE_SOLUTION_FLOOR."""
+    """The rest of slice 11's cora runners on the card, seeds 0-2 (host-
+    fed scalable_sage 0-9), their defaults, against their RESULTS.md rows
+    and the JAX package's own 10-seed means (SLICE11_QUALITY), over one
+    cora engine; then run_sample_solution once (seed 0) against
+    SAMPLE_SOLUTION_FLOOR."""
     import tempfile
 
-    mods = {"run_geniepath": run_geniepath,
-            "run_scalable_sage": run_scalable_sage,
-            "run_solution": run_solution}
     with common.shared_graphs():
-        out = _gated_runs(_slice11_entries(SLICE11_QUALITY), mods)
+        out = _gated_runs(_slice11_entries(
+            {k: v for k, v in SLICE11_QUALITY.items()
+             if v[0] != "run_geniepath"}), _SLICE11_MODS)
         with tempfile.TemporaryDirectory() as tmp:
             res, dt = _quiet_run(run_sample_solution,
                                  ["--model_dir", tmp, "--seed", "0"],
@@ -2655,6 +3122,18 @@ def phase_kg_quality() -> dict:
             "run_rgcn": run_rgcn}
     with common.shared_graphs():
         return _gated_runs(_slice11_entries(KG_QUALITY), mods)
+
+
+def _data_quality(runner: str) -> dict:
+    """`runner`'s DATA_QUALITY entry on the synthetic ml_1m graph on the
+    card, seeds 0-2, host-fed at its defaults, against its RESULTS.md
+    row and the JAX package's own 10-seed mean."""
+    mods = {"run_deepwalk": run_deepwalk, "run_line": run_line}
+    entries = {name: (r, argv, key, row, DATA_FLOOR, ref, ref_sd, port_sd,
+                      QUALITY_SEEDS)
+               for name, (r, argv, key, row, ref, ref_sd, port_sd)
+               in DATA_QUALITY.items() if r == runner}
+    return _gated_runs(entries, mods)
 
 
 def phase_graph_quality() -> dict:
@@ -3252,16 +3731,21 @@ def phase_serve(v1, dir_v1: str, v2, dir_v2: str, root: str,
     return out
 
 
-# the quality phases run in four worker processes, started after the
+# the quality phases run in six worker processes, started after the
 # build and joined before the first timed phase: their runs are small on
 # the card and bound by the host, so they overlap the host-bound graph
-# set-up (phase 3) and no timed phase. The layerwise and message-passing
-# runners share one process (one cora engine, common.shared_graphs) with
-# the knowledge-graph runners, slice 10's runners another, slice 11's
-# cora runners a fourth.
+# set-up (phase 3) and phase 9k (a), (c), and no timed phase. The groups
+# balance their run times (in-worker seconds of one H100 run: the cora
+# protocol, slice 7, unsupervised and host-fed runners 293 s; the
+# message-passing runners 268 s; slice 10's 270 s; host-fed GeniePath
+# 229 s; LINE on ml_1m 302 s; the KG runners, DeepWalk on ml_1m and the
+# rest of slice 11 ~220 s). Runners of one process share one engine per
+# dataset (common.shared_graphs).
 QUALITY_WORKERS = (("quality", "slice7_quality", "unsup_quality",
-                    "hostfed_quality"), ("mp_quality", "kg_quality"),
-                   ("graph_quality",), ("slice11_quality",))
+                    "hostfed_quality"), ("mp_quality",), ("graph_quality",),
+                   ("genie_quality",), ("line_ml_1m_quality",),
+                   ("kg_quality", "deepwalk_ml_1m_quality",
+                    "slice11_quality"))
 
 
 def run_quality_group(names) -> dict:
@@ -3275,8 +3759,11 @@ def run_quality_group(names) -> dict:
               "hostfed_quality": phase_hostfed_quality,
               "mp_quality": phase_mp_quality,
               "graph_quality": phase_graph_quality,
+              "genie_quality": phase_genie_quality,
               "slice11_quality": phase_slice11_quality,
-              "kg_quality": phase_kg_quality}
+              "kg_quality": phase_kg_quality,
+              "deepwalk_ml_1m_quality": lambda: _data_quality("run_deepwalk"),
+              "line_ml_1m_quality": lambda: _data_quality("run_line")}
     out, t0 = {}, time.monotonic()
     for name in names:
         out[name] = phases[name]()
@@ -3374,10 +3861,20 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     record = {"device": phase_device()}
     record["build"], baseline = phase_build(args.baseline_source)
+    bundles = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_bundles")
+    shutil.rmtree(bundles, ignore_errors=True)
+    os.makedirs(bundles)
     workers = start_quality_workers()
     try:
         store, table, graph, record["graph"] = phase_graph(dev)
         mark(record, "graph", t_start)
+        # slice 12: graphs that change, on the flagship's graph and table,
+        # beside the quality workers (the engine rebuilds its snapshot)
+        record["streaming"] = phase_stream_delta(
+            store, table, graph, bundles, record["graph"]["table_seconds"],
+            dev)
+        mark(record, "streaming (a), (c)", t_start)
         finish_quality_workers(workers, record)
         mark(record, "quality (workers beside the graph set-up)", t_start)
     finally:
@@ -3403,10 +3900,6 @@ def main(argv=None) -> int:
     mark(record, "kernels, slice", t_start)
     del ids, emb
     record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    bundles = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "chip_smoke_bundles")
-    shutil.rmtree(bundles, ignore_errors=True)
-    os.makedirs(bundles)
     dir_v1, dir_v2 = (os.path.join(bundles, v) for v in ("v1", "v2"))
     record["train"], est = phase_train(store, table, graph, dev)
     record["export_v1"], v1 = phase_export(est, dir_v1, "v1",
@@ -3455,6 +3948,9 @@ def main(argv=None) -> int:
     # then full-batch message passing on the pubmed stand-in
     record["layerwise"] = phase_layerwise(store, table, graph, alias, dev)
     mark(record, "layerwise", t_start)
+    # no later phase reads the flagship's engine: it grows on a thread of
+    # its own beside them (phase 9k (b))
+    growth = start_stream_growth(graph)
     del neg, fused, alias
     record["fullbatch"] = phase_fullbatch(dev)
     mark(record, "fullbatch", t_start)
@@ -3466,17 +3962,21 @@ def main(argv=None) -> int:
     mark(record, "slice 11", t_start)
     record["small_vs_cpu"] = phase_small_vs_cpu(dev)
     mark(record, "small", t_start)
-    # the training tables go before the bundles' tables go on the card
-    del store, table, graph, inf, model
+    # the training tables go before the bundles' tables go on the card,
+    # but for the neighbor table, which phase 9k (b) grows after serving
+    del store, inf, model
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve: {torch.cuda.memory_allocated()} device bytes allocated "
-        f"after freeing the training tables")
+        f"after freeing the training tables but the neighbor table")
     try:
         record["serve"] = phase_serve(v1, dir_v1, v2, dir_v2, bundles, dev)
         mark(record, "serve", t_start)
     finally:
         shutil.rmtree(bundles, ignore_errors=True)
+    record["streaming"]["growth"] = finish_stream_growth(table, graph, growth)
+    mark(record, "streaming (b)", t_start)
+    del table, graph
     main_case = record["kernels"]["cases"][0]
     kernels = {"kernels": [{
         "name": "gather_mean", "route": "cuda",
@@ -3544,6 +4044,16 @@ def main(argv=None) -> int:
             r["gather_mean_launches"]
             for k, r in record["slice11"].items()
             if isinstance(r, dict) and k != "scalable_sage"),
+        "streaming_host_launches": record["streaming"]["edge_only"][
+            "train_host_launches"],
+        "streaming_loop_launches_per_replay": record["streaming"][
+            "edge_only"]["gather_mean_launches_per_replay"],
+        "streaming_loop_replays": record["streaming"]["edge_only"][
+            "replays"],
+        "streaming_export_launches": record["streaming"]["edge_only"][
+            "export_launches"],
+        "streaming_graph_vs_eager_launches_per_replay": record["streaming"][
+            "edge_only"]["graph_vs_eager"]["gather_mean_launches_per_replay"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

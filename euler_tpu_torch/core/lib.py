@@ -250,6 +250,7 @@ SIGNATURES: Dict[str, tuple] = {
     "etg_graph_epoch": (_i64, [_i64]),
     "etg_apply_delta": _delta_sig,
     "etg_delta_since": (_i32, [_i64, _i64, c_voidp, c_i64p, c_i32p]),
+    "etg_hash64": (_u64, [_str, _u64]),
 }
 
 

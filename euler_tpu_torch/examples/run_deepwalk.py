@@ -2,7 +2,7 @@
 19-113, with the same defaults).
 
     python -m euler_tpu_torch.examples.run_deepwalk [--device_sampler] \\
-        [--dataset cora] [--p 1 --q 1] [--steps_per_loop K] [--seed 0] \\
+        [--dataset cora|ml_1m] [--p 1 --q 1] [--steps_per_loop K] [--seed 0] \\
         [--device cpu]
 
 The graph is get_dataset(dataset).engine. Without --device_sampler the
@@ -14,8 +14,10 @@ negatives on the device from tables built from the engine, on roots the
 engine draws. A plain BaseEstimator trains, train(max_steps), then
 evaluate(eval_steps); prints the train_*/eval_* dict (eval_metric is
 the MRR). max_steps 0 means about 10 root walks per node, max(500,
-10·N / batch_size). --seed seeds the engine's draws and the tables'
-init.
+10·N / batch_size) (1,522 steps on ml_1m). --steps_per_loop K > 1 runs
+each window of K steps as one CUDA graph replay on the card, on either
+input path, the same steps as K = 1. --seed seeds the engine's draws
+and the tables' init.
 """
 
 from __future__ import annotations
@@ -96,7 +98,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     else:
         model = DeepWalk(data.max_id, dim=args.dim, generator=init)
         est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
-                                        max_id=data.max_id, seed=args.seed),
+                                        max_id=data.max_id,
+                                        steps_per_loop=args.steps_per_loop,
+                                        seed=args.seed),
                             model_dir=args.model_dir or None, device=dev)
 
         def input_fn():

@@ -3,7 +3,8 @@ examples/line/run_line.py:15-103, with the same defaults and auto
 rules).
 
     python -m euler_tpu_torch.examples.run_line [--device_sampler] \\
-        [--dataset cora] [--order 2] [--seed 0] [--device cpu]
+        [--dataset cora|ml_1m] [--order 2] [--steps_per_loop K] \\
+        [--seed 0] [--device cpu]
 
 The graph is get_dataset(dataset).engine. Without --device_sampler the
 input is host-fed: positive edges from the engine's sample_edge and
@@ -15,8 +16,11 @@ plain BaseEstimator trains, train(max_steps), then evaluate(eval_steps);
 prints the train_*/eval_* dict (eval_metric is the MRR). Auto values
 (0): dim 256 on pubmed else 128, lr 0.05 on pubmed else 0.025,
 max_steps 8000 on pubmed else max(500, 8·E / batch_size) with E the
-engine's directed edges. --seed seeds the engine's draws and the
-tables' init.
+engine's directed edges (125,026 steps on ml_1m). --steps_per_loop
+K > 1 runs each window of K steps as one CUDA graph replay on the card
+(host-fed batches are copied into the graph's inputs), the same steps
+as K = 1; on the CPU the K steps run eagerly. --seed seeds the engine's
+draws and the tables' init.
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="positives and negatives drawn on the device "
                          "from tables built from the engine")
     ap.add_argument("--sampler_cap", type=int, default=32)
+    ap.add_argument("--steps_per_loop", type=int, default=1,
+                    help="> 1 runs K steps as one CUDA graph replay")
     ap.add_argument("--model_dir", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -80,6 +86,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             num_negs=args.num_negs, share_context=args.order == 1,
             generator=init)
         est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
+                                        steps_per_loop=args.steps_per_loop,
                                         seed=args.seed),
                             model_dir=args.model_dir or None, device=dev)
         est.static_batch.update({**tab.tables, **neg.tables})
@@ -88,7 +95,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         model = LINE(data.max_id, dim=args.dim, order=args.order,
                      generator=init)
         est = BaseEstimator(model, dict(learning_rate=args.learning_rate,
-                                        max_id=data.max_id, seed=args.seed),
+                                        max_id=data.max_id,
+                                        steps_per_loop=args.steps_per_loop,
+                                        seed=args.seed),
                             model_dir=args.model_dir or None, device=dev)
 
         def input_fn():

@@ -306,8 +306,8 @@ def build_alias_tables(nbr_tab: np.ndarray,
     copy is made.
 
     Copy of euler_tpu/parallel/device_sampler.py:build_alias_tables,
-    without its rows-rebuilt counter, its row blocks built on a pool of
-    threads."""
+    its row blocks built on a pool of threads; counted as rows rebuilt
+    (alias_rows_rebuilt_total)."""
     if (cum_tab is None) == (w_tab is None):
         raise ValueError(
             "build_alias_tables needs exactly one of cum_tab / w_tab")
@@ -339,7 +339,22 @@ def build_alias_tables(nbr_tab: np.ndarray,
                             or 1) as pool:
         for f in [pool.submit(block, lo) for lo in starts]:
             f.result()
+    _alias_patch_counter("rebuilt").inc(n_rows)
     return out
+
+
+def _alias_patch_counter(kind: str):
+    """alias_rows_{patched,rebuilt}_total on the obs registry: table rows
+    re-derived by patch_rows against rows built by full alias builds
+    (copy of euler_tpu/parallel/device_sampler.py:_alias_patch_counter)."""
+    from euler_tpu_torch import obs
+
+    helps = {
+        "patched": "alias/table rows re-derived by incremental patching",
+        "rebuilt": "alias table rows built by full-table builds",
+    }
+    return obs.default_registry().counter(
+        f"alias_rows_{kind}_total", helps[kind])
 
 
 def fuse_tables_host(nbr_tab: np.ndarray, cum_tab: np.ndarray) -> np.ndarray:
@@ -373,7 +388,11 @@ class DeviceNeighborTable:
     neighbors and cum_weights are None), as the reference's _place
     does. alias=True also places the [N+1, C] alias table
     (alias_table); it needs the split layout. Row-sharded tables
-    (shard_rows=True) are not ported yet."""
+    (shard_rows=True) are not ported yet.
+
+    patch_rows(graph, dirty_ids) re-derives the rows of a delta's dirty
+    ids after graph.apply_delta, as the reference's does; it binds new
+    tensors and never writes the old ones (see its docstring)."""
 
     def __init__(self, graph, cap: int = 32, edge_types=None,
                  seed: int = 0, keep_host: bool = False,
@@ -389,6 +408,8 @@ class DeviceNeighborTable:
         del nbrs
         self._build(offs, nbr_rows, ws, cap, seed, dev, keep_host, fused,
                     alias)
+        # patch_rows re-derives dirty rows under the same filter and keys
+        self._edge_types = edge_types
 
     @classmethod
     def from_csr(cls, offsets: np.ndarray, neighbors: np.ndarray,
@@ -436,6 +457,7 @@ class DeviceNeighborTable:
         cum = np.cumsum(w_tab, axis=1, dtype=np.float32)
         del w_tab
         self._place(nbr_tab, cum, stats, dev, fused, alias_tab)
+        self._seed, self._edge_types = int(seed), None
         if keep_host:
             self.host_tables = (nbr_tab, cum)
 
@@ -471,6 +493,9 @@ class DeviceNeighborTable:
         self._place(np.ascontiguousarray(nbr_tab, np.int32),
                     np.ascontiguousarray(cum_tab, np.float32),
                     stats, resolve_device(device), fused, alias_tab)
+        # prebuilt tables carry no build provenance: patch_rows assumes
+        # seed 0 and no edge-type filter, as the reference's from_arrays
+        self._seed, self._edge_types = 0, None
         return self
 
     def _place(self, nbr_tab: np.ndarray, cum_tab: np.ndarray, stats: dict,
@@ -491,10 +516,10 @@ class DeviceNeighborTable:
             self.neighbors = self.cum_weights = None
         else:
             self.fused_table = None
-            self.neighbors = torch.from_numpy(nbr_tab).to(dev)
-            self.cum_weights = torch.from_numpy(cum_tab).to(dev)
+            self.neighbors, self.cum_weights = _upload(nbr_tab, dev), \
+                _upload(cum_tab, dev)
         self.alias_table = None if alias_tab is None else \
-            torch.from_numpy(alias_tab).to(dev)
+            _upload(alias_tab, dev)
         self.host_tables = None
 
     @property
@@ -508,6 +533,152 @@ class DeviceNeighborTable:
         if self.alias_table is not None:
             out["alias_table"] = self.alias_table
         return out
+
+    def patch_rows(self, graph, dirty_ids) -> dict:
+        """O(dirty) table maintenance after graph.apply_delta(...), as
+        the reference's patch_rows (euler_tpu/parallel/
+        device_sampler.py:211-348): only the rows of the dirty ids are
+        re-derived (one neighbor query, one _fill_table_rows block, one
+        Vose rebuild of their alias words); new nodes (engine rows past
+        the old pad) grow the tables and the old pad sentinels are
+        remapped to the new pad id. The patched tables equal a build
+        from scratch on the final edge set byte for byte (a row's
+        content depends only on its own edges and its row; engine rows
+        are append-only). Ids the graph does not know drop out.
+
+        The tables are new tensors after a patch, never the old ones
+        written in place, as the reference's `.at[rows].set` gives new
+        arrays: without growth each is cloned on its device and the
+        dirty rows are scattered into the clone ("row_scatter"); growth
+        uploads the grown host tables ("replace"); an empty patch
+        uploads nothing ("none"). An estimator that merged `tables`
+        before the patch keeps reading the old rows (and a K-step CUDA
+        graph captured on them stays valid); `static_batch.update(
+        table.tables)` merges the new ones, and the loop then captures
+        again. Kept host_tables are patched in place without growth.
+
+        Split tables only: the fused layout raises the reference's
+        ValueError (row-sharded tables are not built by the port).
+        uniform_rows can only turn False, max_degree tracks the max.
+        Counted as alias_rows_patched_total. Returns {rows_patched,
+        rows_total, grown_rows, rebuild_frac, upload}."""
+        if self.fused:
+            raise ValueError(
+                "patch_rows supports replicated split tables only — the "
+                "fused bitcast layout and row-sharded shape padding "
+                "would both need a full re-place anyway; rebuild those "
+                "tables instead")
+        dirty_ids = np.asarray(dirty_ids, dtype=np.uint64).ravel()
+        old_pad = self.pad_row
+        n_new = int(graph.node_count)
+        if n_new < old_pad:
+            raise ValueError(
+                f"graph shrank ({n_new} nodes < table's {old_pad}) — "
+                "deltas are append-only; rebuild the table")
+        C = self.cap
+        grown = n_new - old_pad
+        has_alias = self.alias_table is not None
+        dev = self.device
+        nbr = cum = alias_tab = None
+        if grown:
+            if self.host_tables is not None:
+                nbr, cum = self.host_tables
+            else:
+                nbr, cum = _download(self.neighbors), \
+                    _download(self.cum_weights)
+            # the old pad sentinels point at the moved pad row (alias
+            # words are column-relative and need no remap)
+            g_nbr = np.full((n_new + 1, C), n_new, dtype=np.int32)
+            g_cum = np.zeros((n_new + 1, C), dtype=np.float32)
+            old_rows = nbr[:old_pad]
+            g_nbr[:old_pad] = np.where(old_rows == old_pad, n_new,
+                                       old_rows)
+            g_cum[:old_pad] = cum[:old_pad]
+            nbr, cum = g_nbr, g_cum
+            if has_alias:
+                alias_tab = np.full((n_new + 1, C), ALIAS_SENTINEL,
+                                    dtype=np.int32)
+                alias_tab[:old_pad] = _download(self.alias_table)[:old_pad]
+        # dirty ids → engine rows, resolved once; ids the graph does not
+        # know resolve to the pad row and drop out
+        all_rows = graph.node_rows(dirty_ids, missing=n_new) \
+            .astype(np.int64)
+        ok = all_rows < n_new
+        order = np.argsort(all_rows[ok], kind="stable")
+        sorted_rows = all_rows[ok][order]
+        keep_first = np.ones(sorted_rows.size, bool)
+        keep_first[1:] = sorted_rows[1:] != sorted_rows[:-1]
+        rows = sorted_rows[keep_first]      # unique, ascending
+        stats = {"rows_patched": int(rows.size), "rows_total": n_new,
+                 "grown_rows": int(grown),
+                 "rebuild_frac": float(rows.size / max(n_new, 1)),
+                 "upload": ("replace" if grown else
+                            "row_scatter" if rows.size else "none")}
+        if rows.size:
+            # the dirty ids in row order, so the neighbor lists line up
+            # one to one with `rows`
+            ids = dirty_ids[ok][order][keep_first]
+            offs, nbrs, ws, _ = graph.get_full_neighbor(
+                ids, self._edge_types)
+            deg = np.diff(offs.astype(np.int64))
+            nbr_rows = graph.node_rows(nbrs, missing=n_new).astype(np.int32)
+            blk_nbr, blk_w = _fill_table_rows(
+                C, n_new, rows, deg, nbr_rows, ws.astype(np.float32),
+                self._seed)
+            blk_cum = np.cumsum(blk_w, axis=1, dtype=np.float32)
+            blk_alias = (_alias_rows_block(blk_nbr, blk_w, n_new)
+                         if has_alias else None)
+            if grown:
+                nbr[rows] = blk_nbr
+                cum[rows] = blk_cum
+                if has_alias:
+                    alias_tab[rows] = blk_alias
+            else:
+                if self.host_tables is not None:
+                    self.host_tables[0][rows] = blk_nbr
+                    self.host_tables[1][rows] = blk_cum
+                at = torch.from_numpy(rows).to(dev)
+                self.neighbors = _scattered(self.neighbors, at, blk_nbr)
+                self.cum_weights = _scattered(self.cum_weights, at, blk_cum)
+                if has_alias:
+                    self.alias_table = _scattered(self.alias_table, at,
+                                                  blk_alias)
+            self.uniform_rows = bool(
+                self.uniform_rows
+                and _detect_uniform_rows(blk_nbr, blk_w, pad=n_new))
+            if deg.size:
+                self.max_degree = max(int(self.max_degree or 0),
+                                      int(deg.max()))
+        self.pad_row = n_new
+        if grown:
+            self.neighbors, self.cum_weights = _upload(nbr, dev), \
+                _upload(cum, dev)
+            if has_alias:
+                self.alias_table = _upload(alias_tab, dev)
+            if self.host_tables is not None:
+                self.host_tables = (nbr, cum)
+        _alias_patch_counter("patched").inc(stats["rows_patched"])
+        return stats
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host table on `dev`, in memory of its own (on the CPU too,
+    where from_numpy would share the array's)."""
+    return torch.from_numpy(a).to(dev, copy=True)
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """A device table as a host array of its own."""
+    return t.to("cpu", copy=True).numpy()
+
+
+def _scattered(t: torch.Tensor, rows: torch.Tensor,
+               block: np.ndarray) -> torch.Tensor:
+    """A clone of `t` with `block` written into its `rows`: one device
+    copy and one row scatter, `t` left as it was."""
+    out = t.clone()
+    out.index_copy_(0, rows, torch.from_numpy(block).to(t.device))
+    return out
 
 
 def _pick_cols(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:

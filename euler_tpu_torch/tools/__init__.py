@@ -1,1 +1,2 @@
-"""Host tools of the port (kNN over embeddings)."""
+"""Host tools of the port: kNN over embeddings (knn.py) and the JSON →
+binary graph data prep (generate_data.py)."""

@@ -1226,3 +1226,99 @@ def test_cuda_transe_runner_repeats_bit_for_bit():
         ["--max_steps", "30", "--eval_steps", "5", "--seed", "3"]).items()
         if k != "train_steps_per_sec"} for _ in range(2)]
     assert runs[0] == runs[1]
+
+
+# -- slice 12: graphs that change ---------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_patch_rows_binds_new_tensors_and_the_loop_recaptures():
+    """The cora setup at K = 8 over a table kept on the host too: after
+    an edge-only delta of 64 edges, patch_rows scatters into new tensors
+    on the card ("row_scatter") equal to the host copies and to a build
+    from scratch; the estimator's captured graph goes on reading the old
+    tensors (a window replays, no capture); merging the new ones makes
+    the loop capture again. On the patched table K = 8 equals K = 1 bit
+    for bit."""
+    _need_card()
+    from euler_tpu_torch.graph import delta_dirty_ids
+    from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+
+    store, _, graph, model, params = _training_setup("cora")
+    tab = DeviceNeighborTable(graph, cap=32, keep_host=True, device="cuda")
+    setup = (store, tab, graph, model, params)
+    k = 8
+    feed = _estimator(setup).train_input_fn()
+    batches = [next(feed) for _ in range(8 * k)]
+    est = _estimator(setup, steps_per_loop=k)
+    est.train(iter(batches[:k]), max_steps=k)
+    loop = est._graphed
+    assert (loop.captures, loop.replays) == (1, 0)
+    old = est.static_batch["nbr_table"]
+    rng = np.random.default_rng(11)
+    ids = graph.all_node_ids()
+    delta = {"edge_src": rng.choice(ids, 64), "edge_dst": rng.choice(ids, 64),
+             "edge_weights": np.ones(64, np.float32)}
+    graph.apply_delta(**delta)
+    stats = tab.patch_rows(graph, delta_dirty_ids(**delta))
+    assert stats["upload"] == "row_scatter" and stats["rows_patched"] > 0
+    assert tab.neighbors is not old
+    assert tab.neighbors.data_ptr() != old.data_ptr()
+    scratch = DeviceNeighborTable(graph, cap=32, device="cpu")
+    for dev_t, host, fresh in ((tab.neighbors, tab.host_tables[0],
+                                scratch.neighbors),
+                               (tab.cum_weights, tab.host_tables[1],
+                                scratch.cum_weights)):
+        got = dev_t.cpu().numpy()
+        assert got.tobytes() == host.tobytes() == fresh.numpy().tobytes()
+    est.train(iter(batches[k:2 * k]), max_steps=2 * k)
+    assert (loop.captures, loop.replays) == (1, 1)
+    assert est.static_batch["nbr_table"] is old
+    est.static_batch.update(tab.tables)
+    est.train(iter(batches[2 * k:4 * k]), max_steps=4 * k)
+    assert (loop.captures, loop.replays) == (2, 2)
+    graphed = _estimator(setup, steps_per_loop=k)
+    eager = _estimator(setup)
+    assert graphed.static_batch["nbr_table"] is tab.neighbors
+    rest = batches[4 * k:]
+    rg = graphed.train(iter(rest), max_steps=len(rest))
+    re_ = eager.train(iter(rest), max_steps=len(rest))
+    assert rg["losses"] == re_["losses"]
+    _assert_same_state(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_host_fed_line_graph_windows_match_eager_steps():
+    """run_line's host-fed LINE at steps_per_loop = 8 (the ml_1m quality
+    gate's form: host batches copied into the graph's inputs, one replay
+    per 8 steps) against K = 1 on the same engine batches: the same
+    losses, parameters and Adam moments, bit for bit."""
+    _need_card()
+    from euler_tpu_torch.dataset import get_dataset
+    from euler_tpu_torch.estimator.base_estimator import BaseEstimator
+    from euler_tpu_torch.models.embedding_models import LINE
+
+    data = get_dataset("ml_1m", num_users=300, num_items=120,
+                       num_ratings=6000)
+    g = data.engine
+    batches = []
+    for _ in range(3 * 8 + 2):
+        src, dst, _ = g.sample_edge(128, -1)
+        negs = g.sample_node(128 * 5, -1).reshape(128, 5)
+        batches.append({"src": src, "pos": dst, "negs": negs,
+                        "infer_ids": src})
+
+    def est(k):
+        return BaseEstimator(
+            LINE(data.max_id, dim=32, generator=torch.Generator()
+                 .manual_seed(0)),
+            {"learning_rate": 0.025, "max_id": data.max_id,
+             "steps_per_loop": k, "checkpoint_steps": 0,
+             "log_steps": 1 << 30}, device="cuda")
+
+    graphed, eager = est(8), est(1)
+    rg = graphed.train(iter(batches), max_steps=len(batches))
+    re_ = eager.train(iter(batches), max_steps=len(batches))
+    assert (graphed._graphed.captures, graphed._graphed.replays) == (1, 2)
+    assert rg["losses"] == re_["losses"]
+    assert np.isfinite(rg["losses"]).all()
+    _assert_same_state(graphed, eager)
