@@ -27,7 +27,9 @@ StreamingDriver deltas on the flagship's engine, the neighbor table
 patched row by row on the card, the loop captured again, a fresh bundle
 swapped into a server, growth, and the reference's acceptance round;
 then the serving stack over bundles exported from the trained flagship
-(2,450,000 x 256 f32).
+(2,450,000 x 256 f32); and the graph service: the flagship's host-fed
+step trained from a 2-shard cluster of its own graph, found through a
+tcp: registry.
 Phases, in order; any failure raises and the exit code is not 0:
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off
@@ -186,6 +188,27 @@ Phases, in order; any failure raises and the exit code is not 0:
               on a thread of its own beside phases 9h-12; after phase
               12 the table is patched: "replace", the old rows' pad
               sentinels remapped, card == host
+ 9l. graph service  after phase 9f, on the graph as 9k (a) and (c) left
+              it: the engine dumped as 2 partitions (build/
+              chip_smoke_cluster, removed at the end), a tcp: registry
+              (gql.start_registry) and 2 shards (gql.start_service),
+              set up on a thread of their own from phase 7 on (dump and
+              load seconds, RSS, each shard's node and edge counts from
+              its own meta, summing to the engine's); a RemoteGraphEngine
+              found through the registry (a pool of 8) under a
+              CachedGraphEngine: on 4,096 seeded ids the remote and the
+              cached (cold, warm) full neighbor lists, dense features
+              and node types byte-equal to the embedded engine's, a
+              remote [15, 10] fanout only true neighbors, the warm read
+              all hits, a degraded fetch not cached; then 9f's step
+              trained from the cluster (FanoutDataFlow over the cache,
+              rows from the embedded engine's lookup) with
+              feeder_workers 0, 2 and 4: 2 warm-up and 5 timed steps each;
+              edges/s, ms a step, host ms a batch (remote sample_node,
+              remote sample_fanout, lookup), busy share, RPC transport
+              counters and health; a finite falling loss, no skipped
+              step or degraded batch, no gather_mean launch; the
+              engines, shards and registry stopped and released
  10. quality  (in six worker processes started after phase 2 and joined
               after phase 9k (a), (c), before any timed phase: their
               runs are bound by the host and overlap the graph set-up;
@@ -277,6 +300,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -331,8 +355,13 @@ from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
 from euler_tpu_torch.mp_utils.base import ModelOutput, SuperviseModel
 from euler_tpu_torch.mp_utils.group_gnn import GroupGNNNet
 from euler_tpu_torch.estimator.retry import RetryPolicy
-from euler_tpu_torch.graph import GraphBuilder, delta_dirty_ids
+from euler_tpu_torch import gql
+from euler_tpu_torch.graph import (
+    CachedGraphEngine, GraphBuilder, RemoteGraphEngine, delta_dirty_ids,
+    rpc_transport_stats,
+)
 from euler_tpu_torch.graph import seed as seed_engine
+from euler_tpu_torch.serving import wire
 from euler_tpu_torch.serving import InferenceServer, ModelBundle, ServingClient
 from euler_tpu_torch.tools.knn import brute_force
 from euler_tpu_torch.utils.layers import PReLU
@@ -406,6 +435,14 @@ CACHE_EDGES_PER_STEP = CACHE_LAYERS * BATCH * CACHE_FANOUT
 # table, SupervisedGraphSage dim 128, batch 32768, Adam lr 0.01, K = 1;
 # 2 warm-up steps and 5 timed steps (each batch is sampled on the host)
 HOST_WARMUP, HOST_TIMED = 2, 5
+# phase 9l: the graph service. The flagship's engine dumped as 2
+# partitions, served by 2 shards found through a tcp: registry; the
+# pooled remote client (GRAPH_POOL workers over pooled query handles,
+# chunks of 4,096 ids) under a client cache; reads checked on
+# REMOTE_CHECK_IDS seeded ids; the host-fed step trained from the cluster
+# with feeder_workers 0 and each of GRAPH_FEEDERS (HOST_WARMUP +
+# HOST_TIMED steps each)
+GRAPH_POOL, GRAPH_FEEDERS, REMOTE_CHECK_IDS = 8, (2, 4), 4096
 # host-fed quality: the port's runners without --device_sampler for
 # QUALITY_SEEDS against their RESULTS.md rows (graphsage | cora 0.805,
 # deepwalk | cora 0.996, line | cora 0.991, graphsage-unsup | ppi 0.551);
@@ -746,7 +783,8 @@ def phase_build(baseline_source=None) -> tuple:
     log(f"build: gather_mean {r['seconds']:.1f}s")
     e = engine.wait()
     log(f"build: graph engine ({e['sources']} sources, g++ "
-        f"{' '.join(engine_lib.CXXFLAGS)}) {e['seconds']:.1f}s, "
+        f"{' '.join(engine_lib.CXXFLAGS + engine_lib.LDFLAGS)}) "
+        f"{e['seconds']:.1f}s, "
         f"{engine_lib.library_path()}")
     report = ptxas_report(r["log"])
     for name, regs, spill in report:
@@ -1907,9 +1945,11 @@ def phase_alias_unsup(store, table, neg, alias, graph, dev) -> dict:
     return r
 
 
-def _timed_method(obj, name: str, acc: dict) -> None:
+def _timed_method(obj, name: str, acc: dict, calls=None) -> None:
     """Shadow obj.name with a wrapper that adds its wall seconds to
-    acc[name]; `del obj.name` restores the method."""
+    acc[name] (and one to calls[name], when given); `del obj.name`
+    restores the method. Thread-safe enough for sums: the feeder's
+    workers add under the GIL."""
     fn = getattr(obj, name)
 
     def timed(*a, **kw):
@@ -1918,6 +1958,8 @@ def _timed_method(obj, name: str, acc: dict) -> None:
             return fn(*a, **kw)
         finally:
             acc[name] += time.perf_counter() - t0
+            if calls is not None:
+                calls[name] += 1
 
     setattr(obj, name, timed)
 
@@ -2023,6 +2065,348 @@ def phase_hostfed(store, graph, dev) -> dict:
     log(f"host-fed arrays: one step with the engine's features as layers "
         f"in {r['arrays_step_seconds']:.1f}s (batch built, copied and "
         f"stepped), loss {res['loss']:.4f}")
+    return r
+
+
+def _rss_bytes() -> int:
+    """This process's resident set (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _shard_meta(host: str, port: int) -> dict:
+    """A shard's own node and edge counts, from its meta reply (the
+    graph service's kMeta verb, msg type 1, in the classic frame that
+    serving.wire speaks; rpc.cc:EncodeShardMeta's field order)."""
+    with socket.create_connection((host, port), timeout=30) as sock:
+        wire.write_frame(sock, 1, b"")
+        _, body = wire.read_frame(sock)
+    r = wire.Reader(body)
+    out = {"shard_idx": r.u32(), "shard_num": r.u32(),
+           "partition_num": r.u32()}
+    r.array(np.float32, r.u32())           # node type weight sums
+    r.array(np.float32, r.u32())           # edge type weight sums
+    r.u64(), r.u64(), r.str_(), r.u32(), r.u32()
+    out["nodes"], out["edges"] = r.u64(), r.u64()
+    return out
+
+
+def start_graph_service(graph) -> dict:
+    """Phase 9l's set-up, on a thread of its own beside phases that
+    leave the host idle: the engine dumped as 2 partitions under
+    build/chip_smoke_cluster, a tcp: registry, and 2 shards loading
+    their partitions side by side (ctypes releases the GIL)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_cluster")
+    state = {"dir": root, "registry": None, "shards": [None, None],
+             "error": None, "nodes": graph.node_count,
+             "edges": graph.edge_count}
+
+    def run():
+        try:
+            shutil.rmtree(root, ignore_errors=True)
+            state["rss_before"] = _rss_bytes()
+            t0 = time.monotonic()
+            graph.dump(root, num_partitions=2)
+            state["dump_seconds"] = time.monotonic() - t0
+            state["registry"] = gql.start_registry()
+            state["spec"] = f"tcp:127.0.0.1:{state['registry'].port}"
+            loads = [None, None]
+
+            def load(i):
+                t = time.monotonic()
+                state["shards"][i] = gql.start_service(
+                    root, shard_idx=i, shard_num=2,
+                    registry_dir=state["spec"])
+                loads[i] = time.monotonic() - t
+
+            ts = [threading.Thread(target=load, args=(i,)) for i in (0, 1)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            if None in state["shards"]:
+                raise RuntimeError("a shard failed to start")
+            state["load_seconds"] = loads
+            state["setup_seconds"] = time.monotonic() - t0
+            state["rss_after"] = _rss_bytes()
+        except BaseException as e:  # re-raised by finish_graph_service
+            state["error"] = e
+
+    state["thread"] = threading.Thread(target=run, name="graph-service")
+    state["thread"].start()
+    return state
+
+
+def stop_graph_service(state: dict) -> dict:
+    """Stop the shards and the registry (each once), remove the dump;
+    True where the port released a server (its handle zeroed, its port
+    refusing connections) and the registry no longer answers."""
+    state["thread"].join()
+    ports = [s.port for s in state["shards"] if s is not None]
+    for s in state["shards"]:
+        if s is not None:
+            s.stop()
+    reg = state["registry"]
+    if reg is not None:
+        reg.stop()
+    shutil.rmtree(state["dir"], ignore_errors=True)
+    released = all(s is None or not s._h for s in state["shards"]) and (
+        reg is None or not reg._h)
+    for port in ports:
+        with contextlib.suppress(OSError), socket.create_connection(
+                ("127.0.0.1", port), timeout=2):
+            released = False
+    if reg is not None:
+        try:
+            gql.scan_registry(state["spec"])
+            released = False
+        except engine_lib.EngineError:
+            pass
+    return {"released": released, "rss_after_stop": _rss_bytes()}
+
+
+def finish_graph_service(state: dict) -> dict:
+    """Join the set-up; each shard's node and edge counts from its own
+    meta, which must sum to the engine's."""
+    state["thread"].join()
+    if state["error"] is not None:
+        raise state["error"]
+    shards = gql.scan_registry(state["spec"])
+    metas = [_shard_meta(h, p) for _, (h, p, _) in sorted(shards.items())]
+    r = {k: state[k] for k in ("dump_seconds", "load_seconds",
+                               "setup_seconds", "rss_before", "rss_after",
+                               "nodes", "edges")}
+    r["shards"] = metas
+    nodes = sum(m["nodes"] for m in metas)
+    edges = sum(m["edges"] for m in metas)
+    log(f"graph service: dump {r['dump_seconds']:.1f}s, shard loads "
+        f"{', '.join(f'{x:.1f}s' for x in r['load_seconds'])} (set-up "
+        f"{r['setup_seconds']:.1f}s on its thread); RSS "
+        f"{r['rss_before'] / 2**30:.2f} -> {r['rss_after'] / 2**30:.2f} GiB; "
+        + "; ".join(f"shard {m['shard_idx']}: {m['nodes']} nodes, "
+                    f"{m['edges']} edges" for m in metas))
+    if len(metas) != 2 or (nodes, edges) != (r["nodes"], r["edges"]):
+        raise AssertionError(
+            f"graph service: shards hold {nodes} nodes and {edges} edges "
+            f"({metas}); the engine {r['nodes']} and {r['edges']}")
+    return r
+
+
+def _same_bytes(what: str, a, b) -> None:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape or \
+            a.tobytes() != b.tobytes():
+        raise AssertionError(f"graph service: {what} differs from the "
+                             f"embedded engine's ({a.dtype}{a.shape} vs "
+                             f"{b.dtype}{b.shape})")
+
+
+def check_remote_reads(graph, remote, cached) -> dict:
+    """On REMOTE_CHECK_IDS seeded ids: the remote engine's and the
+    cache's (cold, then warm) full neighbor lists, dense features and
+    node types equal the embedded engine's byte for byte; a remote
+    [15, 10] fanout holds only true neighbors of each parent at the
+    embedded shapes; the warm read is all hits, and a fetch during
+    which the engine counts a degraded result inserts nothing."""
+    all_ids = graph.all_node_ids()
+    ids = np.random.default_rng(0).choice(all_ids, REMOTE_CHECK_IDS,
+                                          replace=False)
+    want_nb = graph.get_full_neighbor(ids)
+    want_f = graph.get_dense_feature(ids, "feature")
+    _same_bytes("node types", remote.get_node_type(ids),
+                graph.get_node_type(ids))
+    for what, eng in (("remote", remote), ("cache cold", cached),
+                      ("cache warm", cached)):
+        for a, b in zip(eng.get_full_neighbor(ids), want_nb, strict=True):
+            _same_bytes(f"{what} full neighbors", a, b)
+        _same_bytes(f"{what} features", eng.get_dense_feature(
+            ids, "feature"), want_f)
+    st = cached.cache_stats()
+    if st["hits"] != 2 * REMOTE_CHECK_IDS or \
+            st["misses"] != 2 * REMOTE_CHECK_IDS:
+        raise AssertionError(f"graph service: the warm read is not all "
+                             f"hits: {st}")
+    # the poisoning guard: the engine counts a degraded result during
+    # the fetch (feature getters never degrade; the wrapper makes one)
+    inserts = st["inserts"]
+    fetch = remote.get_dense_feature
+
+    def degraded_fetch(*a, **kw):
+        remote._note_degraded()
+        return fetch(*a, **kw)
+
+    remote.get_dense_feature = degraded_fetch
+    try:
+        fresh = np.setdiff1d(all_ids[:2 * REMOTE_CHECK_IDS], ids)[:64]
+        cached.get_dense_feature(fresh, "feature")
+    finally:
+        del remote.get_dense_feature
+    st = cached.cache_stats()
+    if st["inserts"] != inserts or st["poison_skips"] != 1:
+        raise AssertionError(f"graph service: a degraded fetch went into "
+                             f"the cache: {st}")
+    # remote draws run on the shards' threads: held by membership
+    roots = ids
+    hops, _, _ = remote.sample_fanout(roots, list(FANOUTS))
+    shapes = [h.shape for h in hops]
+    want = [(REMOTE_CHECK_IDS * FANOUTS[0],),
+            (REMOTE_CHECK_IDS * FANOUTS[0] * FANOUTS[1],)]
+    if shapes != want:
+        raise AssertionError(f"graph service: fanout shapes {shapes}, not "
+                             f"{want}")
+    parents = [roots, hops[0]]
+    if int(all_ids.max()) >= 1 << 32:  # the (parent, child) keys below
+        raise AssertionError("graph service: node ids past 2^32")
+    bad = 0
+    for hop, par, k in zip(hops, parents, FANOUTS):
+        uniq, inv = np.unique(par, return_inverse=True)
+        off, nbr, _, _ = graph.get_full_neighbor(uniq)
+        deg = np.diff(off.astype(np.int64))
+        edge_key = (np.repeat(np.arange(uniq.size, dtype=np.uint64), deg)
+                    << np.uint64(32)) | nbr
+        pair_key = (np.repeat(inv.astype(np.uint64), k) << np.uint64(32)) \
+            | hop
+        ok = np.isin(pair_key, edge_key)
+        # a parent without neighbors pads with the default id 0
+        ok |= (np.repeat(deg[inv], k) == 0) & (hop == 0)
+        bad += int((~ok).sum())
+    if bad:
+        raise AssertionError(f"graph service: {bad} sampled ids are not "
+                             "neighbors of their parent")
+    log(f"graph service: {REMOTE_CHECK_IDS} ids read remote, cached cold "
+        f"and warm byte-equal to the embedded engine (neighbors, "
+        f"features, types); a [15, 10] fanout of {sum(h.size for h in hops)}"
+        f" ids all true neighbors; a fetch counted degraded (health()'s "
+        f"degraded 1 below) cached nothing; cache {st}")
+    return {"cache_after_checks": st, "fanout_ids": int(sum(
+        h.size for h in hops))}
+
+
+def graph_service_estimator(cached, store, dev, workers: int):
+    """hostfed_estimator's model and parameters over the cluster:
+    FanoutDataFlow(cached remote, [15, 10], no features), rows from
+    the embedded engine's lookup, feeder_workers `workers`."""
+    model = SupervisedGraphSage(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
+        generator=torch.Generator().manual_seed(0))
+    return NodeEstimator(
+        model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
+                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
+                    train_node_type=-1, seed=0, feeder_workers=workers),
+        cached, FanoutDataFlow(cached, list(FANOUTS), with_features=False),
+        label_fid="label", label_dim=NUM_CLASSES, feature_store=store,
+        device=dev)
+
+
+def _train_from_cluster(cached, store, dev, workers: int) -> dict:
+    """HOST_WARMUP + HOST_TIMED host-fed steps from the cluster at K = 1
+    (workers > 1: the ParallelPrefetcher's workers build the batches
+    over the pooled client); host ms a batch by call, averaged over the
+    batches built; busy share from one profiled step."""
+    est = graph_service_estimator(cached, store, dev, workers)
+    src = est.train_input_fn if workers > 1 else est.train_input_fn()
+    remote = cached._engine
+    gather_mean.launches = 0
+    health0 = remote.health()
+    losses = est.train(src, max_steps=HOST_WARMUP)["losses"]
+    names = (("sample_node", cached), ("sample_fanout", remote),
+             ("lookup", store))
+    acc = {n: 0.0 for n, _ in names}
+    calls = {n: 0 for n, _ in names}
+    for n, obj in names:
+        _timed_method(obj, n, acc, calls)
+    sums0 = _phase_sums(est)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = est.train(src, max_steps=HOST_WARMUP + HOST_TIMED)
+        torch.cuda.synchronize()
+        timed_s = time.monotonic() - t0
+    finally:
+        for n, obj in names:
+            delattr(obj, n)
+    input_wait_ms, dispatch_ms = (
+        float(x) for x in np.subtract(_phase_sums(est), sums0))
+    losses += res["losses"]
+    launches = gather_mean.launches
+    it = est.train_input_fn()
+    prof = profile_device(lambda: est._train_step(_on_card(next(it), est)),
+                          f"one step from the cluster ({workers} workers)")
+    health = remote.health()
+    what = f"graph service, feeder_workers {workers}"
+    if launches != 0:
+        raise AssertionError(f"{what}: gather_mean launched {launches} "
+                             "times on a path that takes no kernel")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: loss not finite and falling: "
+                             f"{losses}")
+    if int(est.skipped_steps) or res.get("skipped_batches"):
+        raise AssertionError(f"{what}: skipped steps or batches")
+    if health["degraded"] != health0["degraded"]:
+        raise AssertionError(f"{what}: degraded batches: {health}")
+    step_ms = timed_s * 1e3 / HOST_TIMED
+    host = {n: acc[n] * 1e3 / max(calls["sample_node"], 1) for n in acc}
+    r = {"feeder_workers": workers, "steps": est.step,
+         "gather_mean_launches": launches, "losses": losses,
+         "timed_seconds": timed_s, "edges_per_step": EDGES_PER_STEP,
+         "edges_per_sec_per_gpu": EDGES_PER_STEP * HOST_TIMED / timed_s,
+         "ms_per_step": step_ms, "host_ms_per_batch": host,
+         "batches_built": calls,
+         "input_wait_ms_per_step": input_wait_ms / HOST_TIMED,
+         "dispatch_ms_per_step": dispatch_ms / HOST_TIMED,
+         "device_busy_share": prof["device_busy_ms"] / step_ms,
+         "profile": prof, "health": health}
+    log(f"{what}: {HOST_TIMED} timed steps of {BATCH} roots, "
+        f"{r['edges_per_sec_per_gpu']:.6g} edges/s/GPU, {step_ms:.1f} ms a "
+        f"step; host ms a batch ({calls['sample_node']} built): remote "
+        f"sample_node {host['sample_node']:.1f}, remote sample_fanout "
+        f"{host['sample_fanout']:.1f}, lookup {host['lookup']:.1f} (input "
+        f"wait {r['input_wait_ms_per_step']:.1f} ms a step); device busy "
+        f"{r['device_busy_share']:.1%} ({prof['device_busy_ms']:.2f} ms a "
+        f"step); gather_mean launches {launches}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    return r
+
+
+def phase_graph_service(store, graph, state: dict, dev) -> dict:
+    """Phase 9l: the flagship trained host-fed from a 2-shard cluster of
+    its own graph, found through a tcp: registry (set-up joined here),
+    after the reads and draws are checked against the embedded engine;
+    then the engines, shards and registry stopped and released."""
+    t0 = time.monotonic()
+    r = {}
+    remote = cached = None
+    try:
+        r["setup"] = finish_graph_service(state)
+        r["setup_wait_seconds"] = time.monotonic() - t0
+        remote = RemoteGraphEngine(state["spec"], pool_size=GRAPH_POOL)
+        cached = CachedGraphEngine(remote)
+        r["checks"] = check_remote_reads(graph, remote, cached)
+        for workers in (0, *GRAPH_FEEDERS):
+            r[f"feeders_{workers}"] = _train_from_cluster(cached, store,
+                                                          dev, workers)
+        r["rpc_transport_stats"] = rpc_transport_stats()
+        r["health"] = cached.health()
+        log(f"graph service: rpc {r['rpc_transport_stats']}; health "
+            f"{r['health']}")
+    finally:
+        if cached is not None:
+            cached.close()
+        elif remote is not None:
+            remote.close()
+        r["teardown"] = stop_graph_service(state)
+    if not r["teardown"]["released"]:
+        raise AssertionError(f"graph service: not released: "
+                             f"{r['teardown']}")
+    r["seconds"] = time.monotonic() - t0
+    log(f"graph service: {r['seconds']:.1f}s on the critical path "
+        f"({r['setup_wait_seconds']:.1f}s waiting for the set-up); "
+        f"stopped and released, RSS "
+        f"{r['teardown']['rss_after_stop'] / 2**30:.2f} GiB")
     return r
 
 
@@ -3905,45 +4289,57 @@ def main(argv=None) -> int:
     record["export_v1"], v1 = phase_export(est, dir_v1, "v1",
                                            "v1 (phase 6's weights)")
     mark(record, "train, export v1", t_start)
-    record["loop"], est = phase_loop(store, table, graph, dev)
-    record["export_v2"], v2 = phase_export(est, dir_v2, "v2",
-                                           "v2 (the K = 32 phase's weights)")
-    mark(record, "loop, export v2", t_start)
-    del est
-    record["loop"]["graph_vs_eager"] = check_graph_vs_eager(
-        lambda k: flagship_estimator(store, table, graph, dev,
-                                     steps_per_loop=k),
-        flagship_estimator(store, table, graph, dev).train_input_fn())
-    record["loop_extra"] = [phase_loop(store, table, graph, dev, k)[0]
-                            for k in args.extra_loop_k]
-    mark(record, "loop graph vs eager", t_start)
-    # the unsupervised family on the same graph: negatives over every
-    # node's unit weight, as bench.py builds them (bench.py:411-419)
-    neg = DeviceNodeSampler(graph, node_type=-1, device=dev)
-    record["unsup"] = phase_unsup(store, table, neg, graph, dev)
-    mark(record, "unsup", t_start)
-    record["walk"] = phase_walk(table, neg, graph, dev)
-    record["embedding_backward"] = probe_embedding_backward(table, dev)
-    mark(record, "walk", t_start)
-    # slice 7: the fused and alias layouts of the same table, the
-    # flagship over each, the activation cache, the unsupervised family
-    # over the alias layout
-    record["layouts"], fused, alias = phase_layouts(table, dev)
-    mark(record, "layouts", t_start)
-    record["fused"] = phase_layout_flagship(
-        store, table, graph, dev, fused, "fused",
-        against=("split weighted", lambda k: flagship_estimator(
-            store, table, graph, dev, uniform=False,
-            steps_per_loop=k)))
-    record["alias"] = phase_layout_flagship(store, table, graph, dev,
-                                            alias, "alias")
-    mark(record, "fused, alias", t_start)
-    record["act_cache"] = phase_act_cache(store, table, graph, dev)
-    mark(record, "act cache", t_start)
-    record["alias_unsup"] = phase_alias_unsup(store, table, neg, alias,
-                                              graph, dev)
-    record["hostfed"] = phase_hostfed(store, graph, dev)
-    mark(record, "alias family, host-fed", t_start)
+    # phase 9l's cluster: dumped and loaded on a thread of its own while
+    # the K = 32 phases keep the card busy and the host idle
+    service = start_graph_service(graph)
+    try:
+        record["loop"], est = phase_loop(store, table, graph, dev)
+        record["export_v2"], v2 = phase_export(
+            est, dir_v2, "v2", "v2 (the K = 32 phase's weights)")
+        mark(record, "loop, export v2", t_start)
+        del est
+        record["loop"]["graph_vs_eager"] = check_graph_vs_eager(
+            lambda k: flagship_estimator(store, table, graph, dev,
+                                         steps_per_loop=k),
+            flagship_estimator(store, table, graph, dev).train_input_fn())
+        record["loop_extra"] = [phase_loop(store, table, graph, dev, k)[0]
+                                for k in args.extra_loop_k]
+        mark(record, "loop graph vs eager", t_start)
+        # the unsupervised family on the same graph: negatives over every
+        # node's unit weight, as bench.py builds them (bench.py:411-419)
+        neg = DeviceNodeSampler(graph, node_type=-1, device=dev)
+        record["unsup"] = phase_unsup(store, table, neg, graph, dev)
+        mark(record, "unsup", t_start)
+        record["walk"] = phase_walk(table, neg, graph, dev)
+        record["embedding_backward"] = probe_embedding_backward(table, dev)
+        mark(record, "walk", t_start)
+        # slice 7: the fused and alias layouts of the same table, the
+        # flagship over each, the activation cache, the unsupervised family
+        # over the alias layout
+        record["layouts"], fused, alias = phase_layouts(table, dev)
+        mark(record, "layouts", t_start)
+        record["fused"] = phase_layout_flagship(
+            store, table, graph, dev, fused, "fused",
+            against=("split weighted", lambda k: flagship_estimator(
+                store, table, graph, dev, uniform=False,
+                steps_per_loop=k)))
+        record["alias"] = phase_layout_flagship(store, table, graph, dev,
+                                                alias, "alias")
+        mark(record, "fused, alias", t_start)
+        record["act_cache"] = phase_act_cache(store, table, graph, dev)
+        mark(record, "act cache", t_start)
+        record["alias_unsup"] = phase_alias_unsup(store, table, neg, alias,
+                                                  graph, dev)
+        record["hostfed"] = phase_hostfed(store, graph, dev)
+        mark(record, "alias family, host-fed", t_start)
+        # slice 13: the graph service, trained from a 2-shard cluster of
+        # the same (patched) graph
+        record["graph_service"] = phase_graph_service(store, graph,
+                                                      service, dev)
+        mark(record, "graph service", t_start)
+    finally:
+        if "graph_service" not in record:
+            stop_graph_service(service)
     # slice 9: the layerwise family on the same tables (split and alias),
     # then full-batch message passing on the pubmed stand-in
     record["layerwise"] = phase_layerwise(store, table, graph, alias, dev)
@@ -4025,6 +4421,9 @@ def main(argv=None) -> int:
         "alias_walk_launches_per_replay":
             record["alias_unsup"]["walk"]["gather_mean_launches_per_replay"],
         "hostfed_launches": record["hostfed"]["gather_mean_launches"],
+        "graph_service_launches": sum(
+            record["graph_service"][f"feeders_{k}"]["gather_mean_launches"]
+            for k in (0, *GRAPH_FEEDERS)),
         "layerwise_launches": record["layerwise"]["k1"][
             "gather_mean_launches"],
         "layerwise_loop_device_launches": record["layerwise"]["k32_split"][

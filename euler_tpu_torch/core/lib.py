@@ -10,14 +10,16 @@ and link line, into
 at the root of the checkout, where <hash> covers the sources, the
 headers and the flags: a tree builds the library once, an edited source
 builds a new one, and a stale one is never loaded. One g++ runs per
-source, all started together (`start_build`), then one link. The
+source, all started together (`start_build`), then one link, which
+puts the C++ runtime into the library with its symbols hidden
+(`LDFLAGS`). The
 library of the JAX package (euler_tpu/core/libeuler_core.so) is never
 loaded and its Makefile never run: the two packages hold two copies of
 the engine, each with its own global RNG. A failed build raises with
 the compiler's output; nothing falls back to another library.
 
-The restype and argtypes of every symbol the port calls are declared
-here (`SIGNATURES`), the same as the reference's `_declare` gives them.
+The restype and argtypes of every symbol of the C API are declared
+here (`SIGNATURES`), the same table as the reference's `_declare`.
 `check` raises the port's EngineError (estimator/retry.py), so engine
 failures meet the transport-marker retry rule.
 """
@@ -43,6 +45,13 @@ ENGINE_BUILD_DIR = _ROOT / "build" / "euler_tpu_torch" / "engine"
 # Makefile: CXXFLAGS -O2 -fno-omit-frame-pointer, $(TARGET) -lpthread
 # -ldl -lz; zlib backs rpc.cc's frame compression)
 CXXFLAGS = ("-std=c++17", "-fPIC", "-O2", "-fno-omit-frame-pointer")
+# The C++ runtime goes into the library, its symbols hidden
+# (--exclude-libs): a toolchain that ships only libstdc++.a links it
+# statically anyway, and its exported copy then mixed with the process's
+# shared libstdc++.so.6 (which torch loads first): the registry's and
+# shard servers' start segfaulted. Hidden, the library binds its own
+# runtime whichever libstdc++ the process holds.
+LDFLAGS = ("-static-libstdc++", "-static-libgcc", "-Wl,--exclude-libs,ALL")
 LDLIBS = ("-lpthread", "-ldl", "-lz")
 # the native self-test has its own main() and is not part of the library
 _NOT_LIBRARY = ("engine_test.cc",)
@@ -60,7 +69,7 @@ def sources() -> List[Path]:
 def library_path() -> Path:
     """Where this tree's library lives: keyed on a hash of every source
     and header and the flags."""
-    h = hashlib.sha256(" ".join(CXXFLAGS + LDLIBS).encode())
+    h = hashlib.sha256(" ".join(CXXFLAGS + LDFLAGS + LDLIBS).encode())
     for p in sorted(sources() + list(ENGINE_SRC_DIR.glob("*.h"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -108,8 +117,8 @@ class _Build:
                                    + "\n".join(failed))
             lib_tmp = self.tmp / "libeuler_core.so"
             link = subprocess.run(
-                [self.cxx, *CXXFLAGS, "-shared", "-o", str(lib_tmp),
-                 *(str(o) for _, o, _ in self.jobs), *LDLIBS],
+                [self.cxx, *CXXFLAGS, "-shared", *LDFLAGS, "-o",
+                 str(lib_tmp), *(str(o) for _, o, _ in self.jobs), *LDLIBS],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if link.returncode != 0:
                 raise RuntimeError(
@@ -162,7 +171,7 @@ _delta_sig = (_i32, [_i64, _i64, c_u64p, c_i32p, c_f32p, _i64, c_u64p,
                      c_u64p, c_i32p, c_f32p, c_i64p])
 
 # symbol → (restype, argtypes), as euler_tpu/core/lib.py:_declare gives
-# them, for every symbol graph/api.py calls
+# them: every symbol of the engine's C API, name for name
 SIGNATURES: Dict[str, tuple] = {
     "etg_last_error": (_str, []),
     "etg_seed": (None, [_u64]),
@@ -251,6 +260,72 @@ SIGNATURES: Dict[str, tuple] = {
     "etg_apply_delta": _delta_sig,
     "etg_delta_since": (_i32, [_i64, _i64, c_voidp, c_i64p, c_i32p]),
     "etg_hash64": (_u64, [_str, _u64]),
+    "etg_set_log_level": (None, [_i32]),
+    # the query layer (gql.py): proxies, their executions and stats
+    "etq_new_local": (_i64, [_i64, _str, _u64]),
+    "etq_new_remote": (_i64, [_str, _u64, _str]),
+    "etq_free": (_i32, [_i64]),
+    "etq_stats": (_i32, [_i64, c_u64p]),
+    "etq_index_dump": (_i32, [_i64, _str]),
+    "etq_epoch": (_i64, [_i64]),
+    "etq_apply_delta": _delta_sig,
+    "etq_delta_since": (_i32, [_i64, _i64, c_voidp, c_i64p, c_i32p]),
+    "etq_exec_new": (_i64, [_i64]),
+    "etq_exec_add_input": (_i32, [_i64, _str, _i32, _i32, c_i64p, c_voidp]),
+    "etq_exec_run": (_i32, [_i64, _str]),
+    "etq_exec_output_count": (_i64, [_i64]),
+    "etq_exec_output_name": (_str, [_i64, _i64]),
+    "etq_exec_output_info": (_i32, [_i64, _i64, c_i32p, c_i32p, c_i64p]),
+    "etq_exec_output_dims": (_i32, [_i64, _i64, c_i64p]),
+    "etq_exec_output_data": (c_voidp, [_i64, _i64]),
+    "etq_exec_free": (_i32, [_i64]),
+    "etq_compile_debug": (_i64, [_str, _i32, _i32, _str, _str, _i64]),
+    "etq_compile_debug2": (_i64, [_str, _i32, _i32, _str, _i32, _str,
+                                  _i64]),
+    # value UDFs and their result cache
+    "etg_register_udf": (None, [_str, c_voidp]),
+    "et_udf_emit": (None, [c_voidp, c_u64p, _i64, c_f32p, _i64]),
+    "etg_udf_cache_stats": (None, [ctypes.POINTER(_u64)] * 4),
+    "etg_udf_cache_clear": (None, []),
+    "etg_udf_cache_set_capacity": (None, [_u64]),
+    "etg_udf_cache_epoch_evictions": (_u64, []),
+    # the RPC transport's process-global config and client-edge counters
+    # (37 u64s), the per-thread deadline and trace handoffs, the
+    # server-side timing histograms and span ring
+    "etg_rpc_config": (None, [_i32, _i32, _i64, _i32, _i64, _i32, _i32,
+                              _i32, _i32, _i32, _i32, _i64, _i32]),
+    "etg_rpc_stats": (None, [c_u64p]),
+    "etg_set_call_deadline_ms": (None, [ctypes.c_double]),
+    "etg_set_call_trace": (None, [_u64, _u64]),
+    "etg_server_trace_hist": (_i32, [_i32, _i32, c_u64p]),
+    "etg_server_trace_dump": (_i32, [c_voidp]),
+    # ownership maps (elastic fleet)
+    "etg_push_ownership": (_i32, [_str, _i32, _str, c_i64p]),
+    "etq_set_ownership": (_i32, [_i64, _str]),
+    "etq_ownership_epoch": (_i64, [_i64]),
+    "etq_shard_num": (_i32, [_i64]),
+    "etq_shard_stats": (_i32, [_i64, c_u64p, c_u64p, _i32]),
+    "ets_set_ownership": (_i32, [_i64, _str]),
+    "ets_map_epoch": (_i64, [_i64]),
+    # shard servers (ets_start2 adds the WAL, ets_start3 the storage
+    # tier), the WAL and store counters, the registry server
+    "ets_start": (_i64, [_str, _i32, _i32, _i32, _str, _str, _str]),
+    "ets_start2": (_i64, [_str, _i32, _i32, _i32, _str, _str, _str, _str,
+                          _i32, _i64, _i32]),
+    "ets_start3": (_i64, [_str, _i32, _i32, _i32, _str, _str, _str, _str,
+                          _i32, _i64, _i32, _i32, _i64]),
+    "ets_epoch": (_i64, [_i64]),
+    "ets_port": (_i32, [_i64]),
+    "ets_stop": (_i32, [_i64]),
+    "ets_plan_debug": (_i64, [_i64, _str, _i64]),
+    "etg_wal_stats": (None, [c_u64p]),
+    "etg_store_write": (_i32, [_i64, _str]),
+    "etg_store_open": (_i64, [_str, _i64]),
+    "etg_store_stats": (None, [c_u64p]),
+    "etr_start": (_i64, [_i32]),
+    "etr_port": (_i32, [_i64]),
+    "etr_stop": (_i32, [_i64]),
+    "etr_scan": (_i64, [_str, _str, _i64]),
 }
 
 

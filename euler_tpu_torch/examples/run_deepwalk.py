@@ -7,7 +7,7 @@
 
 The graph is get_dataset(dataset).engine. Without --device_sampler the
 input is host-fed: roots from the engine's sample_node, node2vec walks
-from its random_walk (walk_ops), skip-gram pairs from gen_pair and
+from its random_walk, skip-gram pairs from gen_pair and
 num_negs negatives per pair from sample_node feed DeepWalk. With
 --device_sampler, DeviceSampledSkipGram draws walks, pairs and
 negatives on the device from tables built from the engine, on roots the
@@ -34,7 +34,7 @@ from euler_tpu_torch.examples.common import (
 from euler_tpu_torch.models.embedding_models import (
     DeepWalk, DeviceSampledSkipGram,
 )
-from euler_tpu_torch.ops.walk_ops import gen_pair, random_walk
+from euler_tpu_torch.ops.walk_ops import gen_pair
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
 from euler_tpu_torch.parallel.device_walk import DeviceNodeSampler
 from euler_tpu_torch.platform import resolve_device
@@ -106,8 +106,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         def input_fn():
             while True:
                 roots = g.sample_node(args.batch_size, -1)
-                walks = random_walk(g, roots, args.walk_len, p=args.p,
-                                    q=args.q)
+                walks = g.random_walk(roots, args.walk_len, p=args.p,
+                                      q=args.q)
                 flat = gen_pair(walks, args.left_win,
                                 args.right_win).reshape(-1, 2)
                 negs = g.sample_node(

@@ -104,7 +104,9 @@ def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     fill value (NaN for a float table, the type's minimum for an
     integer one). Never raises on an index; an empty table raises
     IndexError, as jnp.take does. Cost: a few passes over the indices
-    and one masked fill over the gathered rows."""
+    and one masked fill over the gathered rows (on the CPU only when an
+    index is out of range; on the card always, since asking would wait
+    for the device)."""
     n = table.shape[0]
     if n == 0 and rows.numel():
         raise IndexError("take_rows from an empty table")
@@ -113,6 +115,8 @@ def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     r = rows.long()
     bad = (r >= n) | (r < -n)
     out = table[r.masked_fill(bad, 0)]  # torch indexing wraps [-N, -1]
+    if out.device.type == "cpu" and not bad.any():
+        return out
     return out.masked_fill_(bad.view(*bad.shape, *[1] * (table.dim() - 1)),
                             fill)
 

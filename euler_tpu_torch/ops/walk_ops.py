@@ -1,21 +1,23 @@
-"""Random walks and skip-gram pairs over the graph engine (counterpart
-of euler_tpu/ops/walk_ops.py). The reference's random_walk reads the
-process-wide graph of its op layer; this one takes the graph (a
-GraphEngine) as its first argument. Nothing here is torch."""
+"""Random walks and skip-gram pairs over the op layer's graph (copy of
+euler_tpu/ops/walk_ops.py): random_walk reads the process-global graph
+that ops.base.initialize_graph set, as the reference's does. Nothing
+here is torch."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from euler_tpu_torch.ops.base import get_graph
 
-def random_walk(graph, nodes, walk_len: int, p: float = 1.0,
-                q: float = 1.0, edge_types=None,
-                default_node: int = 0) -> np.ndarray:
+
+def random_walk(nodes, walk_len: int, p: float = 1.0, q: float = 1.0,
+                edge_types=None, default_node: int = 0) -> np.ndarray:
     """[n, walk_len+1] uint64 walks, column 0 = the input nodes (the
     engine's node2vec walk with return parameter p, in-out parameter
     q)."""
-    return graph.random_walk(nodes, walk_len, p=p, q=q,
-                             edge_types=edge_types, default_id=default_node)
+    return get_graph().random_walk(nodes, walk_len, p=p, q=q,
+                                   edge_types=edge_types,
+                                   default_id=default_node)
 
 
 def gen_pair(paths: np.ndarray, left_win_size: int,

@@ -20,10 +20,8 @@ The registry half speaks the RegistryServer protocol (kRegPut /
 kRegList / kRegRemove) and the shared-directory registry directly, so
 serving replicas register and clients discover through the SAME
 registry the graph shards use. A ``tcp:`` registry is the native
-C++ RegistryService (euler_tpu/gql.py), which the port does not start
-yet (ROADMAP.md Queue A, 'Engine binding'); the client calls below
-speak to one all the same, and ``dir:`` registries need nothing else.
-Serving entries are named
+C++ RegistryService (gql.start_registry); ``dir:`` registries need
+nothing else. Serving entries are named
 ``serve_<service>_<shard>_<replica>__<host>_<port>`` — index shards
 and replicas-per-shard are discoverable exactly like graph shards.
 The pre-fleet two-field form (``serve_<service>_<replica>__...``)

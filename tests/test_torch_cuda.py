@@ -1322,3 +1322,76 @@ def test_cuda_host_fed_line_graph_windows_match_eager_steps():
     assert rg["losses"] == re_["losses"]
     assert np.isfinite(rg["losses"]).all()
     _assert_same_state(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_host_fed_steps_from_a_two_shard_cluster(tmp_path):
+    """The cora stand-in's engine dumped as 2 partitions and served by 2
+    shards found through a tcp: registry (gql.start_registry); a
+    RemoteGraphEngine under a CachedGraphEngine feeds 3 host-fed
+    SupervisedGraphSage steps on the card (rows into the int8 table
+    through the embedded engine's lookup): finite losses, a falling
+    loss on one held batch drawn from the cluster (the steps' own
+    batches are the shards' draws, which no seed repeats, so their
+    losses need not fall step to step), no skipped step, no degraded
+    batch and no gather_mean launch (the path takes no kernel of the
+    port); the shards and the registry are stopped and their ports
+    released."""
+    _need_card()
+    import socket
+
+    from euler_tpu_torch import gql
+    from euler_tpu_torch.dataflow import FanoutDataFlow
+    from euler_tpu_torch.dataset import get_dataset
+    from euler_tpu_torch.estimator.base_estimator import _to_device
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.graph import CachedGraphEngine, RemoteGraphEngine
+    from euler_tpu_torch.models.graphsage import SupervisedGraphSage
+    from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+
+    g = get_dataset("cora").engine
+    d = str(tmp_path / "g")
+    g.dump(d, num_partitions=2)
+    reg = gql.start_registry()
+    spec = f"tcp:127.0.0.1:{reg.port}"
+    shards = [gql.start_service(d, shard_idx=i, shard_num=2,
+                                registry_dir=spec) for i in range(2)]
+    remote = RemoteGraphEngine(spec, seed=3, pool_size=2)
+    try:
+        cached = CachedGraphEngine(remote)
+        store = DeviceFeatureStore(g, ["feature"], label_fid="label",
+                                   label_dim=7, quantize="int8",
+                                   device="cuda")
+        model = SupervisedGraphSage(
+            7, 1433, multilabel=False, dim=32, fanouts=(10, 5),
+            generator=torch.Generator().manual_seed(0))
+        est = NodeEstimator(
+            model, {"batch_size": 256, "learning_rate": 0.01,
+                    "checkpoint_steps": 0, "log_steps": 1 << 30},
+            cached, FanoutDataFlow(cached, [10, 5], with_features=False),
+            label_dim=7, feature_store=store, device="cuda")
+        held = _to_device(next(est.train_input_fn()), est.device)
+
+        def held_loss():
+            est.model.eval()
+            with torch.no_grad():
+                return float(est.model({**held, **est.static_batch}).loss)
+
+        gather_mean.launches = 0
+        before = held_loss()
+        res = est.train(est.train_input_fn, max_steps=3)
+        losses = res["losses"]
+        assert len(losses) == 3 and np.isfinite(losses).all()
+        assert held_loss() < before
+        assert int(est.skipped_steps) == 0
+        assert gather_mean.launches == 0
+        assert remote.health()["degraded"] == 0
+    finally:
+        remote.close()
+        ports = [s.port for s in shards]
+        for s in shards:
+            s.stop()
+        reg.stop()
+    for port in ports:
+        with pytest.raises(OSError):
+            socket.create_connection(("127.0.0.1", port), timeout=2).close()

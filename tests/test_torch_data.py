@@ -295,8 +295,21 @@ def test_generate_data_command_line(tmp_path, capsys):
 
 # -- the runners on ml_1m ------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def one_ml_1m_engine():
+    """The four runs below share one ml_1m engine (2M edges, ~1.7 s a
+    build): load_graph builds each dataset once inside
+    common.shared_graphs and seeds the engine per run, as it would a
+    fresh one. The runner tests close this module, so the sharing ends
+    with them."""
+    from euler_tpu_torch.examples import common
+
+    with common.shared_graphs():
+        yield
+
+
 @pytest.mark.parametrize("runner", ["run_deepwalk", "run_line"])
-def test_walk_runners_train_on_ml_1m(runner):
+def test_walk_runners_train_on_ml_1m(runner, one_ml_1m_engine):
     """run_deepwalk and run_line --dataset ml_1m, host-fed on the CPU, a
     few steps at K = 1 and K = 4 (eager windows here): a finite eval
     MRR, the same at both K."""

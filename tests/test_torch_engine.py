@@ -35,6 +35,7 @@ from euler_tpu_torch.dataset.synthetic import synthetic_citation
 from euler_tpu_torch.estimator.retry import EngineError
 from euler_tpu_torch.graph import GraphBuilder, GraphEngine
 from euler_tpu_torch.graph import seed as p_seed
+from euler_tpu_torch.ops.base import initialize_graph
 from euler_tpu_torch.ops.walk_ops import gen_pair, random_walk
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
 from euler_tpu_torch.parallel.device_walk import DeviceNodeSampler
@@ -104,6 +105,29 @@ def test_the_port_loads_its_own_build_of_the_engine():
         GraphEngine.load(str(ROOT / "build" / "no_such_graph"))
 
 
+@pytest.mark.parametrize("symbol", [
+    "_ZNSt6thread15_M_start_threadESt10unique_ptrINS_6_StateESt14"
+    "default_deleteIS1_EEPFvvE",               # std::thread::_M_start_thread
+    "_ZNSt8ios_base4InitC1Ev"])                # std::ios_base::Init::Init
+def test_the_library_hides_its_cpp_runtime(symbol):
+    """The port's library carries the C++ runtime with its symbols
+    hidden and needs no libstdc++.so: a toolchain with only libstdc++.a
+    (the card's host) linked an exported static copy, which mixed with
+    the shared libstdc++.so.6 that torch loads first, and starting a
+    registry segfaulted there. dlsym through the library's handle finds
+    no runtime symbol (it would through a libstdc++.so dependency), and
+    a registry starts and stops in this torch process."""
+    from euler_tpu_torch import gql
+
+    with pytest.raises(AttributeError):
+        getattr(P_lib.load(), symbol)
+    reg = gql.start_registry()
+    try:
+        assert reg.port > 0
+    finally:
+        reg.stop()
+
+
 def test_seeding_one_library_leaves_the_others_stream(graphs):
     """Each library keeps its own RNG: seeding the port's between two
     equal seedings of the reference's does not move the reference's
@@ -122,8 +146,9 @@ def test_seeding_one_library_leaves_the_others_stream(graphs):
 
 
 def test_ctypes_signatures_match_the_reference():
-    """Every symbol the port declares has the restype and argtypes the
-    reference's _declare gives it (recorded on a stub library)."""
+    """The port declares every symbol the reference's _declare does, name
+    for name, with the same restype and argtypes (recorded on a stub
+    library)."""
 
     class _Fn:
         pass
@@ -137,7 +162,7 @@ def test_ctypes_signatures_match_the_reference():
 
     stub = _Stub()
     J_lib._declare(stub)
-    assert set(P_lib.SIGNATURES) <= set(stub.fns)
+    assert set(P_lib.SIGNATURES) == set(stub.fns)
     for name, (restype, argtypes) in P_lib.SIGNATURES.items():
         ref = stub.fns[name]
         assert restype == ref.restype, name
@@ -193,7 +218,8 @@ def test_seeded_draws_are_byte_identical(graphs, seed):
     for a, b in zip(*draws):
         _same(a, b)
     p_seed(seed)
-    walks = random_walk(pg, pg.sample_node(32), 4, p=0.5, q=2.0)
+    initialize_graph(pg)
+    walks = random_walk(pg.sample_node(32), 4, p=0.5, q=2.0)
     j_seed(seed)
     _same(walks, jg.random_walk(jg.sample_node(32), 4, p=0.5, q=2.0))
     for win in ((1, 1), (2, 0), (0, 3)):

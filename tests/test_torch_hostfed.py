@@ -50,6 +50,7 @@ from euler_tpu_torch.models.embedding_models import LINE, DeepWalk, Node2Vec
 from euler_tpu_torch.models.graphsage import (
     DeviceSampledGraphSage, SupervisedGraphSage, UnsupervisedGraphSage,
 )
+from euler_tpu_torch.ops.base import initialize_graph
 from euler_tpu_torch.ops.walk_ops import gen_pair, random_walk
 from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
 from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
@@ -332,7 +333,8 @@ def test_deepwalk_and_line_with_max_id_match_the_reference(engines, model):
         for k in a:
             _same(a[k], b[k])
     p_seed(2)
-    w = random_walk(pg, pg.sample_node(B, -1), 3, p=0.5, q=2.0)
+    initialize_graph(pg)
+    w = random_walk(pg.sample_node(B, -1), 3, p=0.5, q=2.0)
     _same(gen_pair(w, 1, 1), j_gen_pair(w, 1, 1))
     max_id = 99
     if model == "deepwalk":

@@ -406,12 +406,20 @@ def _reference_batches(script, argv, count, monkeypatch):
     return seen
 
 
+@pytest.fixture(scope="module")
+def fb15k237():
+    """The port's fb15k237 stand-in, built once for both runners below
+    (each seeds the engine before drawing)."""
+    return PK.load_kg("fb15k237")
+
+
 @pytest.mark.parametrize("runner", ["transx", "rgcn"])
-def test_kg_runner_batches_match_the_reference(runner, monkeypatch):
+def test_kg_runner_batches_match_the_reference(runner, monkeypatch,
+                                                fb15k237):
     """Two batches of the TransX and R-GCN runners (their defaults on
     the fb15k237 stand-in) from both packages, engines seeded alike and
     numpy's default_rng(0): every array equal."""
-    kg = PK.load_kg("fb15k237")
+    kg = fb15k237
     p_seed(5)
     rng = np.random.default_rng(0)
     if runner == "transx":

@@ -369,12 +369,24 @@ def test_skipgram_refuses_fused_and_alias_tables():
 
 # -- the runners --------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def one_cora_engine():
+    """The runs below share one cora engine: load_graph builds each
+    dataset once inside common.shared_graphs and seeds the engine per
+    run, as it would a fresh one."""
+    from euler_tpu_torch.examples import common
+
+    with common.shared_graphs():
+        yield
+
+
 @pytest.mark.parametrize("runner,extra", [
     ("run_deepwalk", ["--steps_per_loop", "4"]),
     ("run_deepwalk", ["--p", "0.5", "--q", "2"]),
     ("run_line", ["--order", "1"]),
     ("run_line", [])])
-def test_walk_runners_run_a_few_steps_on_the_cpu(runner, extra):
+def test_walk_runners_run_a_few_steps_on_the_cpu(runner, extra,
+                                                 one_cora_engine):
     """Each runner's --device_sampler path and its host-fed path (the
     engine's walks or edges) for 12 steps and 2 evaluation batches on
     the cora stand-in: finite, nothing skipped, the MRR in (0, 1]."""
