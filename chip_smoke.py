@@ -209,6 +209,30 @@ Phases, in order; any failure raises and the exit code is not 0:
               counters and health; a finite falling loss, no skipped
               step or degraded batch, no gather_mean launch; the
               engines, shards and registry stopped and released
+ 9m. mesh     multi-device training as a world of one: an NCCL process
+              group of one rank on the card, make_mesh() ({data: 1,
+              model: 1}); the flagship through NodeEstimator(mesh=...)
+              at K = 32, 2 windows (the first eager, then a captured
+              graph with the data-axis gradient all-reduce in it),
+              against the same estimator without a mesh on the same
+              batches: losses, parameters, buffers and Adam's state
+              bit for bit; the collectives a step and gather_mean's
+              launches a window; one replay event-timed with and
+              without the mesh (NCCL's cost a step in a world of one);
+              then ShardedSupervisedGraphSage (id_dim 16, an id table of
+              2,450,000 rows, dim 128) at the flagship's fanouts and
+              batch, its [15, 10] rows drawn by the flagship's sampler
+              and their features gathered from the int8 table on the
+              card, 8 steps at K = 4 (a finite, falling loss), and the
+              same model at dim 16 on 64 roots under Adam, 9 steps at
+              K = 4: float32 with the mesh against the card without
+              one bit for bit, step 1's float32 gradients of the card
+              and the CPU against float64 leaf by leaf, and float64
+              with the mesh on the card against the CPU without one
+              (losses and parameters within 1e-9); memory_plan's
+              per-card bytes for the flagship's
+              tables at 1 and 4 cards (arithmetic, not measured); the
+              process group destroyed
  10. quality  (in six worker processes started after phase 2 and joined
               after phase 9k (a), (c), before any timed phase: their
               runs are bound by the host and overlap the graph set-up;
@@ -311,6 +335,7 @@ import numpy as np
 import torch
 
 from euler_tpu_torch import obs
+from euler_tpu_torch.convert import gather_state_dict
 from euler_tpu_torch.core import lib as engine_lib
 from euler_tpu_torch.dataflow import FanoutDataFlow
 from euler_tpu_torch.dataset import engine_from_arrays, get_dataset
@@ -337,7 +362,7 @@ from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
 from euler_tpu_torch.models.graphsage import (
     DeviceSampledGraphSage, DeviceSampledLayerwiseGCN,
     DeviceSampledScalableSage, DeviceSampledUnsupervisedSage,
-    SupervisedGraphSage, refresh_act_cache,
+    ShardedSupervisedGraphSage, SupervisedGraphSage, refresh_act_cache,
 )
 from euler_tpu_torch.ops import gather_mean as gather_mean_module
 from euler_tpu_torch.ops.gather_mean import (
@@ -351,7 +376,17 @@ from euler_tpu_torch.parallel.device_sampler import (
 from euler_tpu_torch.parallel.device_walk import (
     DeviceNodeSampler, gen_pair_offsets,
 )
-from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+from euler_tpu_torch.parallel.feature_store import (
+    DeviceFeatureStore, dequantize_rows,
+)
+from euler_tpu_torch.parallel import collectives
+from euler_tpu_torch.parallel.memory_plan import (
+    plan_partitioned_table, plan_tables,
+)
+from euler_tpu_torch.parallel.mesh import make_mesh
+from euler_tpu_torch.parallel.multihost import (
+    MultihostConfig, finalize_multihost, free_port, initialize_multihost,
+)
 from euler_tpu_torch.mp_utils.base import ModelOutput, SuperviseModel
 from euler_tpu_torch.mp_utils.group_gnn import GroupGNNNet
 from euler_tpu_torch.estimator.retry import RetryPolicy
@@ -1326,7 +1361,7 @@ def with_layout(est, layout=None):
 
 
 def flagship_estimator(store, table, graph, dev, layout=None,
-                       uniform=None, **cfg):
+                       uniform=None, mesh=None, **cfg):
     """The flagship model (random weights from seed 0) in a NodeEstimator
     over the path's tables (or a layout's, with_layout), with bench.py's
     training parameters. uniform: the model's uniform_sampling (default
@@ -1340,7 +1375,7 @@ def flagship_estimator(store, table, graph, dev, layout=None,
                     optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
                     train_node_type=-1, seed=0, **cfg),
         graph, None, feature_store=store, device_sampler=table,
-        device=dev), layout)
+        device=dev, mesh=mesh), layout)
 
 
 def phase_loop(store, table, graph, dev, k: int = LOOP_K) -> tuple:
@@ -1560,6 +1595,272 @@ def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
             raise AssertionError(f"{what} differs from {label}: {d2}")
         out[f"vs_{label}"] = {"max_abs_diff": w2, "diffs": d2}
     return out
+
+
+# phase 9m: the mesh windows (K = LOOP_K), the sharded model's steps
+# (K = MESH_SHARDED_K) and the small card-vs-CPU check's roots and width
+MESH_WINDOWS, MESH_SHARDED_K, MESH_SHARDED_STEPS = 2, 4, 8
+MESH_ID_DIM, MESH_SMALL_ROOTS, MESH_SMALL_DIM, MESH_SMALL_LR = 16, 64, 16, 0.05
+
+
+def _sharded_sage(dim: int, device) -> torch.nn.Module:
+    return ShardedSupervisedGraphSage(
+        NUM_CLASSES, FEAT_DIM, multilabel=False, dim=dim, fanouts=FANOUTS,
+        max_id=FULL_NODES - 1, id_dim=MESH_ID_DIM,
+        generator=torch.Generator().manual_seed(0)).to(device)
+
+
+def _sharded_batches(sampler, static: dict, feed, n: int,
+                     roots: int = BATCH) -> list:
+    """n host-fed batches for ShardedSupervisedGraphSage on the card:
+    the flagship's sampler draws each batch's [15, 10] rows (the row is
+    the node id), their features are the int8 table's rows dequantized,
+    the labels the label table's."""
+    out = []
+    with torch.no_grad():
+        for _ in range(n):
+            b = _on_card(next(feed), sampler)
+            b = {**b, "rows": [b["rows"][0][:roots]], **static}
+            rows = sampler.model.sample_rows(b)
+            out.append({
+                "ids": rows,
+                "layers": [dequantize_rows(static["feature_table"][r.long()],
+                                           static["feature_scale"])
+                           for r in rows],
+                "labels": static["label_table"][rows[0].long()]})
+    return out
+
+
+def _replay_ms(est, batches, k: int, n: int = 3) -> float:
+    """Median of n event-timed replays of est's K-step graph."""
+    loop, times = est._graphed, []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        loop.run(est, batches[:k])
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def phase_mesh(store, table, graph, dev) -> dict:
+    """Phase 9m (see the module docstring). Fails unless the meshed
+    flagship equals the unmeshed one bit for bit, its graph holds one
+    collective a step and K gather_mean launches, the sharded model's
+    loss is finite and falls, and the small model on the card stays
+    within 1e-4 of the CPU's losses."""
+    t0 = time.monotonic()
+    initialize_multihost(MultihostConfig(f"127.0.0.1:{free_port()}", 1, 0),
+                         device=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        # the communicator starts on an eager collective, before any
+        # capture
+        collectives.all_reduce(torch.ones(1, device=dev), mesh.group("data"))
+        torch.cuda.synchronize()
+        k = LOOP_K
+        steps = MESH_WINDOWS * k
+        feed = flagship_estimator(store, table, graph, dev).train_input_fn()
+        batches = [next(feed) for _ in range(steps)]
+        runs, rec = [], {}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            est = flagship_estimator(store, table, graph, dev, mesh=m,
+                                     steps_per_loop=k)
+            gather_mean.launches = 0
+            collectives.reset_counts()
+            res = est.train(iter(batches), max_steps=steps)
+            loop = est._graphed
+            rec[tag] = {"captures": loop.captures, "replays": loop.replays,
+                        "collectives_per_replay": loop.collectives_per_replay,
+                        "collectives_host": collectives.total_count(),
+                        "gather_mean_launches_per_replay":
+                            loop.launches_per_replay,
+                        "gather_mean_host_launches": gather_mean.launches}
+            runs.append((est, res["losses"]))
+        diffs = _run_diffs(*runs)
+        worst = max(diffs.values())
+        window = [_on_card(b, runs[0][0]) for b in batches[:k]]
+        for tag, (est, _) in zip(("plain", "mesh"), runs):
+            rec[tag]["replay_ms"] = _replay_ms(est, window, k)
+        per_step = rec["mesh"]["collectives_per_replay"] / k
+        nccl_ms = (rec["mesh"]["replay_ms"] - rec["plain"]["replay_ms"]) / k
+        log(f"mesh: NCCL world of one, mesh {mesh.shape}; the flagship at "
+            f"K = {k}, {steps} steps with and without the mesh: largest "
+            f"difference {worst:.3g} over losses and "
+            f"{len(diffs) - 1} state tensors (bit for bit: {worst == 0.0});"
+            f" {per_step:g} collectives a step in the captured graph "
+            f"({rec['mesh']['collectives_host']} issued on the host), "
+            f"gather_mean {rec['mesh']['gather_mean_launches_per_replay']} "
+            f"launches a replayed window; replay "
+            f"{rec['mesh']['replay_ms']:.3f} ms with the mesh, "
+            f"{rec['plain']['replay_ms']:.3f} ms without "
+            f"({nccl_ms * 1e3:.1f} us a step)")
+        if worst != 0.0 or per_step != 1 \
+                or rec["mesh"]["gather_mean_launches_per_replay"] != k \
+                or rec["mesh"]["replays"] != MESH_WINDOWS - 1:
+            raise AssertionError(f"mesh: {rec}, diffs {diffs}")
+        del runs, window
+        sampler = flagship_estimator(store, table, graph, dev)
+        static = dict(sampler.static_batch)
+        out = {"flagship": rec, "max_abs_diff": worst,
+               "collectives_per_step": per_step,
+               "nccl_ms_per_step": nccl_ms}
+        out["sharded"] = _mesh_sharded(sampler, static, feed, mesh, dev)
+        out["small"] = _mesh_small_vs_cpu(sampler, static, feed, mesh, dev)
+    finally:
+        finalize_multihost()
+    out["memory_plan"] = {
+        f"{n}_cards": plan_tables(FULL_NODES, cap=CAP, feat_dim=FEAT_DIM,
+                                  label_dim=NUM_CLASSES, mp=n)
+        for n in (1, 4)}
+    out["memory_plan"]["partitioned_4_cards"] = plan_partitioned_table(
+        FULL_NODES, feat_dim=FEAT_DIM, k_shards=4, hub_cache_frac=0.01,
+        label_dim=NUM_CLASSES, chip="h100")
+    log("mesh: memory_plan (arithmetic, not measured): the flagship's "
+        "tables " + ", ".join(
+            f"{v['per_chip_total_bytes']} bytes a card at {n}"
+            for n, v in ((1, out["memory_plan"]["1_cards"]),
+                         (4, out["memory_plan"]["4_cards"])))
+        + "; the feature table partitioned over 4 with a 1% hub cache "
+        + f"{out['memory_plan']['partitioned_4_cards']['per_chip_total_bytes']}"
+        " bytes a card")
+    out["seconds"] = time.monotonic() - t0
+    log(f"mesh: phase 9m took {out['seconds']:.1f} s")
+    return out
+
+
+def _mesh_sharded(sampler, static, feed, mesh, dev) -> dict:
+    """ShardedSupervisedGraphSage at full width through the meshed
+    estimator: MESH_SHARDED_STEPS steps at K = MESH_SHARDED_K on one
+    batch (its loss falls)."""
+    k, n = MESH_SHARDED_K, MESH_SHARDED_STEPS
+    est = NodeEstimator(
+        _sharded_sage(DIM, dev),
+        dict(batch_size=BATCH, learning_rate=TRAIN_LR, optimizer="adam",
+             log_steps=1 << 30, checkpoint_steps=0, train_node_type=-1,
+             seed=0, steps_per_loop=k),
+        None, None, mesh=mesh, device=dev)
+    batches = _sharded_batches(sampler, static, feed, 1) * n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    losses = est.train(iter(batches), max_steps=n)["losses"]
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    replay_ms = _replay_ms(est, batches, k)
+    r = {"steps": n, "steps_per_loop": k, "losses": losses,
+         "replays": est._graphed.replays, "seconds": secs,
+         "replay_ms": replay_ms,
+         "collectives_per_replay": est._graphed.collectives_per_replay,
+         "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    log(f"mesh: ShardedSupervisedGraphSage (id_dim {MESH_ID_DIM}, dim "
+        f"{DIM}, fanouts {list(FANOUTS)}, {BATCH} roots) {n} steps at "
+        f"K = {k}: losses {losses[0]:.4f} -> {losses[-1]:.4f}, replay "
+        f"{replay_ms:.3f} ms ({replay_ms / k:.3f} ms a step), "
+        f"{r['collectives_per_replay']} collectives a replay, peak "
+        f"{r['peak_device_bytes'] / 2**30:.2f} GiB")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"mesh: sharded model losses {losses}")
+    return r
+
+
+def _step1_grads(model: torch.nn.Module, batch: dict) -> dict:
+    """Each leaf's gradient of one training forward's loss, float64 on
+    the CPU."""
+    model.train()
+    model(batch).loss.backward()
+    return {n: p.grad.detach().cpu().double()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _as_f64(batch: dict) -> dict:
+    return {k: [t.double() for t in v] if k == "layers" else
+            v.double() if k == "labels" else v for k, v in batch.items()}
+
+
+def _mesh_small_vs_cpu(sampler, static, feed, mesh, dev) -> dict:
+    """The sharded model at dim MESH_SMALL_DIM on MESH_SMALL_ROOTS roots
+    under Adam, 1 + MESH_WINDOWS·K steps at K = MESH_SHARDED_K (an eager
+    window, replays, a tail step):
+    (a) float32 on the card with the mesh against the card without one
+        at K = 1: losses, state and Adam's state bit for bit;
+    (b) step 1's float32 gradients on the card and on the CPU against
+        the CPU's float64 ones: leaf by leaf, the card's error within
+        4x the CPU's + 1e-6 of the leaf's largest gradient (a float32
+        Adam run of the two devices parts all the same: Adam moves a
+        weight by about lr on the sign of any gradient above its eps,
+        whichever way rounding set it);
+    (c) float64 on the card with the mesh against float64 on the CPU
+        without one: losses within 1e-9 relative and every parameter
+        within 1e-9 of its leaf's largest."""
+    k = MESH_SHARDED_K
+    n = 1 + MESH_WINDOWS * k
+    card = _sharded_batches(sampler, static, feed, n, MESH_SMALL_ROOTS)
+    cpu = [{key: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+            for key, v in b.items()} for b in card]
+    cfg = dict(batch_size=MESH_SMALL_ROOTS, learning_rate=MESH_SMALL_LR,
+               optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
+               train_node_type=-1, seed=0)
+
+    def train(model, batches, device, meshed):
+        est = NodeEstimator(model, {**cfg, "steps_per_loop":
+                                    k if meshed else 1}, None, None,
+                            mesh=mesh if meshed else None, device=device)
+        return est, est.train(iter(batches), max_steps=n)["losses"]
+
+    # (a)
+    runs = [train(_sharded_sage(MESH_SMALL_DIM, dev), card, dev, m)
+            for m in (True, False)]
+    diffs = _run_diffs(*runs)
+    a_worst = max(diffs.values())
+    replays = runs[0][0]._graphed.replays
+    # (b)
+    g64 = _step1_grads(_sharded_sage(MESH_SMALL_DIM, "cpu").double(),
+                       _as_f64(cpu[0]))
+    g_card = _step1_grads(_sharded_sage(MESH_SMALL_DIM, dev), card[0])
+    g_cpu = _step1_grads(_sharded_sage(MESH_SMALL_DIM, "cpu"), cpu[0])
+    grads = {}
+    for name, ref in g64.items():
+        scale = float(ref.abs().max()) or 1.0
+        grads[name] = {
+            "max_abs_grad": scale,
+            "card_err": float((g_card[name] - ref).abs().max()) / scale,
+            "cpu_err": float((g_cpu[name] - ref).abs().max()) / scale}
+    b_bad = [name for name, v in grads.items()
+             if v["card_err"] > 4 * v["cpu_err"] + 1e-6]
+    # (c)
+    e64, l64 = train(_sharded_sage(MESH_SMALL_DIM, dev).double(),
+                     [_as_f64(b) for b in card], dev, True)
+    c64, m64 = train(_sharded_sage(MESH_SMALL_DIM, "cpu").double(),
+                     [_as_f64(b) for b in cpu], "cpu", False)
+    rel = float(np.max(np.abs(np.subtract(l64, m64)) / np.abs(m64)))
+    whole = gather_state_dict(e64.model)
+    p_rel = max(float((whole[name] - p.detach()).abs().max())
+                / (float(p.detach().abs().max()) or 1.0)
+                for name, p in c64.model.named_parameters())
+    log(f"mesh: ShardedSupervisedGraphSage dim {MESH_SMALL_DIM} on "
+        f"{MESH_SMALL_ROOTS} roots, Adam, {n} steps at K = {k} "
+        f"({replays} replays): (a) float32 with the mesh vs without on "
+        f"the card: largest difference {a_worst:.3g} over losses and "
+        f"{len(diffs) - 1} state tensors (bit for bit: {a_worst == 0.0});"
+        f" (b) step 1's float32 gradients against float64, the largest "
+        f"error of a leaf: card {max(v['card_err'] for v in grads.values()):.3g}"
+        f", CPU {max(v['cpu_err'] for v in grads.values()):.3g} "
+        f"(leaves past 4x the CPU's + 1e-6: {b_bad or 'none'}); (c) "
+        f"float64, card with the mesh vs CPU: largest relative loss "
+        f"difference {rel:.3g}, parameters {p_rel:.3g} (tolerance 1e-9)")
+    if a_worst != 0.0 or replays < 1 or b_bad \
+            or not (rel <= 1e-9 and p_rel <= 1e-9):
+        raise AssertionError(f"mesh: small model: diffs {diffs}, "
+                             f"gradients {grads}, float64 card {l64} vs "
+                             f"CPU {m64}")
+    return {"f32_mesh_vs_plain_max_abs_diff": a_worst, "replays": replays,
+            "step1_grads": grads, "f64_card_losses": l64,
+            "f64_cpu_losses": m64, "f64_max_rel_diff": rel,
+            "f64_param_max_rel_diff": p_rel}
 
 
 def unsup_estimator(store, table, neg, dev, layout=None,
@@ -4305,6 +4606,9 @@ def main(argv=None) -> int:
         record["loop_extra"] = [phase_loop(store, table, graph, dev, k)[0]
                                 for k in args.extra_loop_k]
         mark(record, "loop graph vs eager", t_start)
+        # slice 14: multi-device training as an NCCL world of one
+        record["mesh"] = phase_mesh(store, table, graph, dev)
+        mark(record, "mesh", t_start)
         # the unsupervised family on the same graph: negatives over every
         # node's unit weight, as bench.py builds them (bench.py:411-419)
         neg = DeviceNodeSampler(graph, node_type=-1, device=dev)
@@ -4453,6 +4757,9 @@ def main(argv=None) -> int:
             "export_launches"],
         "streaming_graph_vs_eager_launches_per_replay": record["streaming"][
             "edge_only"]["graph_vs_eager"]["gather_mean_launches_per_replay"],
+        "mesh_loop_launches_per_replay": record["mesh"]["flagship"]["mesh"][
+            "gather_mean_launches_per_replay"],
+        "mesh_collectives_per_step": record["mesh"]["collectives_per_step"],
         "launched": record["slice"]["gather_mean_launches"] > 0,
         "checked_vs_plain": True,
         "max_abs_err": main_case["max_abs_err"],

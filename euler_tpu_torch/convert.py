@@ -40,6 +40,15 @@ AGNN's beta, GIN's eps, a conv's bias, PReLU's scalar negative_slope,
 DGI's disc [dim, dim], a stacked relation weight w_rel) keep their
 layout.
 
+Row-sharded states (a model after parallel.train.spmd_init or
+sharded_embedding.apply_param_shardings, or shard_act_cache's caches):
+`shard_state_dict` cuts a whole state_dict (from flax_to_state_dict of
+the reference's global params, or a one-process checkpoint) into this
+rank's rows by put_row_sharded's rule, and `gather_state_dict`
+all-gathers a rank's state back into whole tensors (every rank of the
+model group calls it), so a checkpoint moves between worlds of any
+size.
+
 The scalable models' `cache` collection (encoder/cache_{l}/h, float32
 or bfloat16 rows) is the port's buffers encoder.cache_{l}.h: it comes
 in with the params when the flax variables {"params", "cache"} are
@@ -50,6 +59,7 @@ reference's export_bundle does.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -159,3 +169,49 @@ def flax_param_paths(state_dict: Mapping[str, torch.Tensor]
     kernels [in, out])."""
     return {"".join(f"[{k!r}]" for k in path): leaf
             for path, leaf in _flatten(state_dict_to_flax(state_dict))}
+
+
+def _sharded_entries(model: torch.nn.Module) -> Dict[str, Any]:
+    """{state_dict key: RowShard} of the model's row-sharded tensors."""
+    from euler_tpu_torch.parallel.placement import row_shard
+
+    out = {}
+    for key, t in itertools.chain(model.named_parameters(),
+                                  model.named_buffers()):
+        info = row_shard(t)
+        if info is not None:
+            out[key] = info
+    return out
+
+
+def shard_state_dict(state_dict: Mapping[str, torch.Tensor],
+                     model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """This rank's state_dict for `model` (row-sharded already) from a
+    whole one: each row-sharded entry zero-padded to a multiple of its
+    axis and cut to this rank's rows; the rest as given."""
+    from euler_tpu_torch.parallel.placement import pad_rows
+
+    shards = _sharded_entries(model)
+    out = dict(state_dict)
+    for key, info in shards.items():
+        full = pad_rows(torch.as_tensor(state_dict[key]),
+                        info.global_rows // info.rows)
+        out[key] = full[info.lo:info.lo + info.rows].clone()
+    return out
+
+
+def gather_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The whole state_dict of a row-sharded model, on the CPU: each
+    row-sharded entry all-gathered over its axis, the padding cut off.
+    A collective: every rank of each model group calls it."""
+    from euler_tpu_torch.parallel import collectives
+
+    shards = _sharded_entries(model)
+    out = {}
+    for key, t in model.state_dict().items():
+        info = shards.get(key)
+        if info is not None:
+            t = collectives.all_gather(
+                t.detach(), info.mesh.group(info.axis))[:info.data_rows]
+        out[key] = t.detach().cpu()
+    return out

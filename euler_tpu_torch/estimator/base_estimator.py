@@ -45,9 +45,22 @@ wraps, as numpy's cast wraps it in the reference); `infer_ids` stay on
 the host, which alone reads them.
 
 Entry points run on CUDA unless the caller asks for the CPU
-(`device="cpu"`). Options the reference has and the port does not yet
-(the partitioned table tier) raise NotImplementedError naming their
-ROADMAP item.
+(`device="cpu"`).
+
+mesh (parallel/mesh.py, one process per device): each rank trains on
+its data slice of every batch (mesh.data_slice, before the copy to the
+device) and a step is parallel.train.spmd_update: the loss a mean over
+the global batch, the parameter gradients summed over 'data' (one
+collective), the nonfinite guard decided for every rank; evaluate()
+sums each batch's loss and metric shares and mask count over 'data'.
+A data axis > 1 takes only a model whose batch and loss split over it
+(parallel.train.check_data_axis); the others raise. The model's
+row-partitioned parameters keep this rank's rows
+(sharded_embedding.apply_param_shardings) before the optimizer is
+built. On the card a K-step window's collectives are captured in its
+CUDA graph with the rest of the step. table_partition and
+hub_cache_frac are the reference's partitioned-table options, validated
+as there (callers building a PartitionedFeatureStore read them).
 """
 
 from __future__ import annotations
@@ -66,31 +79,21 @@ from euler_tpu_torch.estimator.graphed_loop import GraphedLoop
 from euler_tpu_torch.estimator.infer import eval_mode, iter_embeddings
 from euler_tpu_torch.estimator.prefetch import ParallelPrefetcher
 from euler_tpu_torch.estimator.retry import retryable_error
+from euler_tpu_torch.parallel import collectives
+from euler_tpu_torch.parallel.mesh import data_slice
+from euler_tpu_torch.parallel.train import (
+    check_data_axis, global_values, spmd_update,
+)
 from euler_tpu_torch.platform import (
     DeviceLike, host_to_device, resolve_device, seed_words,
 )
 from euler_tpu_torch.utils import optimizers as opt_lib
 
-_ROADMAP_MULTI = "ROADMAP.md Queue A, 'Multi-GPU'"
-
-# reference option → (the values that mean what the port does, its
-# ROADMAP item); any other value raises
-_UNPORTED = {
-    "table_partition": ((0, 1), _ROADMAP_MULTI),
-    "hub_cache_frac": ((0,), _ROADMAP_MULTI),
-}
 # per-process estimator numbering: the label value distinguishing N
 # estimators' children on the shared estimator_* metrics
 _EST_IDS = itertools.count()
 KEEP_CHECKPOINTS = 3
 _DROPOUT_WORD = 0xD0
-
-
-def _refuse_unported(cfg: Dict[str, Any]) -> None:
-    for key, (same, item) in _UNPORTED.items():
-        if key in cfg and cfg[key] not in same:
-            raise NotImplementedError(
-                f"{key}={cfg[key]!r} is not ported yet: {item}")
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device,
@@ -128,7 +131,9 @@ def _last_finite(vals: np.ndarray) -> float:
 
 
 class BaseEstimator:
-    """Trains a model with the ModelOutput contract on one device.
+    """Trains a model with the ModelOutput contract on one device, or as
+    this rank of a mesh (mesh=: its device, its data slice of every
+    batch; see the module docstring).
 
     params (the reference's keys): optimizer ('adam'), learning_rate
     (0.01), weight_decay (0), seed (0: dropout draws from (seed+1,
@@ -136,16 +141,34 @@ class BaseEstimator:
     nonfinite_guard (True), steps_per_loop (1), input_retries (3),
     input_backoff_s (0.1), skip_batch_budget (0), feeder_workers (0),
     feeder_depth (0 = twice the workers), profiling (False), max_id (0:
-    uint64 ids become int32 rows as they are; > 0: modulo max_id + 1).
-    Checkpoints go to model_dir/checkpoints. The model's parameters are
-    initialised by its constructor (from its generator), where the
-    reference inits them from key(seed)."""
+    uint64 ids become int32 rows as they are; > 0: modulo max_id + 1),
+    table_partition (0; >= 2 partitions the feature table) and
+    hub_cache_frac (0.0, in [0, 1); needs table_partition >= 2).
+    Checkpoints go to model_dir/checkpoints (a rank's own state on a
+    mesh; convert.gather_state_dict gives the whole one). The model's
+    parameters are initialised by its constructor (from its generator),
+    where the reference inits them from key(seed)."""
 
     def __init__(self, model: torch.nn.Module, params: Dict[str, Any],
-                 model_dir: Optional[str] = None, device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 model_dir: Optional[str] = None, device: DeviceLike = None,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and resolve_device(device).type \
+                    != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+            from euler_tpu_torch.parallel.sharded_embedding import (
+                apply_param_shardings,
+            )
+
+            check_data_axis(model, mesh)
+            apply_param_shardings(model, mesh)
+        else:
+            self.device = resolve_device(device)
         self.params_cfg = dict(params or {})
-        _refuse_unported(self.params_cfg)
+        self._check_partition_options()
         self.model = model.to(self.device)
         self.model_dir = model_dir
         cfg = self.params_cfg
@@ -187,6 +210,25 @@ class BaseEstimator:
         self._restore_pending = True
         self._graphed = None  # graphed_loop.GraphedLoop, at the first window
         self._init_obs()
+
+    def _check_partition_options(self) -> None:
+        """The reference's validation of the partitioned-table options
+        (euler_tpu/estimator/base_estimator.py:159-178)."""
+        cfg = self.params_cfg
+        self.table_partition = int(cfg.get("table_partition", 0))
+        if self.table_partition < 0:
+            raise ValueError(
+                f"table_partition must be >= 0, got {self.table_partition}")
+        self.hub_cache_frac = float(cfg.get("hub_cache_frac", 0.0))
+        if not 0.0 <= self.hub_cache_frac < 1.0:
+            raise ValueError(
+                f"hub_cache_frac must be in [0, 1), got "
+                f"{self.hub_cache_frac}")
+        if self.hub_cache_frac > 0 and self.table_partition <= 1:
+            raise ValueError(
+                "hub_cache_frac needs a partitioned table "
+                "(table_partition >= 2): a replicated table has no "
+                "remote leg for the hub cache to absorb")
 
     def _init_obs(self) -> None:
         """The input-path counters, phase histograms and gauges on the obs
@@ -253,33 +295,22 @@ class BaseEstimator:
 
     def _update(self, batch: Dict[str, Any]):
         """Forward, backward, the guard and the optimizer step on a batch
-        merged with the tables (and, with dropout, its generator). Returns
-        the (loss, metric) device scalars. Nothing here waits for the card
-        or reads the host's step, so a CUDA graph can capture it."""
-        out = self.model(batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        out.loss.backward()
-        loss = out.loss.detach()
-        found_inf = None
-        if self.nonfinite_guard:
-            grads = [p.grad for p in self.model.parameters()
-                     if p.grad is not None]
-            found_inf = (~torch.isfinite(loss)).to(torch.float32)
-            # GradScaler's check: one multi-tensor pass over the grads
-            # sets found_inf to 1 on a NaN or Inf (and scales by 1)
-            torch._amp_foreach_non_finite_check_and_unscale_(
-                grads, found_inf, self._one)
-            self.optimizer.found_inf = found_inf
-            self.optimizer.step()
+        merged with the tables (and, with dropout, its generator):
+        parallel.train.spmd_update, whose collectives are no-ops without
+        a mesh. Returns the (loss, metric) device scalars. Nothing here
+        waits for the card or reads the host's step, so a CUDA graph can
+        capture it."""
+        loss, metric, found_inf = spmd_update(
+            self.model, self.optimizer, batch, self.mesh,
+            self.nonfinite_guard, self._one)
+        if found_inf is not None:
             self.skipped_steps += found_inf.to(torch.int32)
-        else:
-            self.optimizer.step()
         settle = getattr(self.model, "settle_cache_writes", None)
         if settle is not None:
             # the reference's extra_vars: a skipped step keeps the old
             # activation caches, as it keeps the old parameters
             settle(found_inf)
-        return loss, out.metric.detach()
+        return loss, metric
 
     def _train_step(self, batch: Dict[str, Any]):
         """One update from one batch (already on the device). Returns the
@@ -302,6 +333,13 @@ class BaseEstimator:
         outs = [self._train_step(b) for b in batches]
         return (torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]))
+
+    def _to_device(self, raw: Dict[str, Any]) -> Dict[str, Any]:
+        """A host batch on the device: this rank's data slice of it on a
+        mesh (mesh.data_slice), then _to_device."""
+        if self.mesh is not None:
+            raw = data_slice(raw, self.mesh)
+        return _to_device(raw, self.device, self.max_id)
 
     def _maybe_restore(self) -> None:
         # the reference restores when it first builds its state
@@ -378,17 +416,21 @@ class BaseEstimator:
     def health(self) -> Dict[str, Any]:
         """input_health plus the nonfinite guard's skip count, merged with
         the graph client's health() when the estimator's graph has one
-        (euler_tpu/estimator/base_estimator.py:443-445). The count comes
-        from the obs gauge, which the train thread refreshes at every log
-        and when train() returns: health() may run on another thread
-        (/healthz) and must not wait for the card. (The reference also
-        merges its partitioned store's stats: ROADMAP.md Queue A,
-        'Multi-GPU'.)"""
+        (euler_tpu/estimator/base_estimator.py:443-445), and with the
+        feature store's cache_stats() (a PartitionedFeatureStore's degree
+        stats, hub-cache hits and gather legs) as "feature_store". The
+        count comes from the obs gauge, which the train thread refreshes
+        at every log and when train() returns: health() may run on
+        another thread (/healthz) and must not wait for the card."""
         out = dict(self.input_health)
         out["skipped_steps"] = int(self._g_skipped_steps.value)
         graph_health = getattr(getattr(self, "graph", None), "health", None)
         if callable(graph_health):
             out["graph"] = graph_health()
+        store_stats = getattr(getattr(self, "feature_store", None),
+                              "cache_stats", None)
+        if callable(store_stats):
+            out["feature_store"] = store_stats()
         return out
 
     def _phase(self, name: str, hist):
@@ -435,7 +477,7 @@ class BaseEstimator:
             src = input_fn() if callable(input_fn) else input_fn
         f = ParallelPrefetcher(
             src, workers=self.feeder_workers, depth=self.feeder_depth,
-            transform=lambda b: _to_device(b, self.device, self.max_id),
+            transform=self._to_device,
             name=f"{self._obs_name}_train")
         self._live_feeder = f
         return f
@@ -508,7 +550,7 @@ class BaseEstimator:
         """The next batch on the device, timed as input_wait."""
         with self._phase("input_wait", self._hist_input_wait):
             raw, it = self._next_input(it)
-            return _to_device(raw, self.device, self.max_id), it
+            return self._to_device(raw), it
 
     # -- entry points ------------------------------------------------------
     def train(self, input_fn: Callable[[], Iterator[Dict]],
@@ -637,8 +679,7 @@ class BaseEstimator:
                     while len(buf) < want and not exhausted:
                         try:
                             raw, it = self._next_input(it)
-                            buf.append(_to_device(raw, self.device,
-                                                  self.max_id))
+                            buf.append(self._to_device(raw))
                         except StopIteration:
                             exhausted = True
             if not buf:
@@ -718,18 +759,20 @@ class BaseEstimator:
         with eval_mode(self.model), torch.inference_mode():
             for _ in range(steps):
                 try:
-                    batch = _to_device(next(it), self.device,
-                                       self.max_id)
+                    batch = self._to_device(next(it))
                 except StopIteration:
                     break
-                out = self.model({**batch, **self.static_batch})
+                with collectives.data_parallel(self.mesh):
+                    out = self.model({**batch, **self.static_batch})
                 mask = batch.get("graph_mask")
                 if mask is None:
                     mask = batch.get("metric_mask")
                 w = (torch.ones((), device=self.device) if mask is None
                      else mask.to(torch.float32).sum())
-                rows.append(torch.stack([out.loss.float(),
-                                         out.metric.float(), w]))
+                # on a data axis: the loss's and the metric's shares and
+                # the mask's count summed over it, the global batch's
+                rows.append(global_values(torch.stack(
+                    [out.loss.float(), out.metric.float(), w]), self.mesh))
         if not rows:
             return {"loss": float("nan"), "metric": float("nan")}
         losses, metrics, w = torch.stack(rows).cpu().double().numpy().T
@@ -740,9 +783,9 @@ class BaseEstimator:
     def run_eval(self, batch: Dict[str, Any]):
         """One forward in eval mode (no dropout, no autograd) of a batch
         moved to the device and merged with the tables."""
-        with eval_mode(self.model), torch.inference_mode():
-            return self.model({**_to_device(batch, self.device,
-                                            self.max_id),
+        with eval_mode(self.model), torch.inference_mode(), \
+                collectives.data_parallel(self.mesh):
+            return self.model({**self._to_device(batch),
                                **self.static_batch})
 
     def infer(self, input_fn, steps: int = 100,

@@ -18,6 +18,11 @@ batch through one of three input paths, as the reference does:
   evaluates on the host flow's exact 1-hop closures), labels from the
   engine.
 
+Every estimator takes BaseEstimator's mesh (each rank trains on its
+data slice of every batch). A data axis > 1 takes only a model whose
+batch and loss split over it (parallel.train.check_data_axis): not the
+graph models' packed batches, GAE's, DGI's or the solutions'.
+
 Device-sampler seeds come in two streams, seed = stream<<31 | counter:
 stream 0 for training, stream 1 for evaluation and inference, so how
 often one evaluates never shifts the training draws. Evaluation sweeps
@@ -52,13 +57,22 @@ class NodeEstimator(BaseEstimator):
     inference go through the host eval_dataflow (the reference's
     estimators.py:26-65, 90-105). params: batch_size (32),
     train_node_type (0), eval_node_type (1), infer_node_type (-1 = all
-    nodes), and BaseEstimator's keys."""
+    nodes), and BaseEstimator's keys.
+
+    feature_store may be a PartitionedFeatureStore (on `mesh`): its
+    hub_cache rides the static batch (reads route cache-first) and every
+    batch's rows are counted on its gather-leg counters (observe_batch:
+    every hop's rows on the host paths, the roots with the device
+    sampler, whose hops are drawn on the device), as the reference's
+    estimators.py:24-90 count them; health() reports its stats. mesh:
+    BaseEstimator's (each rank trains on its data slice)."""
 
     def __init__(self, model, params: Dict[str, Any], graph, dataflow,
                  label_fid="label", label_dim: Optional[int] = None,
                  model_dir: Optional[str] = None, feature_store=None,
                  eval_dataflow=None, device_sampler=None,
-                 eval_via_flow: bool = False, device: DeviceLike = None):
+                 eval_via_flow: bool = False, device: DeviceLike = None,
+                 mesh=None):
         if eval_via_flow and device_sampler is None:
             raise ValueError("eval_via_flow only applies with a "
                              "device_sampler (host mode already "
@@ -68,7 +82,7 @@ class NodeEstimator(BaseEstimator):
                              "dataflow) to build the host eval batches")
         if device_sampler is not None and feature_store is None:
             raise ValueError("device_sampler requires a feature_store")
-        super().__init__(model, params, model_dir, device)
+        super().__init__(model, params, model_dir, device, mesh)
         for what, t in (("feature store", feature_store),
                         ("neighbor table", device_sampler)):
             if t is not None and t.device != self.device:
@@ -96,6 +110,10 @@ class NodeEstimator(BaseEstimator):
                     feature_store.feature_scale
             if feature_store.labels is not None:
                 self.static_batch["label_table"] = feature_store.labels
+            if getattr(feature_store, "hub_size", 0) > 0:
+                # the partitioned store's replicated hot rows: feature
+                # reads route cache-first while this key is present
+                self.static_batch["hub_cache"] = feature_store.hub_cache
         if device_sampler is not None:
             self.static_batch.update(device_sampler.tables)
 
@@ -124,6 +142,9 @@ class NodeEstimator(BaseEstimator):
             # sees only int32 rows
             batch = {"rows": [store.lookup(i) for i in batch["ids"]],
                      "infer_ids": roots}
+            if hasattr(store, "observe_batch"):
+                for r in batch["rows"]:
+                    store.observe_batch(r)
             if store.labels is None:
                 batch["labels"] = self._labels(roots)
         else:
@@ -136,7 +157,10 @@ class NodeEstimator(BaseEstimator):
         """Root rows and the stream's next seed; labels from the device
         table, else from the engine."""
         self._seed_counters[stream] += 1
-        batch = {"rows": [self.feature_store.lookup(roots)],
+        root_rows = self.feature_store.lookup(roots)
+        if hasattr(self.feature_store, "observe_batch"):
+            self.feature_store.observe_batch(root_rows)
+        batch = {"rows": [root_rows],
                  "sample_seed": (stream << 31) | self._seed_counters[stream],
                  "infer_ids": roots}
         if self.feature_store.labels is None:
@@ -231,8 +255,8 @@ class EdgeEstimator(BaseEstimator):
 
     def __init__(self, model, params: Dict[str, Any], graph,
                  dataflow=None, model_dir: Optional[str] = None,
-                 device: DeviceLike = None):
-        super().__init__(model, params, model_dir, device)
+                 device: DeviceLike = None, mesh=None):
+        super().__init__(model, params, model_dir, device, mesh)
         self.graph = graph
         self.dataflow = dataflow
         cfg = self.params_cfg
@@ -274,8 +298,9 @@ class GraphEstimator(BaseEstimator):
     graph), and BaseEstimator's keys."""
 
     def __init__(self, model, params: Dict[str, Any], graphs, labels,
-                 model_dir: Optional[str] = None, device: DeviceLike = None):
-        super().__init__(model, params, model_dir, device)
+                 model_dir: Optional[str] = None, device: DeviceLike = None,
+                 mesh=None):
+        super().__init__(model, params, model_dir, device, mesh)
         self.graphs = graphs
         self.labels = np.asarray(labels)
         cfg = self.params_cfg
@@ -364,8 +389,9 @@ class GaeEstimator(BaseEstimator):
     BaseEstimator's keys."""
 
     def __init__(self, model, params: Dict[str, Any], graph, dataflow,
-                 model_dir: Optional[str] = None, device: DeviceLike = None):
-        super().__init__(model, params, model_dir, device)
+                 model_dir: Optional[str] = None, device: DeviceLike = None,
+                 mesh=None):
+        super().__init__(model, params, model_dir, device, mesh)
         self.graph = graph
         self.dataflow = dataflow
         cfg = self.params_cfg
@@ -412,8 +438,8 @@ class SampleEstimator(BaseEstimator):
 
     def __init__(self, model, params: Dict[str, Any], sample_file: str,
                  parse_fn, model_dir: Optional[str] = None,
-                 device: DeviceLike = None):
-        super().__init__(model, params, model_dir, device=device)
+                 device: DeviceLike = None, mesh=None):
+        super().__init__(model, params, model_dir, device=device, mesh=mesh)
         self.sample_file = sample_file
         self.parse_fn = parse_fn
         self.batch_size = int(self.params_cfg.get("batch_size", 32))

@@ -22,7 +22,10 @@ What a replay reads is fixed at capture:
   One generator per step: sharing one across the K steps would shift
   which uniforms a step gets;
 - the parameters, the optimizer's state, the guard's skip count and the
-  static tables (estimator.static_batch), by address.
+  static tables (estimator.static_batch), by address;
+- on a mesh, the step's collectives (NCCL records them into the graph;
+  the eager first window has already started the communicators), on
+  buffers the graph's own memory pool holds.
 
 Static outputs (the K losses and metrics) are overwritten by the next
 replay, so `run` returns clones.
@@ -56,6 +59,7 @@ import torch
 
 from euler_tpu_torch.models.graphsage import sample_stream_seed
 from euler_tpu_torch.ops.gather_mean import gather_mean
+from euler_tpu_torch.parallel import collectives
 
 
 def _describe(v: Any):
@@ -78,7 +82,8 @@ class GraphedLoop:
     Counts for the record: `captures`, `replays`, and
     `launches_per_replay`, the gather_mean launches recorded into the
     graph by its capture (the wrapper counts host calls, so a replay
-    adds nothing to gather_mean.launches)."""
+    adds nothing to gather_mean.launches), and
+    `collectives_per_replay`, the collectives recorded so."""
 
     def __init__(self, device: torch.device, steps: int):
         if device.type != "cuda":
@@ -92,6 +97,7 @@ class GraphedLoop:
         self.captures = 0
         self.replays = 0
         self.launches_per_replay = 0
+        self.collectives_per_replay = 0
         self.invalidate()
 
     def invalidate(self) -> None:
@@ -193,6 +199,7 @@ class GraphedLoop:
                 inputs[k] = [torch.stack([b[k][h] for b in batches])
                              for h in range(len(v))]
         launches = gather_mean.launches
+        issued = collectives.total_count()
         try:
             with torch.cuda.graph(graph, stream=self._stream,
                                   capture_error_mode="thread_local"):
@@ -217,6 +224,7 @@ class GraphedLoop:
                 f"({type(e).__name__}: {e}); the eager loop is not used "
                 "in its place") from e
         self.launches_per_replay = gather_mean.launches - launches
+        self.collectives_per_replay = collectives.total_count() - issued
         self.graph, self._key, self._inputs = graph, key, inputs
         self._losses, self._metrics = out
         self.captures += 1

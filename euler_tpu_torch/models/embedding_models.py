@@ -33,10 +33,10 @@ def _skipgram(emb: Embedding, ctx: Embedding, batch: Dict[str, Any]
     negs = ctx(batch["negs"])                        # [B, N, D]
     pos_logit = (src * pos).sum(-1, keepdim=True)
     neg_logit = torch.einsum("bd,bnd->bn", src, negs)
-    loss = (sigmoid_binary_cross_entropy(
-                pos_logit, torch.ones_like(pos_logit)).mean()
-            + sigmoid_binary_cross_entropy(
-                neg_logit, torch.zeros_like(neg_logit)).mean())
+    loss = (M.masked_mean(sigmoid_binary_cross_entropy(
+                pos_logit, torch.ones_like(pos_logit)), None)
+            + M.masked_mean(sigmoid_binary_cross_entropy(
+                neg_logit, torch.zeros_like(neg_logit)), None))
     scores = torch.cat([pos_logit, neg_logit], dim=1)
     return ModelOutput(src, loss, "mrr", M.mrr(scores))
 
@@ -44,6 +44,9 @@ def _skipgram(emb: Embedding, ctx: Embedding, batch: Dict[str, Any]
 class DeepWalk(nn.Module):
     """Skip-gram with negative sampling over the engine's walk pairs:
     emb and ctx tables [max_id + 1, dim]."""
+
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
 
     def __init__(self, max_id: int, dim: int = 128,
                  generator: Optional[torch.Generator] = None):
@@ -113,16 +116,21 @@ class DeviceSampledSkipGram(nn.Module):
     alias_table in the batch takes the alias draw there instead, as the
     reference's does. The walk reads the split tables: a fused table
     alone has no nbr_table, and the batch raises KeyError, as the
-    reference's does."""
+    reference's does. table_mesh: the walk tables row-sharded over its
+    model axis, read through make_table_gather (the weighted draw at
+    every step); the node sampler's tables stay replicated."""
 
     stream_word = 23
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
 
     def __init__(self, num_rows: int, dim: int = 128, walk_len: int = 5,
                  left_win: int = 1, right_win: int = 1, num_negs: int = 5,
                  p: float = 1.0, q: float = 1.0, share_context: bool = False,
-                 uniform_sampling: bool = False,
+                 uniform_sampling: bool = False, table_mesh=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.table_mesh = table_mesh
         self.num_rows = int(num_rows)
         self.walk_len = int(walk_len)
         self.left_win, self.right_win = int(left_win), int(right_win)
@@ -154,10 +162,13 @@ class DeviceSampledSkipGram(nn.Module):
         replays = [batch.get("walk_uniforms"), batch.get("neg_uniforms")]
         gen = None if all(r is not None for r in replays) else \
             batch_stream(batch, roots.device, self.stream_word)
+        from euler_tpu_torch.models.graphsage import table_reads
+
         walks = walk_rows(batch["nbr_table"], batch["cum_table"], roots,
                           self.walk_len, generator=gen, uniforms=replays[0],
                           p=self.p, q=self.q, uniform=self.uniform_sampling,
-                          alias_table=batch.get("alias_table"))
+                          alias_table=batch.get("alias_table"),
+                          gather=table_reads(self.table_mesh))
         pairs = gen_pair_rows(walks, self.left_win, self.right_win)
         pairs = pairs.reshape(-1, 2)
         negs = sample_global_rows(batch["neg_rows"], batch["neg_cum"],

@@ -34,6 +34,20 @@ remat=True runs `_GatherEncode` under torch.utils.checkpoint, as the
 reference wraps it in nn.remat: the backward pass gathers the hop
 layers again instead of keeping them, so a training step launches
 gather_mean twice.
+
+table_mesh (a mesh with a model axis > 1; parallel/mesh.py): the tables
+are row-sharded over 'model' (DeviceFeatureStore / DeviceNeighborTable
+with shard_rows=True) and every table read goes through
+make_table_gather's masked take + SUM, as the reference's reads go
+through gather_feature_rows(..., gather=...). Those reads return whole
+rows, and the hops are reduced by the encoders' plain means: a sharded
+path launches no gather_mean, as the reference's sharded path reaches
+no Pallas kernel. So does a batch with a hub_cache (the partitioned
+store's cache-first reads). remat with sharded tables and the alias
+draw under sharding raise, as in the reference.
+ShardedSupervisedGraphSage is the reference's multi-device flagship
+(an id embedding row-sharded over 'model' beside the features);
+shard_act_cache row-shards DeviceSampledScalableSage's caches.
 """
 
 from __future__ import annotations
@@ -49,12 +63,15 @@ from euler_tpu_torch.mp_utils.base import (
     ModelOutput, SuperviseModel, UnsuperviseModel, ranking_loss,
 )
 from euler_tpu_torch.ops.gather_mean import gather_mean, take_rows
+from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.device_layerwise import sample_layerwise_rows
 from euler_tpu_torch.parallel.device_sampler import (
-    sample_hop, sample_hop_fused,
+    is_model_sharded, make_table_gather, read_rows, sample_hop,
+    sample_hop_fused,
 )
 from euler_tpu_torch.parallel.device_walk import sample_global_rows
 from euler_tpu_torch.parallel.feature_store import dequantize_rows
+from euler_tpu_torch.parallel.placement import row_shard
 from euler_tpu_torch.platform import seed_words
 from euler_tpu_torch.utils.encoders import (
     GCNEncoder, GenieEncoder, LayerEncoder, SageEncoder,
@@ -64,13 +81,28 @@ from euler_tpu_torch.utils.layers import Embedding
 
 
 def gather_feature_rows(batch: Dict[str, Any],
-                        rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+                        rows: Sequence[torch.Tensor],
+                        gather: Optional[Callable] = None
+                        ) -> List[torch.Tensor]:
     """table[rows] for each hop's rows, with jnp.take's fill semantics
-    (ops.gather_mean.take_rows); with batch["feature_scale"] the int8
-    rows are dequantized into the scale's dtype."""
+    (ops.gather_mean.take_rows), or through `gather` (make_table_gather
+    for a row-sharded table); a batch["hub_cache"] (the partitioned
+    store's replicated hot rows) routes every read cache-first
+    (partitioned_store.hub_routed_take). With batch["feature_scale"]
+    the int8 rows are dequantized into the scale's dtype, after the
+    combine."""
     table = batch["feature_table"]
     scale = batch.get("feature_scale")
-    out = [take_rows(table, r) for r in rows]
+    take = gather or (read_rows if row_shard(table) is not None
+                      else take_rows)
+    hub = batch.get("hub_cache")
+    if hub is not None:
+        from euler_tpu_torch.parallel.partitioned_store import (
+            hub_routed_take,
+        )
+
+        take = hub_routed_take(take, hub)
+    out = [take(table, r) for r in rows]
     if scale is None:
         return out
     return [dequantize_rows(x, scale) for x in out]
@@ -91,6 +123,9 @@ class SupervisedGraphSage(SuperviseModel):
     table) → SageEncoder ("encoder") → logits, the reference's host-fed
     model (bench.py --host_sampler's). in_dim is the feature width
     (flax infers it at init)."""
+
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
 
     def __init__(self, num_classes: int, in_dim: int,
                  multilabel: bool = True, dim: int = 32,
@@ -174,17 +209,24 @@ def batch_stream(batch: Dict[str, Any], device: torch.device,
 def encode_fanout(encoder: nn.Module, table: torch.Tensor,
                   scale: Optional[torch.Tensor],
                   rows: Sequence[torch.Tensor],
-                  neighbor_mean: Callable = gather_mean) -> torch.Tensor:
+                  neighbor_mean: Callable = gather_mean,
+                  gather: Optional[Callable] = None,
+                  hub_cache: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The encoder over a fanout's rows [roots, hop1, ..., hopL]. A sage
     encoder with the mean aggregator, or a gcn encoder, reads hop L only
     as its neighbor mean, neighbor_mean(table, rows [n, k], scale): one
     gather_mean launch on CUDA, and the [n·k, D] layer never exists.
-    Any other encoder gets every hop gathered with take_rows."""
-    batch = {"feature_table": table, "feature_scale": scale}
+    Any other encoder, and every encoder over a row-sharded table
+    (gather) or behind a hub cache, gets every hop gathered
+    (gather_feature_rows) and reduces it itself."""
+    batch = {"feature_table": table, "feature_scale": scale,
+             "hub_cache": hub_cache}
     gcn = isinstance(encoder, GCNEncoder)
-    if not (gcn or (isinstance(encoder, SageEncoder)
+    if gather is not None or hub_cache is not None \
+            or row_shard(table) is not None or not (
+            gcn or (isinstance(encoder, SageEncoder)
                     and encoder.aggregator == "mean")):
-        return encoder(gather_feature_rows(batch, rows))
+        return encoder(gather_feature_rows(batch, rows, gather))
     layers = gather_feature_rows(batch, rows[:-1])
     deepest = rows[-1].reshape(rows[-2].shape[0], -1)
     m = neighbor_mean(table, deepest, scale)
@@ -214,37 +256,46 @@ class _GatherEncode(nn.Module):
 
     def forward(self, table: torch.Tensor, scale: Optional[torch.Tensor],
                 rows: Sequence[torch.Tensor],
-                neighbor_mean: Callable = gather_mean) -> torch.Tensor:
+                neighbor_mean: Callable = gather_mean,
+                gather: Optional[Callable] = None,
+                hub_cache: Optional[torch.Tensor] = None) -> torch.Tensor:
         """rows: [roots, hop1, ..., hopL]. neighbor_mean computes the
         deepest hop's mean from (table, rows [n, k], scale); tests and
-        the chip smoke substitute the plain version here."""
-        return encode_fanout(self.enc, table, scale, rows, neighbor_mean)
+        the chip smoke substitute the plain version here. gather /
+        hub_cache: encode_fanout's."""
+        return encode_fanout(self.enc, table, scale, rows, neighbor_mean,
+                             gather, hub_cache)
 
 
 def sample_one_hop(batch: Dict[str, Any], rows: torch.Tensor, count: int,
                    generator: Optional[torch.Generator],
                    uniforms: Optional[torch.Tensor],
-                   uniform_sampling: bool) -> torch.Tensor:
+                   uniform_sampling: bool,
+                   gather: Optional[Callable] = None) -> torch.Tensor:
     """One hop of the draw over whichever layout the batch holds, [n] →
     [n * count], with the reference's precedence: nbrcum_table → the
     fused draw; else the split tables, alias_table → the alias draw (it
-    wins over uniform_sampling)."""
+    wins over uniform_sampling). gather (row-sharded tables): the
+    weighted draw through it, the alias table and uniform_sampling
+    ignored, as the reference's sharded models do."""
     fused = batch.get("nbrcum_table")
     if fused is not None:
         return sample_hop_fused(fused, rows, count, generator=generator,
-                                uniforms=uniforms)
-    atab = batch.get("alias_table")
+                                uniforms=uniforms, gather=gather)
+    atab = batch.get("alias_table") if gather is None else None
     return sample_hop(batch["nbr_table"], batch["cum_table"], rows, count,
                       generator=generator, uniforms=uniforms,
-                      uniform=uniform_sampling and atab is None,
-                      alias_table=atab)
+                      uniform=(uniform_sampling and atab is None
+                               and gather is None),
+                      alias_table=atab, gather=gather)
 
 
 def sample_layers(batch: Dict[str, Any], roots: torch.Tensor,
                   fanouts: Sequence[int],
                   generator: Optional[torch.Generator],
                   uniforms: Optional[Sequence[torch.Tensor]],
-                  uniform_sampling: bool) -> List[torch.Tensor]:
+                  uniform_sampling: bool,
+                  gather: Optional[Callable] = None) -> List[torch.Tensor]:
     """The fanout draw [roots, hop1, ...]: sample_one_hop hop by hop,
     each hop drawing from `generator` in hop order or replaying its
     uniforms tensor."""
@@ -255,8 +306,31 @@ def sample_layers(batch: Dict[str, Any], roots: torch.Tensor,
     for h, k in enumerate(fanouts):
         layers.append(sample_one_hop(
             batch, layers[-1], int(k), generator,
-            None if uniforms is None else uniforms[h], uniform_sampling))
+            None if uniforms is None else uniforms[h], uniform_sampling,
+            gather))
     return layers
+
+
+def table_reads(table_mesh) -> Optional[Callable]:
+    """make_table_gather(table_mesh) when the mesh row-shards the
+    tables, else None (the replicated fast paths)."""
+    return make_table_gather(table_mesh) \
+        if is_model_sharded(table_mesh) else None
+
+
+def gathered_mean(gather: Callable) -> Callable:
+    """A neighbor_mean that reads whole rows through `gather` and takes
+    their plain mean (the sharded paths' reduction; no kernel)."""
+
+    def mean(table, rows, scale=None, out_dtype=None):
+        x = gather(table, rows)
+        if scale is not None:
+            x = dequantize_rows(x, scale)
+        if out_dtype is not None:
+            x = x.to(out_dtype)
+        return x.mean(1)
+
+    return mean
 
 
 class DeviceSampledGraphSage(SuperviseModel):
@@ -274,8 +348,11 @@ class DeviceSampledGraphSage(SuperviseModel):
 
     encoder: 'sage' (with the aggregator: mean, meanpool or maxpool;
     'gcn' raises TypeError in SageEncoder, as the reference's does),
-    'gcn' or 'genie'. Row-sharded tables are not ported yet
-    (DeviceNeighborTable refuses them)."""
+    'gcn' or 'genie'. table_mesh: the mesh the tables are row-sharded
+    over (see the module docstring)."""
+
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
 
     stream_word = 17
 
@@ -284,11 +361,17 @@ class DeviceSampledGraphSage(SuperviseModel):
                  fanouts: Sequence[int] = (10, 10),
                  aggregator: str = "mean", encoder: str = "sage",
                  remat: bool = False, uniform_sampling: bool = False,
-                 dropout: float = 0.0,
+                 dropout: float = 0.0, table_mesh=None,
                  generator: Optional[torch.Generator] = None):
         if encoder not in _ENCODERS:
             raise ValueError(f"DeviceSampledGraphSage.encoder must be "
                              f"'sage', 'gcn' or 'genie', got {encoder!r}")
+        if remat and is_model_sharded(table_mesh):
+            raise ValueError(
+                "DeviceSampledGraphSage(remat=True) supports "
+                "replicated tables only, as the reference's does (the "
+                "re-gather would run the sharded reads' collectives "
+                "again in the backward)")
         enc = _GatherEncode(in_dim, dim, fanouts, aggregator, encoder,
                             generator=generator)
         super().__init__(num_classes, multilabel, enc.out_dim,
@@ -297,6 +380,7 @@ class DeviceSampledGraphSage(SuperviseModel):
         self.fanouts = tuple(int(k) for k in fanouts)
         self.uniform_sampling = bool(uniform_sampling)
         self.remat = bool(remat)
+        self.table_mesh = table_mesh
         self._spec = {"num_classes": self.num_classes,
                       "multilabel": self.multilabel, "dropout": self.dropout,
                       "table_mesh": None, "dim": int(dim),
@@ -317,17 +401,22 @@ class DeviceSampledGraphSage(SuperviseModel):
         gen = None if uniforms is not None else batch_stream(
             batch, roots.device, self.stream_word)
         return sample_layers(batch, roots, self.fanouts, gen, uniforms,
-                             self.uniform_sampling)
+                             self.uniform_sampling,
+                             table_reads(self.table_mesh))
 
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
         args = (batch["feature_table"], batch.get("feature_scale"),
                 self.sample_rows(batch))
+        # the sharded or cache-first reads, when the tables need them
+        reads = {k: v for k, v in (("gather", table_reads(self.table_mesh)),
+                                   ("hub_cache", batch.get("hub_cache")))
+                 if v is not None}
         if self.remat and torch.is_grad_enabled():
             # the encoder draws no random numbers (sampling is done), so
             # the recompute needs no saved RNG state
             return checkpoint(self.encoder, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        return self.encoder(*args)
+                              preserve_rng_state=False, **reads)
+        return self.encoder(*args, **reads)
 
 
 _SCALABLE = {"sage": ScalableSageEncoder, "gcn": ScalableGCNEncoder}
@@ -354,6 +443,9 @@ class DeviceSampledScalableSage(SuperviseModel):
     fanout] for the alias draw). Its stream word is 17, as the
     reference's key(17)."""
 
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
+
     stream_word = 17
 
     def __init__(self, num_classes: int, in_dim: int,
@@ -362,6 +454,7 @@ class DeviceSampledScalableSage(SuperviseModel):
                  cache_dtype: Optional[torch.dtype] = None,
                  store_decay: float = 0.9, encoder: str = "sage",
                  uniform_sampling: bool = False, dropout: float = 0.0,
+                 table_mesh=None,
                  generator: Optional[torch.Generator] = None):
         if encoder not in _SCALABLE:
             raise ValueError(
@@ -376,6 +469,7 @@ class DeviceSampledScalableSage(SuperviseModel):
         self.encoder = enc
         self.fanout = int(fanout)
         self.uniform_sampling = bool(uniform_sampling)
+        self.table_mesh = table_mesh
         # refresh_act_cache writes the caches outside training
         self.refreshing = False
         self._spec = {"num_classes": self.num_classes,
@@ -404,7 +498,8 @@ class DeviceSampledScalableSage(SuperviseModel):
             batch, roots.device, self.stream_word)
         nbr = sample_one_hop(batch, roots, self.fanout, gen,
                              None if uniforms is None else uniforms[0],
-                             self.uniform_sampling)
+                             self.uniform_sampling,
+                             table_reads(self.table_mesh))
         return nbr.reshape(roots.shape[0], self.fanout)
 
     def embed(self, batch: Dict[str, Any],
@@ -412,8 +507,18 @@ class DeviceSampledScalableSage(SuperviseModel):
         roots = batch["rows"][0]
         nbr = self.sample_rows(batch)
         table, scale = batch["feature_table"], batch.get("feature_scale")
-        x = gather_feature_rows(batch, [roots])[0]
-        return self.encoder(roots, x, nbr, neighbor_mean(table, nbr, scale),
+        gather = table_reads(self.table_mesh)
+        x = gather_feature_rows(batch, [roots], gather)[0]
+        if gather is not None or batch.get("hub_cache") is not None:
+            # whole rows through the sharded (or cache-first) reads, then
+            # plain means: the feature rows and every cache's rows
+            nbr_x = gather_feature_rows(batch, [nbr], gather)[0].mean(1)
+            neighbor_mean = gathered_mean(
+                lambda t, r: (gather if row_shard(t) is not None
+                              else take_rows)(t, r))
+        else:
+            nbr_x = neighbor_mean(table, nbr, scale)
+        return self.encoder(roots, x, nbr, nbr_x,
                             write=self.training or self.refreshing,
                             neighbor_mean=neighbor_mean)
 
@@ -515,6 +620,40 @@ def refresh_act_cache(est, n_rows: Optional[int] = None, chunk: int = 8192,
         model.refreshing = False
 
 
+def shard_act_cache(est, mesh, axis: str = "model") -> None:
+    """Row-shard the estimator's activation caches over the mesh's model
+    axis (counterpart of euler_tpu/models/graphsage.py:267-296): each
+    rank keeps its rows (placement.put_row_sharded), per-device cache
+    bytes 1/mp; reads go through the masked take + SUM and each rank
+    writes the rows it owns. A trivial axis does nothing; an estimator
+    that has not trained yet raises (the reference's state does not
+    exist then); a model without caches is left alone. Call after the
+    first train step, as there."""
+    if not is_model_sharded(mesh, axis):
+        return
+    if getattr(est, "_restore_pending", True):
+        raise ValueError(
+            "shard_act_cache: estimator state not initialized — run at "
+            "least one train step before sharding the cache")
+    caches = getattr(getattr(est.model, "encoder", None), "caches", None)
+    if not callable(caches) or not caches():
+        return  # no activation cache: a legitimate no-op
+    shard_caches(est.model, mesh, axis)
+    if est._graphed is not None:
+        est._graphed.invalidate()
+
+
+def shard_caches(model, mesh, axis: str = "model") -> None:
+    """Row-shard a DeviceSampledScalableSage's (or ScalableGraphSage's)
+    activation caches over the mesh's model axis, in place."""
+    from euler_tpu_torch.parallel.placement import put_row_sharded
+
+    for cache in model.encoder.caches():
+        if row_shard(cache.h) is None:
+            cache.h = put_row_sharded(cache.h, mesh, axis)
+            cache.mesh = mesh
+
+
 class DeviceSampledLayerwiseGCN(SuperviseModel):
     """FastGCN/LADIES with its sampling on the device (counterpart of
     euler_tpu/models/graphsage.py:355-401): per-layer pools, the dense
@@ -532,9 +671,16 @@ class DeviceSampledLayerwiseGCN(SuperviseModel):
     eval_via_flow) goes straight to the encoder: the FastGCN protocol
     evaluates on exact 1-hop closures. A fused-only batch raises
     ValueError (the pool weights come from the cum rows), as the
-    reference's does; row-sharded tables (table_mesh) are not ported.
-    layer_dropout: LayerEncoder's input dropout per layer; dropout:
-    SuperviseModel's, on the embedding."""
+    reference's does. table_mesh: the split tables row-sharded over its
+    model axis, read through make_table_gather (the reference refuses
+    them; every level's rows are whole rows, so the pools and the
+    adjacency are the replicated ones'). Inside a data-parallel step
+    every rank draws the levels of the global batch's roots and keeps
+    its roots' embeddings. layer_dropout: LayerEncoder's input dropout
+    per layer; dropout: SuperviseModel's, on the embedding."""
+
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
 
     stream_word = 31
 
@@ -544,15 +690,12 @@ class DeviceSampledLayerwiseGCN(SuperviseModel):
                  layer_dropout: float = 0.0, dropout: float = 0.0,
                  table_mesh=None,
                  generator: Optional[torch.Generator] = None):
-        if table_mesh is not None:
-            raise NotImplementedError(
-                "row-sharded tables for device layerwise sampling are "
-                "not ported yet: ROADMAP.md Queue A, 'Multi-GPU'")
         self.layer_sizes = tuple(int(m) for m in layer_sizes)
         enc = LayerEncoder(in_dim, dim, len(self.layer_sizes),
                            dropout=layer_dropout, generator=generator)
         super().__init__(num_classes, multilabel, enc.out_dim,
                          dropout=dropout, generator=generator)
+        self.table_mesh = table_mesh
         self.encoder = enc
         self._spec = {"num_classes": self.num_classes,
                       "multilabel": self.multilabel, "dropout": self.dropout,
@@ -571,21 +714,27 @@ class DeviceSampledLayerwiseGCN(SuperviseModel):
                 "DeviceSampledLayerwiseGCN needs the split nbr/cum "
                 "tables (pool weights come from the cum rows) — build "
                 "DeviceNeighborTable with fused=False")
-        roots = batch["rows"][0]
+        # the pools expand the global batch's frontier: every rank of a
+        # data axis draws them from the same roots
+        roots = collectives.global_rows(batch["rows"][0])
         uniforms = batch.get("sample_uniforms")
         gen = None if uniforms is not None else batch_stream(
             batch, roots.device, self.stream_word)
+        gather = table_reads(self.table_mesh)
         return sample_layerwise_rows(
             batch["nbr_table"], batch["cum_table"], roots, self.layer_sizes,
             generator=gen, uniforms=uniforms,
-            alias_table=batch.get("alias_table"))
+            alias_table=batch.get("alias_table") if gather is None else None,
+            gather=gather)
 
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
         gen = batch.get("dropout_generator")
         if batch.get("adjs") is not None:
             return self.encoder(batch["layers"], batch["adjs"], gen)
         levels, adjs = self.sample_levels(batch)
-        return self.encoder(gather_feature_rows(batch, levels), adjs, gen)
+        out = self.encoder(gather_feature_rows(
+            batch, levels, table_reads(self.table_mesh)), adjs, gen)
+        return collectives.local_rows(out)
 
 
 class DeviceSampledUnsupervisedSage(nn.Module):
@@ -606,17 +755,22 @@ class DeviceSampledUnsupervisedSage(nn.Module):
     [B, 1] ([2, B, 1] for the alias draw) and batch["neg_uniforms"] [B,
     num_negs]. With the mean aggregator the deepest hop goes through
     ops.gather_mean (encode_fanout), one launch per forward on CUDA.
-    Row-sharded tables cannot be built yet (DeviceNeighborTable refuses
-    them)."""
+    table_mesh: the neighbor and feature tables row-sharded over its
+    model axis (the node sampler's stay replicated), read through
+    make_table_gather."""
+
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
 
     stream_word = 29
 
     def __init__(self, num_rows: int, in_dim: int, dim: int = 32,
                  fanouts: Sequence[int] = (10, 10),
                  aggregator: str = "mean", num_negs: int = 5,
-                 uniform_sampling: bool = False,
+                 uniform_sampling: bool = False, table_mesh=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.table_mesh = table_mesh
         self.num_rows = int(num_rows)
         self.fanouts = tuple(int(k) for k in fanouts)
         self.num_negs = int(num_negs)
@@ -644,10 +798,11 @@ class DeviceSampledUnsupervisedSage(nn.Module):
                    ("sample_uniforms", "pos_uniforms", "neg_uniforms")]
         gen = None if all(r is not None for r in replays) else \
             batch_stream(batch, roots.device, self.stream_word)
+        gather = table_reads(self.table_mesh)
         rows = sample_layers(batch, roots, self.fanouts, gen, replays[0],
-                             self.uniform_sampling)
+                             self.uniform_sampling, gather)
         pos = sample_one_hop(batch, roots, 1, gen, replays[1],
-                             self.uniform_sampling)
+                             self.uniform_sampling, gather)
         negs = sample_global_rows(batch["neg_rows"], batch["neg_cum"],
                                   (roots.shape[0], self.num_negs),
                                   generator=gen, uniforms=replays[2])
@@ -656,7 +811,63 @@ class DeviceSampledUnsupervisedSage(nn.Module):
     def forward(self, batch: Dict[str, Any]) -> ModelOutput:
         rows, pos, negs = self.sample(batch)
         emb = encode_fanout(self.encoder, batch["feature_table"],
-                            batch.get("feature_scale"), rows)
+                            batch.get("feature_scale"), rows,
+                            gather=table_reads(self.table_mesh),
+                            hub_cache=batch.get("hub_cache"))
         ctx = self.ctx_emb(torch.cat([pos[:, None], negs], dim=1))
         loss, metric = ranking_loss(emb, ctx, pos != self.num_rows)
         return ModelOutput(emb, loss, "mrr", metric)
+
+
+class ShardedSupervisedGraphSage(SuperviseModel):
+    """GraphSAGE with an id embedding row-sharded over the mesh's 'model'
+    axis beside the dense features (counterpart of
+    euler_tpu/models/graphsage.py:491-510), the multi-device flagship:
+    each hop's input is concat(features, id_emb(ids)) into a SageEncoder
+    ("encoder"). The batch is host-fed: {"ids": [ids_0..ids_L],
+    "layers": [x_0..x_L], "labels"}. id_emb (ShardedEmbedding, [max_id +
+    1, id_dim]) is whole until parallel.train.spmd_init (or
+    sharded_embedding.apply_param_shardings) keeps each rank's rows;
+    lookup picks its exchange ('gspmd', 'ring', 'allgather')."""
+
+    # held to its one-process run on a data axis of 2 (check_data_axis)
+    splits_over_data = True
+
+    def __init__(self, num_classes: int, in_dim: int,
+                 multilabel: bool = True, dim: int = 32,
+                 fanouts: Sequence[int] = (10, 10),
+                 aggregator: str = "mean", max_id: int = 0,
+                 id_dim: int = 16, lookup: str = "gspmd",
+                 dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        from euler_tpu_torch.parallel.sharded_embedding import (
+            ShardedEmbedding,
+        )
+
+        enc = SageEncoder(in_dim + id_dim, dim, fanouts, aggregator,
+                          generator=generator)
+        super().__init__(num_classes, multilabel, enc.out_dim,
+                         dropout=dropout, generator=generator)
+        self.id_emb = ShardedEmbedding(int(max_id) + 1, id_dim,
+                                       lookup=lookup, generator=generator)
+        self.encoder = enc
+        self._spec = {"num_classes": self.num_classes,
+                      "multilabel": self.multilabel, "dropout": self.dropout,
+                      "table_mesh": None, "dim": int(dim),
+                      "aggregator": aggregator, "max_id": int(max_id),
+                      "id_dim": int(id_dim)}
+
+    def export_spec(self) -> Dict[str, Any]:
+        """The reference model's class name and scalar dataclass
+        fields."""
+        return {"model_class": "ShardedSupervisedGraphSage", **self._spec}
+
+    def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
+        layers = []
+        for ids, x in zip(batch["ids"], batch["layers"]):
+            e = self.id_emb(ids)
+            # jnp.concatenate's promotion: bf16 features beside the
+            # float32 embedding make a float32 input
+            dtype = torch.promote_types(x.dtype, e.dtype)
+            layers.append(torch.cat([x.to(dtype), e.to(dtype)], dim=-1))
+        return self.encoder(layers)

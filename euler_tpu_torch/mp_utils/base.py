@@ -37,7 +37,8 @@ class SuperviseModel(nn.Module):
     on one-hot [B, C] or integer [B] labels and micro-F1 of the argmax.
 
     Labels come from batch["labels"], else from the device label table
-    at the root rows. An optional [B] 0/1 batch["metric_mask"] drops
+    at the root rows (a row-sharded label table, through
+    make_table_gather, reads as the whole one). An optional [B] 0/1 batch["metric_mask"] drops
     padded rows from the loss mean and the metric counts."""
 
     def __init__(self, num_classes: int, multilabel: bool, emb_dim: int,
@@ -49,6 +50,10 @@ class SuperviseModel(nn.Module):
         self.num_classes = int(num_classes)
         self.multilabel = bool(multilabel)
         self.dropout = float(dropout)
+        # the mesh whose 'model' axis row-shards the device tables (None:
+        # replicated tables, local takes); subclasses that read tables
+        # set it
+        self.table_mesh = None
         self.out = Dense(emb_dim, num_classes, generator=generator)
 
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
@@ -57,10 +62,17 @@ class SuperviseModel(nn.Module):
     def forward(self, batch: Dict[str, Any]) -> ModelOutput:
         emb = self.embed(batch)
         if self.dropout > 0.0 and self.training:
-            emb = dropout(emb, self.dropout, batch.get("dropout_generator"))
+            emb = dropout(emb, self.dropout, batch.get("dropout_generator"),
+                          batch_dim=0)
         labels = batch.get("labels")
         if labels is None:
-            labels = batch["label_table"][batch["rows"][0].long()]
+            from euler_tpu_torch.parallel.device_sampler import (
+                make_table_gather, read_rows,
+            )
+
+            table, roots = batch["label_table"], batch["rows"][0]
+            labels = make_table_gather(self.table_mesh)(table, roots) \
+                if self.table_mesh is not None else read_rows(table, roots)
         logits = self.out(emb)
         mask = batch.get("metric_mask")
         if self.multilabel:

@@ -35,7 +35,7 @@ are exact in any order always do).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,7 +80,8 @@ def sample_layerwise_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                           roots: torch.Tensor, layer_sizes: Sequence[int],
                           generator: Optional[torch.Generator] = None,
                           uniforms: Optional[Sequence[torch.Tensor]] = None,
-                          alias_table: Optional[torch.Tensor] = None
+                          alias_table: Optional[torch.Tensor] = None,
+                          gather: Optional[Callable] = None
                           ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """roots [B] int32 → (levels, adjs): levels[l] int32 rows (level 0
     the roots, level l+1 level l ++ the pool of layer_sizes[l]); adjs[l]
@@ -88,7 +89,10 @@ def sample_layerwise_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
     Â = A + I, the batch geometry LayerwiseDataFlow builds on the host
     and LayerEncoder reads. uniforms: one tensor per layer ([m_l], or
     [3, m_l] with alias_table), a replay; else drawn from `generator`
-    layer by layer."""
+    layer by layer. The pool draws are not over batch rows: inside
+    collectives.data_parallel every rank draws the same pools (the
+    caller passes the global roots). gather (make_table_gather) reads
+    row-sharded split tables; the alias draw takes replicated ones."""
     if uniforms is not None and len(uniforms) != len(layer_sizes):
         raise ValueError(f"need one uniforms tensor per layer "
                          f"({len(layer_sizes)}), got {len(uniforms)}")
@@ -101,10 +105,14 @@ def sample_layerwise_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
         shape = (m,) if alias_table is None else (3, m)
         u = draw_uniforms(shape, generator,
                           None if uniforms is None else uniforms[layer],
-                          roots.device)
-        rows = cur.long()
-        nbr = nbr_table[rows]                              # [n, C]
-        w = slot_weights(cum_table[rows])                  # [n, C]
+                          roots.device, batch_dim=None)
+        if gather is None:
+            rows = cur.long()
+            nbr = nbr_table[rows]                          # [n, C]
+            w = slot_weights(cum_table[rows])              # [n, C]
+        else:
+            nbr = gather(nbr_table, cur)
+            w = slot_weights(gather(cum_table, cur))
         # the pool expands the frontier (the last n_frontier rows of
         # cur); the adjacency below needs every row of cur
         nbr_f, w_f = nbr[-n_frontier:], w[-n_frontier:]

@@ -1,5 +1,5 @@
 """Device-resident neighbor sampling (counterpart of
-euler_tpu/parallel/device_sampler.py), replicated tables on one device.
+euler_tpu/parallel/device_sampler.py).
 
 Two tables live on the device: neighbor rows [N+1, C] int32 (each node's
 neighbors capped at C, front-packed, pad id N in empty slots) and their
@@ -24,20 +24,31 @@ give different uniforms from the same seed.
 
 The table builders are copies of the reference's numpy code, so a table
 built here is byte-identical to the reference's from the same CSR.
+
+On a mesh (parallel/mesh.py) the tables are replicated on every rank,
+or, with shard_rows=True, row-sharded over its 'model' axis
+(placement.put_row_sharded); reads of a row-sharded table go through
+make_table_gather (a masked local take and one SUM over 'model'), the
+`gather` argument of the draws. A draw over batch rows inside
+collectives.data_parallel takes its slice of the global batch's
+uniforms (draw_uniforms' batch_dim), so a sharded run picks what one
+process picks.
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from euler_tpu_torch.parallel import collectives
+from euler_tpu_torch.parallel.placement import (
+    put_replicated, put_row_sharded, row_shard,
+)
 from euler_tpu_torch.platform import DeviceLike, resolve_device
-
-_ROADMAP_SHARDED = "not ported yet: ROADMAP.md Queue A, 'Multi-GPU'"
 
 # Row-chunk sizes for table-scale host passes (reference: _CHUNK_ROWS,
 # _ALIAS_CHUNK_ROWS): the Vose build holds ~8 float64/int64 working
@@ -203,13 +214,6 @@ def _check_alias_layout(alias: bool, fused: bool, shard_rows: bool) -> None:
             "only: the alias draw derives pad from the table shape, "
             "which row-sharding pads to the model-axis multiple. Use "
             "the weighted inverse-CDF path with row-sharded tables.")
-
-
-def _check_layout(fused: bool, alias: bool, shard_rows: bool) -> None:
-    _check_alias_layout(alias, fused, shard_rows)
-    if shard_rows:
-        raise NotImplementedError(
-            f"row-sharded tables are {_ROADMAP_SHARDED}")
 
 
 def _vose_rows(w: np.ndarray, active: np.ndarray) -> np.ndarray:
@@ -387,8 +391,11 @@ class DeviceNeighborTable:
     fused=True places only the [N+1, 2C] fused table (fused_table;
     neighbors and cum_weights are None), as the reference's _place
     does. alias=True also places the [N+1, C] alias table
-    (alias_table); it needs the split layout. Row-sharded tables
-    (shard_rows=True) are not ported yet.
+    (alias_table); it needs the split layout. mesh: the tables go to
+    the mesh's device, replicated, or with shard_rows=True row-sharded
+    over its 'model' axis (the split or the fused tables; the alias
+    layout refuses it, as the reference's does). pad_row stays the
+    data's pad row N whatever the padding.
 
     patch_rows(graph, dirty_ids) re-derives the rows of a delta's dirty
     ids after graph.apply_delta, as the reference's does; it binds new
@@ -397,9 +404,10 @@ class DeviceNeighborTable:
     def __init__(self, graph, cap: int = 32, edge_types=None,
                  seed: int = 0, keep_host: bool = False,
                  shard_rows: bool = False, fused: bool = False,
-                 alias: bool = False, device: DeviceLike = None):
-        _check_layout(fused, alias, shard_rows)
-        dev = resolve_device(device)
+                 alias: bool = False, device: DeviceLike = None,
+                 mesh=None):
+        _check_alias_layout(alias, fused, shard_rows)
+        dev = self._mesh_device(mesh, device, shard_rows)
         ids = graph.all_node_ids()
         n = len(ids)
         offs, nbrs, ws, _ = graph.get_full_neighbor(ids, edge_types)
@@ -416,17 +424,19 @@ class DeviceNeighborTable:
                  weights: Optional[np.ndarray] = None, cap: int = 32,
                  seed: int = 0, device: DeviceLike = None,
                  keep_host: bool = False, fused: bool = False,
-                 alias: bool = False) -> "DeviceNeighborTable":
+                 alias: bool = False, mesh=None,
+                 shard_rows: bool = False) -> "DeviceNeighborTable":
         """Build from CSR adjacency: node i's neighbor rows are
         neighbors[offsets[i]:offsets[i+1]] (values in [0, N], N = pad),
         with edge weights (default 1). Same tables as the reference's
         DeviceNeighborTable(graph, cap, seed, fused, alias) over that
         adjacency; the alias words come from the exact slot weights,
         before the cumsum, as the reference builds them. keep_host
-        keeps the numpy split tables as host_tables."""
-        _check_layout(fused, alias, False)
-        dev = resolve_device(device)
+        keeps the numpy split tables as host_tables. mesh / shard_rows:
+        the constructor's."""
+        _check_alias_layout(alias, fused, shard_rows)
         self = cls.__new__(cls)
+        dev = self._mesh_device(mesh, device, shard_rows)
         self._build(offsets, neighbors, weights, cap, seed, dev, keep_host,
                     fused, alias)
         return self
@@ -465,12 +475,12 @@ class DeviceNeighborTable:
     def from_arrays(cls, nbr_tab: np.ndarray, cum_tab: np.ndarray,
                     stats: Optional[dict] = None,
                     device: DeviceLike = None, fused: bool = False,
-                    alias: bool = False,
-                    shard_rows: bool = False) -> "DeviceNeighborTable":
+                    alias: bool = False, shard_rows: bool = False,
+                    mesh=None) -> "DeviceNeighborTable":
         """Upload prebuilt [N+1, C] tables. uniform_rows comes from
         stats or is recomputed chunk-wise from the tables; alias=True
         builds the alias table from the cum rows, chunk-wise."""
-        _check_layout(fused, alias, shard_rows)
+        _check_alias_layout(alias, fused, shard_rows)
         stats = dict(stats or {})
         if stats.get("uniform_rows") is None:
             pad = int(nbr_tab.shape[0]) - 1
@@ -490,13 +500,27 @@ class DeviceNeighborTable:
                                        cum_tab=np.asarray(cum_tab)) \
             if alias else None
         self = cls.__new__(cls)
+        dev = self._mesh_device(mesh, device, shard_rows)
         self._place(np.ascontiguousarray(nbr_tab, np.int32),
                     np.ascontiguousarray(cum_tab, np.float32),
-                    stats, resolve_device(device), fused, alias_tab)
+                    stats, dev, fused, alias_tab)
         # prebuilt tables carry no build provenance: patch_rows assumes
         # seed 0 and no edge-type filter, as the reference's from_arrays
         self._seed, self._edge_types = 0, None
         return self
+
+    def _mesh_device(self, mesh, device: DeviceLike,
+                     shard_rows: bool) -> torch.device:
+        """Where the tables go (the mesh's device, else `device`); keeps
+        the mesh and the placement for _place."""
+        self._mesh, self.shard_rows = mesh, bool(shard_rows)
+        return mesh.device if mesh is not None else resolve_device(device)
+
+    def _put(self, a: np.ndarray, dev: torch.device) -> torch.Tensor:
+        mesh = getattr(self, "_mesh", None)
+        if getattr(self, "shard_rows", False):
+            return put_row_sharded(a, mesh, device=dev)
+        return put_replicated(a, mesh, dev)
 
     def _place(self, nbr_tab: np.ndarray, cum_tab: np.ndarray, stats: dict,
                dev: torch.device, fused: bool = False,
@@ -511,13 +535,13 @@ class DeviceNeighborTable:
         if self.fused:
             # one [N+1, 2C] table, one row gather per hop; the split
             # views are not uploaded (reference _place)
-            self.fused_table = torch.from_numpy(
-                fuse_tables_host(nbr_tab, cum_tab)).to(dev)
+            self.fused_table = self._put(
+                fuse_tables_host(nbr_tab, cum_tab), dev)
             self.neighbors = self.cum_weights = None
         else:
             self.fused_table = None
-            self.neighbors, self.cum_weights = _upload(nbr_tab, dev), \
-                _upload(cum_tab, dev)
+            self.neighbors, self.cum_weights = self._put(nbr_tab, dev), \
+                self._put(cum_tab, dev)
         self.alias_table = None if alias_tab is None else \
             _upload(alias_tab, dev)
         self.host_tables = None
@@ -557,12 +581,12 @@ class DeviceNeighborTable:
         table.tables)` merges the new ones, and the loop then captures
         again. Kept host_tables are patched in place without growth.
 
-        Split tables only: the fused layout raises the reference's
-        ValueError (row-sharded tables are not built by the port).
+        Replicated split tables only: the fused and the row-sharded
+        layouts raise the reference's ValueError.
         uniform_rows can only turn False, max_degree tracks the max.
         Counted as alias_rows_patched_total. Returns {rows_patched,
         rows_total, grown_rows, rebuild_frac, upload}."""
-        if self.fused:
+        if self.fused or getattr(self, "shard_rows", False):
             raise ValueError(
                 "patch_rows supports replicated split tables only — the "
                 "fused bitcast layout and row-sharded shape padding "
@@ -710,14 +734,17 @@ def _alias_pick(alias_rows: torch.Tensor, u1: torch.Tensor,
 
 
 def draw_uniforms(shape, generator: Optional[torch.Generator],
-                  uniforms: Optional[torch.Tensor], device) -> torch.Tensor:
+                  uniforms: Optional[torch.Tensor], device,
+                  batch_dim: Optional[int] = 0) -> torch.Tensor:
     """A draw's uniforms: the given ones (a replay, checked against
-    `shape`), else `shape` float32 uniforms from the generator."""
+    `shape`), else `shape` float32 uniforms from the generator. Inside
+    collectives.data_parallel, shape[batch_dim] counts this rank's batch
+    rows and the draw is its slice of the global batch's (batch_dim
+    None: a draw that is not over batch rows)."""
     if uniforms is None:
         if generator is None:
             raise ValueError("a draw needs uniforms or a generator")
-        return torch.rand(shape, generator=generator, device=device,
-                          dtype=torch.float32)
+        return collectives.draw_rows(shape, generator, device, batch_dim)
     if tuple(uniforms.shape) != tuple(shape):
         raise ValueError(f"uniforms must be {list(shape)}, got "
                          f"{list(uniforms.shape)}")
@@ -729,7 +756,8 @@ def sample_hop(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                uniforms: Optional[torch.Tensor] = None,
                uniform: bool = False,
-               alias_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+               alias_table: Optional[torch.Tensor] = None,
+               gather: Optional[Callable] = None) -> torch.Tensor:
     """One neighbor draw per (row, slot): rows [n] → [n * count] int32.
 
     uniforms: [n, count] float32 in [0, 1) ([2, n, count] for the alias
@@ -742,17 +770,28 @@ def sample_hop(nbr_table: torch.Tensor, cum_table: torch.Tensor,
     cum-row gather. alias_table: the Vose alias draw (_alias_pick) over
     the table's packed words, a flat pick for count < 4 and a row pick
     for count >= 4, dead rows resolved to pad; it excludes
-    uniform=True, as in the reference."""
+    uniform=True, as in the reference. gather (make_table_gather) reads
+    row-sharded tables: the weighted draw over full gathered rows; the
+    alias and uniform draws derive the pad from the table's shape and
+    refuse it, with the reference's messages."""
     n = rows.shape[0]
     C = nbr_table.shape[1]
     idx = rows.long()
     if alias_table is not None:
+        if gather is not None:
+            raise ValueError(
+                "sample_hop(alias_table=...) supports replicated tables "
+                "only: the alias draw resolves dead rows to the pad id "
+                "derived from the table shape, which row-sharding pads "
+                "to the model-axis multiple. Use the weighted path "
+                "(alias_table=None) with row-sharded tables.")
         if uniform:
             raise ValueError(
                 "sample_hop: uniform=True and alias_table are exclusive "
                 "— resolve the precedence at the call site (the alias "
                 "draw already covers unit-weight tables)")
-        u = draw_uniforms((2, n, count), generator, uniforms, rows.device)
+        u = draw_uniforms((2, n, count), generator, uniforms, rows.device,
+                          batch_dim=1)
         col, deg = _alias_pick(alias_table[idx], u[0], u[1])
         pad = nbr_table.shape[0] - 1
         if count < 4:
@@ -762,8 +801,17 @@ def sample_hop(nbr_table: torch.Tensor, cum_table: torch.Tensor,
         # dead rows (zero degree / zero total weight) resolve to pad
         return torch.where(deg[:, None] > 0, out,
                            torch.full_like(out, pad)).reshape(-1)
+    if uniform and gather is not None:
+        raise ValueError(
+            "sample_hop(uniform=True) supports replicated tables "
+            "only: a row-sharded table's row count is padded to the "
+            "model-axis multiple, so the pad id cannot be derived "
+            "from its shape. Use the weighted path (uniform=False) "
+            "with row-sharded tables.")
     uniforms = draw_uniforms((n, count), generator, uniforms, rows.device)
-    nbr = nbr_table[idx]                                   # [n, C]
+    take = (lambda t: t[idx]) if gather is None else \
+        (lambda t: gather(t, rows))
+    nbr = take(nbr_table)                                  # [n, C]
     if uniform:
         pad = nbr_table.shape[0] - 1
         deg = (nbr != pad).sum(-1).to(torch.float32)       # [n]
@@ -771,7 +819,7 @@ def sample_hop(nbr_table: torch.Tensor, cum_table: torch.Tensor,
             (uniforms * deg[:, None]).to(torch.int32),
             (deg[:, None].to(torch.int32) - 1).clamp_min(0))
     else:
-        cum = cum_table[idx]                               # [n, C]
+        cum = take(cum_table)                              # [n, C]
         u = uniforms * cum[:, -1:]                         # [n, k]
         col = (cum[:, None, :] <= u[:, :, None]).sum(-1)   # [n, k]
         col = col.clamp(0, C - 1)
@@ -783,12 +831,14 @@ def sample_fanout_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        uniforms: Optional[Sequence[torch.Tensor]] = None,
                        uniform: bool = False,
-                       alias_table: Optional[torch.Tensor] = None
+                       alias_table: Optional[torch.Tensor] = None,
+                       gather: Optional[Callable] = None
                        ) -> List[torch.Tensor]:
     """Multi-hop fanout: [roots, hop1, hop2, ...], layer h holding
     roots.shape[0] * prod(fanouts[:h]) rows. uniforms: optional one
     tensor per hop ([n_h, k_h], or [2, n_h, k_h] with alias_table; a
-    replay); else each hop draws from `generator` in hop order."""
+    replay); else each hop draws from `generator` in hop order. gather:
+    as sample_hop's."""
     if uniforms is not None and len(uniforms) != len(fanouts):
         raise ValueError(f"need one uniforms tensor per hop "
                          f"({len(fanouts)}), got {len(uniforms)}")
@@ -798,24 +848,29 @@ def sample_fanout_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
         cur = sample_hop(nbr_table, cum_table, cur, int(k),
                          generator=generator,
                          uniforms=None if uniforms is None else uniforms[h],
-                         uniform=uniform, alias_table=alias_table)
+                         uniform=uniform, alias_table=alias_table,
+                         gather=gather)
         layers.append(cur)
     return layers
 
 
 def sample_hop_fused(fused_table: torch.Tensor, rows: torch.Tensor,
                      count: int, generator: Optional[torch.Generator] = None,
-                     uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     uniforms: Optional[torch.Tensor] = None,
+                     gather: Optional[Callable] = None) -> torch.Tensor:
     """sample_hop's inverse-CDF draw over a fused [N+1, 2C] table: one
     row gather gives the C neighbor ids and, bit-cast back to float32
     (exact), the C cumulative weights. uniforms [n, count] as
     sample_hop's; the picks equal the split tables' weighted picks for
-    the same uniforms. Counterpart of
+    the same uniforms. gather (make_table_gather) reads a row-sharded
+    fused table: one masked take and one SUM a hop, exact on the int32
+    words. Counterpart of
     euler_tpu/parallel/device_sampler.py:sample_hop_fused."""
     C = fused_table.shape[1] // 2
     n = rows.shape[0]
     u = draw_uniforms((n, count), generator, uniforms, rows.device)
-    row = fused_table[rows.long()]                         # [n, 2C]
+    row = fused_table[rows.long()] if gather is None \
+        else gather(fused_table, rows)                     # [n, 2C]
     nbr = row[:, :C]
     cum = row[:, C:].view(torch.float32)
     u = u * cum[:, -1:]
@@ -826,10 +881,11 @@ def sample_hop_fused(fused_table: torch.Tensor, rows: torch.Tensor,
 def sample_fanout_rows_fused(fused_table: torch.Tensor, roots: torch.Tensor,
                              fanouts: Sequence[int],
                              generator: Optional[torch.Generator] = None,
-                             uniforms: Optional[Sequence[torch.Tensor]] = None
+                             uniforms: Optional[Sequence[torch.Tensor]] = None,
+                             gather: Optional[Callable] = None
                              ) -> List[torch.Tensor]:
     """sample_fanout_rows over a fused table (counterpart of the
-    reference's sample_fanout_rows_fused)."""
+    reference's sample_fanout_rows_fused); gather as sample_hop_fused's."""
     if uniforms is not None and len(uniforms) != len(fanouts):
         raise ValueError(f"need one uniforms tensor per hop "
                          f"({len(fanouts)}), got {len(uniforms)}")
@@ -838,7 +894,7 @@ def sample_fanout_rows_fused(fused_table: torch.Tensor, roots: torch.Tensor,
     for h, k in enumerate(fanouts):
         cur = sample_hop_fused(fused_table, cur, int(k), generator=generator,
                                uniforms=None if uniforms is None
-                               else uniforms[h])
+                               else uniforms[h], gather=gather)
         layers.append(cur)
     return layers
 
@@ -849,3 +905,79 @@ def slot_weights(cum_rows: torch.Tensor) -> torch.Tensor:
     euler_tpu/parallel/device_sampler.py:slot_weights)."""
     return torch.diff(cum_rows, dim=1,
                       prepend=torch.zeros_like(cum_rows[:, :1]))
+
+
+def is_model_sharded(mesh, axis: str = "model") -> bool:
+    """True when `mesh` has a non-trivial model axis: tables built
+    against it are row-sharded and reads go through make_table_gather's
+    masked take + SUM (the one definition of the rule)."""
+    return mesh is not None and mesh.size(axis) > 1
+
+
+def make_table_gather(mesh=None, axis: str = "model",
+                      hub_cache: Optional[torch.Tensor] = None) -> Callable:
+    """gather(table, rows) → table[rows] (rows of any shape; the trailing
+    table dims follow) for device tables (counterpart of
+    euler_tpu/parallel/device_sampler.py:make_table_gather).
+
+    Replicated tables (mesh None or a trivial model axis): a plain
+    local take. Row-sharded ones (placement.put_row_sharded): each rank
+    takes the rows of its slice, zeros elsewhere, and one SUM over the
+    model group (collectives.model_sum, an identity backward) gives
+    every rank the full rows: exact, one contributor a row, ints and
+    int8 included. rows are this rank's data slice, the same on every
+    rank of its model group. A table without the shard's record must
+    have a row count the axis divides (the reference's check and
+    message), and is read as the padded table whose slice each rank
+    takes. hub_cache (a replicated copy of the table's first H rows,
+    PartitionedFeatureStore's layout) routes rows < H cache-first
+    (partitioned_store.hub_routed_take)."""
+
+    def local(tab, rows):
+        return tab[rows.long()]
+
+    if not is_model_sharded(mesh, axis):
+        base = local
+    else:
+        mp, me = mesh.size(axis), mesh.index(axis)
+        group = mesh.group(axis)
+
+        def base(tab, rows):
+            info = row_shard(tab)
+            if info is None:
+                if tab.shape[0] % mp:
+                    raise ValueError(
+                        f"make_table_gather: table has {tab.shape[0]} rows, "
+                        f"not divisible by the '{axis}' axis size {mp}. "
+                        "Row-sharded tables must be placed with "
+                        "placement.put_row_sharded (which pads rows to a "
+                        "multiple of the axis); a replicated table should "
+                        "use the local-take path (model table_mesh=None / "
+                        "shard_rows=False throughout)")
+                per = tab.shape[0] // mp
+                lo, tab = me * per, tab[me * per:(me + 1) * per]
+            else:
+                per, lo = info.rows, info.lo
+            loc = rows.long() - lo
+            ok = (loc >= 0) & (loc < per)
+            out = tab[loc.clamp(0, per - 1)]
+            mask = ok.reshape(tuple(ok.shape) + (1,) * (tab.dim() - 1))
+            out = out.masked_fill(~mask, 0)
+            return collectives.model_sum(out, group)
+
+    if hub_cache is not None:
+        from euler_tpu_torch.parallel.partitioned_store import (
+            hub_routed_take,
+        )
+
+        return hub_routed_take(base, hub_cache)
+    return base
+
+
+def read_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """table[rows]: a local take, or for a row-sharded table (one that
+    carries placement's row_shard) make_table_gather over its mesh."""
+    info = row_shard(table)
+    if info is None:
+        return table[rows.long()]
+    return make_table_gather(info.mesh, info.axis)(table, rows)

@@ -13,11 +13,16 @@ JAX package's.
 
 Dead ends stay at the table's pad row; the models mask pairs that
 touch it out of the loss and the metric.
+
+Row-sharded walk tables are read through make_table_gather (walk_rows'
+gather), as the reference's; the node sampler's tables stay replicated
+(O(N) scalars). Inside collectives.data_parallel every draw over batch
+rows is this rank's slice of the global batch's.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +54,8 @@ class DeviceNodeSampler:
     reference too."""
 
     def __init__(self, graph, node_type: int = -1,
-                 device: DeviceLike = None):
-        dev = resolve_device(device)
+                 device: DeviceLike = None, mesh=None):
+        dev = mesh.device if mesh is not None else resolve_device(device)
         ids = graph.all_node_ids()
         types = graph.get_node_type(ids) if node_type >= 0 else None
         self._fill(graph.all_node_weights(), types, node_type, dev)
@@ -108,7 +113,8 @@ def walk_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
               uniforms: Optional[Sequence[torch.Tensor]] = None,
               p: float = 1.0, q: float = 1.0,
               uniform: bool = False,
-              alias_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+              alias_table: Optional[torch.Tensor] = None,
+              gather: Optional[Callable] = None) -> torch.Tensor:
     """[B] roots → [B, walk_len + 1] row walks, column 0 the roots.
 
     uniforms: optional one tensor per step (a replay): [B], or [2, B]
@@ -136,18 +142,23 @@ def walk_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
                          f"got {len(uniforms)}")
     B = roots.shape[0]
     C = nbr_table.shape[1]
-    unif = uniform and alias_table is None
+    alias_table = alias_table if gather is None else None
+    unif = uniform and alias_table is None and gather is None
+
+    def take(tab, r):
+        return tab[r.long()] if gather is None else gather(tab, r)
 
     def step_u(i, shape):
         return draw_uniforms(shape, generator,
-                         None if uniforms is None else uniforms[i],
-                         roots.device)
+                             None if uniforms is None else uniforms[i],
+                             roots.device, batch_dim=len(shape) - 1)
 
     def draw(rows, i):
         shape = (B,) if alias_table is None else (2, B)
         u = step_u(i, shape).reshape(*shape[:-1], B, 1)
         return sample_hop(nbr_table, cum_table, rows, 1, uniforms=u,
-                          uniform=unif, alias_table=alias_table)
+                          uniform=unif, alias_table=alias_table,
+                          gather=gather)
 
     cols = [roots]
     cur = draw(roots, 0)
@@ -158,9 +169,9 @@ def walk_rows(nbr_table: torch.Tensor, cum_table: torch.Tensor,
             nxt = draw(cur, i)
         else:
             u = step_u(i, (B,))
-            cand = nbr_table[cur.long()]                      # [B, C]
-            w = slot_weights(cum_table[cur.long()])           # [B, C]
-            prev_nbr = nbr_table[prev.long()]                 # [B, C]
+            cand = take(nbr_table, cur)                       # [B, C]
+            w = slot_weights(take(cum_table, cur))            # [B, C]
+            prev_nbr = take(nbr_table, prev)                  # [B, C]
             is_prev = cand == prev[:, None]
             in_prev_nbr = (cand[:, :, None]
                            == prev_nbr[:, None, :]).any(-1)

@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from euler_tpu_torch.parallel.placement import put_row_sharded
 from euler_tpu_torch.platform import DeviceLike, resolve_device
 
 
@@ -54,16 +55,24 @@ class DeviceFeatureStore:
     present; labels: optional [N+1, C] likewise. ids: sorted uint64
     node ids backing lookup(); when omitted, node ids are the table
     rows. quantize="int8" stores int8 with a per-column scale kept in
-    scale_dtype (the dtype features are computed in)."""
+    scale_dtype (the dtype features are computed in).
+
+    mesh: the tables go to the mesh's device, replicated, or with
+    shard_rows=True the feature (int8 included) and label tables
+    row-sharded over its 'model' axis (placement.put_row_sharded; the
+    reference's feature_store.py:72-105, 126-164); the int8 scale is
+    replicated, computed over the whole table, so a sharded read
+    dequantizes to the replicated one's bytes."""
 
     def __init__(self, graph, feature_ids: Sequence, label_fid=None,
                  label_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  keep_host: bool = False, quantize: Optional[str] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None,
+                 shard_rows: bool = False):
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        dev = resolve_device(device)
+        dev = self._placement(mesh, device, shard_rows)
         ids = graph.all_node_ids()
         feats = graph.get_dense_feature(ids, list(feature_ids))
         if isinstance(feats, list):
@@ -86,6 +95,18 @@ class DeviceFeatureStore:
         self._graph = graph
         self.host_arrays = (feats, labels) if keep_host else None
 
+    def _placement(self, mesh, device: DeviceLike,
+                   shard_rows: bool) -> torch.device:
+        self._mesh, self.shard_rows = mesh, bool(shard_rows)
+        return mesh.device if mesh is not None else resolve_device(device)
+
+    def _put(self, x, dev: torch.device) -> torch.Tensor:
+        if self.shard_rows:
+            return put_row_sharded(x, self._mesh, device=dev)
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
     def _fill(self, features, labels, quantize, scale_dtype, dev) -> None:
         self.device = dev
         self.pad_row = int(features.shape[0]) - 1
@@ -95,20 +116,17 @@ class DeviceFeatureStore:
                 features.float().numpy() if isinstance(
                     features, torch.Tensor)
                 else np.asarray(features, np.float32))
-            self.features = torch.from_numpy(q).to(dev)
+            self.features = self._put(q, dev)
             self.feature_scale = torch.from_numpy(scale).to(
                 dev, scale_dtype)
         elif quantize is not None:
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        elif isinstance(features, torch.Tensor):
-            self.features = features.to(dev)
         else:
-            self.features = torch.from_numpy(
-                np.ascontiguousarray(features)).to(dev)
+            self.features = self._put(features, dev)
         self.labels = None
         if labels is not None:
-            self.labels = torch.from_numpy(np.ascontiguousarray(
-                labels.astype(np.float32, copy=False))).to(dev)
+            self.labels = self._put(
+                labels.astype(np.float32, copy=False), dev)
 
     @classmethod
     def from_arrays(cls, features: np.ndarray,
@@ -116,9 +134,10 @@ class DeviceFeatureStore:
                     ids: Optional[np.ndarray] = None,
                     quantize: Optional[str] = None,
                     scale_dtype: torch.dtype = torch.float32,
-                    device: DeviceLike = None) -> "DeviceFeatureStore":
-        dev = resolve_device(device)
+                    device: DeviceLike = None, mesh=None,
+                    shard_rows: bool = False) -> "DeviceFeatureStore":
         self = cls.__new__(cls)
+        dev = self._placement(mesh, device, shard_rows)
         self._fill(features, labels, quantize, scale_dtype, dev)
         self.ids = ids if ids is not None else np.arange(
             self.pad_row, dtype=np.uint64)

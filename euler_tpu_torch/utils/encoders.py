@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from euler_tpu_torch.parallel import collectives
+from euler_tpu_torch.parallel.placement import row_shard
 from euler_tpu_torch.ops.gather_mean import gather_mean
 from euler_tpu_torch.utils.aggregators import get_aggregator
 from euler_tpu_torch.utils.layers import (
@@ -261,11 +263,19 @@ class _ScalableCache(nn.Module):
     (`staged`) until the estimator settles the step: a step the
     nonfinite guard skips puts them back (`settle`), as the reference
     keeps its old collection. The next `neighbor_mean` of the same
-    forward reads the written rows through `_WrittenRowsMean`."""
+    forward reads the written rows through `_WrittenRowsMean`.
+
+    Inside collectives.data_parallel a write is the global batch's (the
+    data axis's ids and values gathered in rank order; the values'
+    gradient goes back to the ranks that computed them), so every
+    replica writes the same rows. models.graphsage.shard_act_cache
+    row-shards "h" over a mesh's model axis (`mesh`): reads go through
+    make_table_gather and each rank writes the rows it owns."""
 
     def __init__(self, max_id: int, dim: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.mesh = None
         self.num_rows = int(max_id) + 1
         self.register_buffer("h", torch.zeros((self.num_rows, dim),
                                               dtype=dtype))
@@ -280,9 +290,18 @@ class _ScalableCache(nn.Module):
         return bucketize_ids(ids, self.num_rows)
 
     def read(self, ids: torch.Tensor) -> torch.Tensor:
+        if row_shard(self.h) is not None:
+            from euler_tpu_torch.parallel.device_sampler import (
+                make_table_gather,
+            )
+
+            return make_table_gather(self.mesh)(
+                self.h, self.rows(ids)).to(torch.float32)
         return self.h[self.rows(ids).long()].to(torch.float32)
 
     def write(self, ids: torch.Tensor, vals: torch.Tensor) -> None:
+        ids = collectives.global_rows(ids)
+        vals = collectives.global_rows_summed(vals)
         rows = self.rows(ids).long()
         b = rows.shape[0]
         srt, perm = torch.sort(rows, stable=True)
@@ -293,8 +312,15 @@ class _ScalableCache(nn.Module):
         last = torch.where(is_last, pos, b).flip(0).cummin(0).values.flip(0)
         winner = torch.empty_like(perm).scatter_(0, perm, perm[last])
         won = vals[winner]
-        self.staged = (rows, self.h[rows])
-        self.h.index_put_((rows,), won.detach().to(self.h.dtype))
+        info = row_shard(self.h)
+        mine, put = rows, won.detach()
+        if info is not None:
+            # the rows this rank's shard owns
+            local = rows - info.lo
+            ok = (local >= 0) & (local < info.rows)
+            mine, put = local[ok], put[ok]
+        self.staged = (mine, self.h[mine])
+        self.h.index_put_((mine,), put.to(self.h.dtype))
         self._written = (rows, won, winner)
 
     def settle(self, skip: Optional[torch.Tensor]) -> None:

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from euler_tpu_torch.parallel import collectives
+
 # flax lecun_normal = variance_scaling(1, "fan_in", "truncated_normal"):
 # a normal truncated at ±2 std, rescaled by this constant (the std of a
 # unit normal truncated to [-2, 2]) so the kept values have variance 1/fan_in
@@ -47,17 +49,20 @@ class Dense(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            batch_dim: Optional[int] = None) -> torch.Tensor:
     """flax nn.Dropout in training: keep each unit with probability
     1 - rate, scaled by 1 / (1 - rate), the mask drawn from `generator`
     (the batch's dropout_generator, the estimator's step stream). Its
-    bits are torch's, not JAX's."""
+    bits are torch's, not JAX's. batch_dim: x's dimension over batch
+    rows, whose mask inside collectives.data_parallel is this rank's
+    slice of the global batch's."""
     if generator is None:
         raise ValueError("dropout in training mode needs the batch's "
                          "dropout_generator (the estimator's step "
                          "stream)")
     keep_p = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = collectives.draw_rows(x.shape, generator, x.device, batch_dim)
     return torch.where(u < keep_p, x / keep_p, torch.zeros_like(x))
 
 

@@ -8,6 +8,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from euler_tpu_torch.parallel import collectives
+
 __all__ = ["accuracy", "auc", "f1_score", "micro_f1", "mrr", "mr",
            "hit_at_k", "masked_mean", "get_metric"]
 
@@ -15,11 +17,18 @@ __all__ = ["accuracy", "auc", "f1_score", "micro_f1", "mrr", "mr",
 def masked_mean(x: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean of x over rows where mask (0/1, any shape raveling to [B])
-    is set; the plain mean when mask is None."""
+    is set; the plain mean when mask is None. Inside
+    collectives.data_parallel x holds this rank's rows of the global
+    batch: the mean is the local sum over the global count (the count
+    all-reduced over 'data'), so the ranks' losses add up to the
+    global batch's mean."""
+    shard = collectives.data_shard()
     if mask is None:
-        return x.mean()
+        if shard is None:
+            return x.mean()
+        return x.sum() / (x.numel() * shard.size)
     m = mask.reshape(-1).to(torch.float32)
-    return (x * m).sum() / m.sum().clamp_min(1.0)
+    return (x * m).sum() / collectives.global_count(m.sum()).clamp_min(1.0)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,
@@ -60,7 +69,8 @@ def micro_f1(logits: torch.Tensor, labels: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Micro-averaged F1 for multilabel (thresholded) or multiclass
     (argmax vs integer labels) predictions. mask [B] (0/1) drops padded
-    rows from every tp/fp/fn count."""
+    rows from every tp/fp/fn count. Inside collectives.data_parallel it
+    is this rank's share of the global batch's F1."""
     if logits.dim() > 1 and labels.dim() == 1:
         c = logits.shape[-1]
         pred = F.one_hot(logits.argmax(-1), c).to(torch.float32)
@@ -76,7 +86,11 @@ def micro_f1(logits: torch.Tensor, labels: torch.Tensor,
     tp = (pred * lab).sum()
     fp = (pred * (1 - lab)).sum()
     fn = ((1 - pred) * lab).sum()
-    return 2 * tp / (2 * tp + fp + fn).clamp_min(1.0)
+    # inside collectives.data_parallel: this rank's share, its 2·tp over
+    # the global batch's denominator (the ranks' shares add up to the
+    # global batch's F1, as masked_mean's do)
+    den = collectives.global_count(2 * tp + fp + fn)
+    return 2 * tp / den.clamp_min(1.0)
 
 
 f1_score = micro_f1

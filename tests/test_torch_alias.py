@@ -243,9 +243,13 @@ def test_layout_rejections_are_the_references(weighted):
     with pytest.raises(ValueError, match="replicated"):
         P.DeviceNeighborTable.from_arrays(nbr, cum, device="cpu",
                                           alias=True, shard_rows=True)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        P.DeviceNeighborTable.from_arrays(nbr, cum, device="cpu",
-                                          shard_rows=True)
+    # without a mesh, shard_rows places replicated tables, as the
+    # reference's put_row_sharded(x, None) does
+    plain = P.DeviceNeighborTable.from_arrays(nbr, cum, device="cpu")
+    rows = P.DeviceNeighborTable.from_arrays(nbr, cum, device="cpu",
+                                             shard_rows=True)
+    for k, t in plain.tables.items():
+        assert torch.equal(rows.tables[k], t)
     alias = _t(P.build_alias_tables(nbr, w_tab=w))
     r = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="exclusive"):

@@ -283,8 +283,18 @@ def test_neighbor_tables_from_an_engine_match_the_reference(graphs, layout):
             got.edge_keep_frac, got.max_degree) == (
         want.pad_row, want.cap, want.uniform_rows, want.hub_frac,
         want.edge_keep_frac, want.max_degree)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        DeviceNeighborTable(pg, device="cpu", shard_rows=True)
+    # without a mesh, shard_rows places the same tables replicated, as
+    # the reference's put_row_sharded(x, None) does; the alias layout
+    # refuses row sharding, as the reference's does
+    if layout.get("alias"):
+        with pytest.raises(ValueError, match="replicated"):
+            DeviceNeighborTable(pg, cap=8, device="cpu", shard_rows=True,
+                                **layout)
+    else:
+        for k, t in DeviceNeighborTable(pg, cap=8, device="cpu",
+                                        shard_rows=True,
+                                        **layout).tables.items():
+            _same(t.numpy(), _np(want.tables[k]))
     with pytest.raises(ValueError, match="split"):
         DeviceNeighborTable(pg, device="cpu", fused=True, alias=True)
 

@@ -214,8 +214,9 @@ def test_deepest_hop_goes_through_neighbor_mean():
                                 {"aggregator": "maxpool"}])
 def test_unported_options_raise(kw):
     """The gcn and genie encoders and the pool aggregators are ported
-    now: the model builds and runs a forward. What the port still lacks
-    raises, naming its ROADMAP item: row-sharded tables."""
+    now: the model builds and runs a forward. shard_rows without a mesh
+    places replicated tables, as the reference's does (row-sharded
+    tables on a mesh: tests/test_torch_parallel.py)."""
     g, feats, labels = _graph()
     m = DeviceSampledGraphSage(CLASSES, D, dim=DIM, fanouts=FANOUTS,
                                generator=torch.Generator().manual_seed(0),
@@ -230,10 +231,13 @@ def test_unported_options_raise(kw):
                  "label_table": store.labels})
     assert out.embedding.shape == (B, m.encoder.out_dim)
     assert torch.isfinite(out.loss)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceNeighborTable.from_arrays(np.zeros((3, 2), np.int32),
+    # without a mesh, shard_rows places the tables replicated (the
+    # reference's put_row_sharded(x, None))
+    t = DeviceNeighborTable.from_arrays(np.zeros((3, 2), np.int32),
                                         np.zeros((3, 2), np.float32),
                                         device="cpu", shard_rows=True)
+    assert t.neighbors.shape == (3, 2) and not hasattr(t.neighbors,
+                                                        "row_shard")
 
 
 def test_infer_sweep_padding_and_dedup_match_embed_all():

@@ -323,8 +323,9 @@ def test_eval_via_flow_batches_and_errors_match_the_reference(engines):
     ValueErrors; the eval sweep's host batches (levels, adjacencies,
     features, engine labels, masks) byte-identical to the reference's;
     evaluate() over them from the same parameters within rtol 1e-5.
-    The layerwise model refuses a fused-only batch and row-sharded
-    tables."""
+    The layerwise model refuses a fused-only batch, and over a mesh
+    whose model axis is trivial reads its tables as replicated ones
+    (row-sharded ones: tests/test_torch_parallel.py)."""
     pg, jg = engines
     with pytest.raises(ValueError, match="only applies with a "
                                          "device_sampler"):
@@ -363,8 +364,14 @@ def test_eval_via_flow_batches_and_errors_match_the_reference(engines):
     del fused["adjs"]
     with pytest.raises(ValueError, match="split nbr/cum"):
         est.model(fused)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        DeviceSampledLayerwiseGCN(C, D, table_mesh=object())
+    class _OneWide:  # a mesh whose model axis is 1: no process group
+        def size(self, axis):
+            return 1
+
+    from euler_tpu_torch.models.graphsage import table_reads
+
+    m = DeviceSampledLayerwiseGCN(C, D, table_mesh=_OneWide())
+    assert m.table_mesh is not None and table_reads(m.table_mesh) is None
 
 
 class _CpuLoop(GraphedLoop):

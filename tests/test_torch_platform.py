@@ -195,6 +195,8 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_nothing_of_euler_tpu():
     files = sorted((ROOT / "euler_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the gloo test jobs' ranks run the port alone too
+    files.append(ROOT / "tests" / "torch_dist_worker.py")
     assert len(files) > 10
     scanned = {str(f.relative_to(ROOT)) for f in files}
     for copy in ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
@@ -251,7 +253,14 @@ def test_port_imports_no_jax_and_nothing_of_euler_tpu():
                  "ops/feature_ops.py", "ops/type_ops.py",
                  "graph/__init__.py", "graph/remote.py",
                  "graph/pipeline.py", "graph/chaos.py",
-                 "graph/elastic.py", "tools/console.py"):
+                 "graph/elastic.py", "tools/console.py",
+                 "parallel/collectives.py", "parallel/mesh.py",
+                 "parallel/multihost.py", "parallel/placement.py",
+                 "parallel/ring_exchange.py",
+                 "parallel/sharded_embedding.py",
+                 "parallel/partitioned_store.py",
+                 "parallel/memory_plan.py", "parallel/train.py",
+                 "parallel/dryrun.py", "utils/hooks.py"):
         assert f"euler_tpu_torch/{copy}" in scanned
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(FORBIDDEN))

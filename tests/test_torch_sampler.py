@@ -178,15 +178,20 @@ def test_generator_draw_picks_real_neighbors():
 
 
 def test_unported_layouts_raise():
-    """Row-sharded tables are not ported and raise, naming their ROADMAP
-    item; the fused and alias layouts are ported and build (their own
-    tests: tests/test_torch_alias.py); alias with fused raises the
-    reference's ValueError."""
+    """Row-sharded tables build (without a mesh they are the replicated
+    ones, as the reference's put_row_sharded(x, None) places them; on a
+    mesh, tests/test_torch_parallel.py); the fused and alias layouts
+    build (their own tests: tests/test_torch_alias.py); alias with
+    fused, and alias with row sharding, raise the reference's
+    ValueError."""
     offsets, nbrs, ws = _csr(7)
     nbr_tab, _, cum = _jax_tables(offsets, nbrs, ws, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    sharded = P.DeviceNeighborTable.from_arrays(nbr_tab, cum, device="cpu",
+                                                shard_rows=True)
+    assert torch.equal(sharded.neighbors, torch.from_numpy(nbr_tab))
+    with pytest.raises(ValueError, match="replicated"):
         P.DeviceNeighborTable.from_arrays(nbr_tab, cum, device="cpu",
-                                          shard_rows=True)
+                                          alias=True, shard_rows=True)
     for kw, key in (({"fused": True}, "nbrcum_table"),
                     ({"alias": True}, "alias_table")):
         tab = P.DeviceNeighborTable.from_arrays(nbr_tab, cum, device="cpu",

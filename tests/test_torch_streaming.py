@@ -31,9 +31,7 @@ from euler_tpu_torch.estimator import StreamingDriver
 from euler_tpu_torch.estimator.base_estimator import BaseEstimator
 from euler_tpu_torch.graph import EngineError, GraphBuilder, delta_dirty_ids
 from euler_tpu_torch.mp_utils.base import ModelOutput
-from euler_tpu_torch.parallel.device_sampler import (
-    _ROADMAP_SHARDED, DeviceNeighborTable,
-)
+from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
 
 CAP, SEED = 4, 7
 
@@ -197,17 +195,15 @@ def test_patch_rows_of_unknown_ids_uploads_nothing():
 
 
 def test_patch_rows_refuses_the_fused_and_sharded_layouts():
-    """The fused layout raises the reference's ValueError; a row-sharded
-    table cannot be built in the port (it says which ROADMAP item)."""
+    """The fused and the row-sharded layouts raise the reference's
+    ValueError, in both packages."""
     pg, jg = _builder(GraphBuilder).finalize(), _builder(JBuilder).finalize()
-    for t, g in ((DeviceNeighborTable(pg, cap=CAP, fused=True,
-                                      device="cpu"), pg),
-                 (JTable(jg, cap=CAP, fused=True), jg)):
-        with pytest.raises(ValueError, match="replicated split"):
-            t.patch_rows(g, np.array([1], np.uint64))
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        DeviceNeighborTable(pg, cap=CAP, shard_rows=True, device="cpu")
-    assert "Multi-GPU" in _ROADMAP_SHARDED
+    for layout in ({"fused": True}, {"shard_rows": True}):
+        for t, g in ((DeviceNeighborTable(pg, cap=CAP, device="cpu",
+                                          **layout), pg),
+                     (JTable(jg, cap=CAP, **layout), jg)):
+            with pytest.raises(ValueError, match="replicated split"):
+                t.patch_rows(g, np.array([1], np.uint64))
 
 
 def test_alias_rows_counters_match_the_reference():

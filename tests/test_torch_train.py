@@ -515,12 +515,23 @@ def test_node_estimator_streams_and_splits():
 
 
 def test_estimators_need_cuda_by_default_and_refuse_unported(monkeypatch):
-    for cfg in ({"table_partition": 2}, {"hub_cache_frac": 0.1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the partitioned-table options are the reference's, with its
+    # validation (euler_tpu/estimator/base_estimator.py:159-178): a hub
+    # cache without a partition is refused
+    for cfg, match in (({"hub_cache_frac": 0.1}, "partitioned table"),
+                       ({"table_partition": 1, "hub_cache_frac": 0.1},
+                        "partitioned table"),
+                       ({"table_partition": -1}, ">= 0"),
+                       ({"table_partition": 2, "hub_cache_frac": 1.0},
+                        r"\[0, 1\)")):
+        with pytest.raises(ValueError, match=match):
             BaseEstimator(_model(), cfg, device="cpu")
     for cfg in ({"table_partition": 1}, {"hub_cache_frac": 0.0},
-                {"max_id": 0}, {"max_id": 100}):  # what the port does
-        BaseEstimator(_model(), cfg, device="cpu")
+                {"table_partition": 4, "hub_cache_frac": 0.05},
+                {"max_id": 0}, {"max_id": 100}):
+        est = BaseEstimator(_model(), cfg, device="cpu")
+        assert est.table_partition == cfg.get("table_partition", 0)
+        assert est.hub_cache_frac == cfg.get("hub_cache_frac", 0.0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BaseEstimator(_model(), {})

@@ -245,7 +245,8 @@ def test_unsup_sage_refuses_what_is_not_ported():
     now (tests/test_torch_encoders.py holds them against the reference):
     meanpool builds and trains a step over the fused table. The gcn
     aggregator raises TypeError, as the reference's SageEncoder does;
-    row-sharded tables raise, naming their ROADMAP item."""
+    the alias layout refuses row sharding, as the reference's does
+    (row-sharded tables themselves: tests/test_torch_parallel.py)."""
     g = _graph()
     feats = np.concatenate([g.features, np.zeros((1, D), np.float32)])
     tab = DeviceNeighborTable.from_csr(g.offsets, g.neighbors, cap=C,
@@ -259,10 +260,11 @@ def test_unsup_sage_refuses_what_is_not_ported():
     assert torch.isfinite(out.loss) and out.embedding.shape == (B, DIM)
     with pytest.raises(TypeError, match="concat"):
         DeviceSampledUnsupervisedSage(10, D, aggregator="gcn")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(ValueError, match="replicated"):
         DeviceNeighborTable.from_arrays(np.zeros((3, 2), np.int32),
                                         np.zeros((3, 2), np.float32),
-                                        device="cpu", shard_rows=True)
+                                        device="cpu", alias=True,
+                                        shard_rows=True)
 
 
 # -- the K-step loop's stream words --------------------------------------------
