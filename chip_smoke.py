@@ -229,10 +229,25 @@ Phases, in order; any failure raises and the exit code is not 0:
               one bit for bit, step 1's float32 gradients of the card
               and the CPU against float64 leaf by leaf, and float64
               with the mesh on the card against the CPU without one
-              (losses and parameters within 1e-9); memory_plan's
+              (losses and parameters within 1e-9); the meshed
+              flagship's state as the estimator writes it:
+              (i) the checkpoint its train() wrote under
+              build/chip_smoke_mesh (checkpoint_steps 64) against the
+              unmeshed one's, bit for bit, and restored into a fresh
+              meshed estimator bit for bit; (ii) export_bundle over 8
+              batches of infer_input_fn against the unmeshed bundle
+              (parameters, ids, embeddings bit for bit; gather_mean
+              once a forward); (iii) ShardedSupervisedGraphSage's
+              checkpoint (the 2,450,000-row id table and its Adam
+              moments) restored bit for bit; (iv) the activation-cache
+              estimator, 2 steps, shard_act_cache and refresh_act_cache
+              with the mesh against without, bit for bit, gather_mean's
+              launches a refresh; (v) LINE (split) and TransE
+              (replicated) as their runners build them, 3 steps with
+              the mesh against without, bit for bit; memory_plan's
               per-card bytes for the flagship's
               tables at 1 and 4 cards (arithmetic, not measured); the
-              process group destroyed
+              process group destroyed and the files removed
  10. quality  (in six worker processes started after phase 2 and joined
               after phase 9k (a), (c), before any timed phase: their
               runs are bound by the host and overlap the graph set-up;
@@ -335,7 +350,9 @@ import numpy as np
 import torch
 
 from euler_tpu_torch import obs
-from euler_tpu_torch.convert import gather_state_dict
+from euler_tpu_torch.convert import (
+    gather_optimizer_state_dict, gather_state_dict,
+)
 from euler_tpu_torch.core import lib as engine_lib
 from euler_tpu_torch.dataflow import FanoutDataFlow
 from euler_tpu_torch.dataset import engine_from_arrays, get_dataset
@@ -358,11 +375,15 @@ from euler_tpu_torch.examples.common import (
     ConvModel, full_batch_flow, root_input_fn,
 )
 from euler_tpu_torch.kernels import _build
-from euler_tpu_torch.models.embedding_models import DeviceSampledSkipGram
+from euler_tpu_torch.models.embedding_models import (
+    LINE, DeviceSampledSkipGram,
+)
+from euler_tpu_torch.models.kg_models import TransE
 from euler_tpu_torch.models.graphsage import (
     DeviceSampledGraphSage, DeviceSampledLayerwiseGCN,
     DeviceSampledScalableSage, DeviceSampledUnsupervisedSage,
     ShardedSupervisedGraphSage, SupervisedGraphSage, refresh_act_cache,
+    shard_act_cache,
 )
 from euler_tpu_torch.ops import gather_mean as gather_mean_module
 from euler_tpu_torch.ops.gather_mean import (
@@ -1361,21 +1382,23 @@ def with_layout(est, layout=None):
 
 
 def flagship_estimator(store, table, graph, dev, layout=None,
-                       uniform=None, mesh=None, **cfg):
+                       uniform=None, mesh=None, model_dir=None, **cfg):
     """The flagship model (random weights from seed 0) in a NodeEstimator
     over the path's tables (or a layout's, with_layout), with bench.py's
-    training parameters. uniform: the model's uniform_sampling (default
-    the table's uniform_rows, bench.py's auto)."""
+    training parameters (cfg overrides them). uniform: the model's
+    uniform_sampling (default the table's uniform_rows, bench.py's
+    auto)."""
     model = DeviceSampledGraphSage(
         NUM_CLASSES, FEAT_DIM, multilabel=False, dim=DIM, fanouts=FANOUTS,
         uniform_sampling=table.uniform_rows if uniform is None else uniform,
         generator=torch.Generator().manual_seed(0))
     return with_layout(NodeEstimator(
-        model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
-                    optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
-                    train_node_type=-1, seed=0, **cfg),
-        graph, None, feature_store=store, device_sampler=table,
-        device=dev, mesh=mesh), layout)
+        model, {**dict(batch_size=BATCH, learning_rate=TRAIN_LR,
+                       optimizer="adam", log_steps=1 << 30,
+                       checkpoint_steps=0, train_node_type=-1, seed=0),
+                **cfg},
+        graph, None, model_dir=model_dir, feature_store=store,
+        device_sampler=table, device=dev, mesh=mesh), layout)
 
 
 def phase_loop(store, table, graph, dev, k: int = LOOP_K) -> tuple:
@@ -1598,9 +1621,12 @@ def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
 
 
 # phase 9m: the mesh windows (K = LOOP_K), the sharded model's steps
-# (K = MESH_SHARDED_K) and the small card-vs-CPU check's roots and width
+# (K = MESH_SHARDED_K) and the small card-vs-CPU check's roots and width;
+# the export's bounded sweep (batches of infer_input_fn) and the steps of
+# the activation cache and the LINE and TransE runners' models
 MESH_WINDOWS, MESH_SHARDED_K, MESH_SHARDED_STEPS = 2, 4, 8
 MESH_ID_DIM, MESH_SMALL_ROOTS, MESH_SMALL_DIM, MESH_SMALL_LR = 16, 64, 16, 0.05
+MESH_EXPORT_STEPS, MESH_CACHE_STEPS, MESH_RUNNER_STEPS = 8, 2, 3
 
 
 def _sharded_sage(dim: int, device) -> torch.nn.Module:
@@ -1646,13 +1672,212 @@ def _replay_ms(est, batches, k: int, n: int = 3) -> float:
     return statistics.median(times)
 
 
+def _flat_state(model_sd: dict, opt_sd: dict) -> dict:
+    """{"model/<key>" or "opt/<index>/<key>": tensor} of a model and an
+    optimizer state_dict."""
+    out = {f"model/{k}": v for k, v in model_sd.items()}
+    for i, st in opt_sd["state"].items():
+        for k, v in st.items():
+            out[f"opt/{i}/{k}"] = v
+    return out
+
+
+def _live_state(est) -> dict:
+    """An estimator's whole model and optimizer state (gathered over its
+    mesh), on the CPU."""
+    return _flat_state(gather_state_dict(est.model),
+                       gather_optimizer_state_dict(est.optimizer))
+
+
+def _file_state(est) -> dict:
+    """The model and optimizer state of an estimator's latest
+    checkpoint file."""
+    p = torch.load(est._checkpoints()[-1][1], map_location="cpu",
+                   weights_only=True)
+    return _flat_state(p["model"], p["optimizer"])
+
+
+def _unequal(a: dict, b: dict) -> list:
+    """The keys of two flat states whose tensors differ in dtype, shape
+    or any bit (a key in one only counts)."""
+    def raw(t):
+        return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or a[k].shape != b[k].shape
+                  or not torch.equal(raw(a[k]), raw(b[k])))
+
+
+def _round_trip(est, fresh) -> tuple:
+    """est's latest checkpoint against its live state, and restored into
+    fresh() (an estimator built as est was, over est's model_dir) against
+    the file: (record, the file's state); fails unless both are bit for
+    bit."""
+    t0 = time.monotonic()
+    path = est._checkpoints()[-1][1]
+    file = _file_state(est)
+    restored = fresh()
+    restored.model_dir = est.model_dir
+    step = restored.restore_checkpoint()
+    bad = {"file_vs_live": _unequal(file, _live_state(est)),
+           "restored_vs_file": _unequal(_live_state(restored), file)}
+    del restored
+    r = {"file": os.path.basename(path), "step": step,
+         "tensors": len(file), "bytes": os.path.getsize(path),
+         "load_restore_compare_seconds": time.monotonic() - t0,
+         "unequal": bad}
+    if any(bad.values()) or step != est.step:
+        raise AssertionError(f"mesh: checkpoint round trip {r}")
+    return r, file
+
+
+def _mesh_export(runs, root: str) -> dict:
+    """(ii) export_bundle from the unmeshed and the meshed flagship over
+    MESH_EXPORT_STEPS batches of infer_input_fn: parameters, ids and
+    embeddings bit for bit, gather_mean once a forward."""
+    got = {}
+    for tag, (est, _) in zip(("plain", "mesh"), runs):
+        torch.cuda.synchronize()
+        gather_mean.launches = 0
+        t0 = time.monotonic()
+        b = est.export_bundle(os.path.join(root, tag, "bundle"),
+                              steps=MESH_EXPORT_STEPS, index=False)
+        torch.cuda.synchronize()
+        got[tag] = (b, gather_mean.launches, time.monotonic() - t0)
+    (a, la, ta), (b, lb, tb) = got["plain"], got["mesh"]
+    bad = sorted(set(a.params) ^ set(b.params)) + [
+        k for k in a.params if k in b.params
+        and a.params[k].tobytes() != b.params[k].tobytes()]
+    if a.ids.tobytes() != b.ids.tobytes():
+        bad.append("ids")
+    if a.embeddings.tobytes() != b.embeddings.tobytes():
+        bad.append("embeddings")
+    r = {"forwards": MESH_EXPORT_STEPS, "rows": b.count, "dim": b.dim,
+         "params": len(b.params), "gather_mean_launches": [la, lb],
+         "seconds": [ta, tb], "unequal": bad}
+    log(f"mesh: export_bundle over {MESH_EXPORT_STEPS} batches, {b.count} "
+        f"ids x {b.dim}: the meshed bundle against the unmeshed one, "
+        f"{len(b.params)} parameters, ids and embeddings unequal: "
+        f"{bad or 'none'} (bit for bit); gather_mean launches {la} / {lb} "
+        f"for {MESH_EXPORT_STEPS} forwards; {ta:.2f} / {tb:.2f} s")
+    if bad or la != MESH_EXPORT_STEPS or lb != MESH_EXPORT_STEPS \
+            or b.count != MESH_EXPORT_STEPS * BATCH:
+        raise AssertionError(f"mesh: export {r}")
+    return r
+
+
+def _mesh_act_cache(store, table, graph, mesh, dev) -> dict:
+    """(iv) The activation-cache estimator with and without the mesh,
+    MESH_CACHE_STEPS steps on the same batches, then shard_act_cache (a
+    model axis of 1 keeps the caches whole) and refresh_act_cache: the
+    whole state, the caches included, bit for bit; gather_mean's
+    launches of each refresh."""
+    t0 = time.monotonic()
+    ests = {tag: cache_estimator(store, table, graph, dev, mesh=m)
+            for tag, m in (("plain", None), ("mesh", mesh))}
+    feed = ests["plain"].train_input_fn()
+    batches = [next(feed) for _ in range(MESH_CACHE_STEPS)]
+    for est in ests.values():
+        est.train(iter(batches), max_steps=MESH_CACHE_STEPS)
+    shard_act_cache(ests["mesh"], mesh)
+    launches = {}
+    for tag, est in ests.items():
+        torch.cuda.synchronize()
+        gather_mean.launches = 0
+        refresh_act_cache(est, chunk=CACHE_CHUNK)
+        torch.cuda.synchronize()
+        launches[tag] = gather_mean.launches
+    bad = _unequal(_live_state(ests["plain"]), _live_state(ests["mesh"]))
+    h = ests["mesh"].model.encoder.cache_1.h
+    chunks = -(-(int(store.features.shape[0]) - 1) // CACHE_CHUNK)
+    r = {"steps": MESH_CACHE_STEPS, "chunks": chunks,
+         "gather_mean_launches": launches, "unequal": bad,
+         "pad_row_zero": not bool(h[-1].any()),
+         "seconds": time.monotonic() - t0}
+    log(f"mesh: the activation cache {MESH_CACHE_STEPS} steps, "
+        f"shard_act_cache and refresh_act_cache over {chunks} chunks with "
+        f"the mesh against without: unequal tensors {bad or 'none'} (bit "
+        f"for bit); gather_mean launches {launches['mesh']} / "
+        f"{launches['plain']} a refresh; {r['seconds']:.1f} s")
+    if bad or not r["pad_row_zero"] or launches["mesh"] != \
+            launches["plain"] or launches["mesh"] != CACHE_LAYERS * chunks:
+        raise AssertionError(f"mesh: act cache {r}")
+    return r
+
+
+def _mesh_runners(mesh, dev) -> dict:
+    """(v) LINE (split over the data axis) as run_line builds it
+    host-fed (run_line.py:88-97: cora, dim 128, lr 0.025) and TransE
+    (replicated) as run_transx's kg_estimator builds it (fb15k237, dim
+    64, margin 1, lr 0.01), each through BaseEstimator with and without
+    the mesh, MESH_RUNNER_STEPS steps on the same batches from their
+    runners' input streams: losses and state bit for bit."""
+    t0 = time.monotonic()
+    data = common.load_graph("cora", 0)
+    g = data.engine
+
+    def line_batch():
+        src, dst, _ = g.sample_edge(512, -1)
+        negs = g.sample_node(512 * 5, -1).reshape(512, 5)
+        return {"src": src, "pos": dst, "negs": negs, "infer_ids": src}
+
+    kg = common.load_graph("fb15k237", 0)
+    triples = run_transx.triple_input_fn(
+        kg.engine, kg.num_entities, 256, 16, np.random.default_rng(0))()
+    builds = {
+        "line": (lambda m: BaseEstimator(
+            LINE(data.max_id, dim=128, order=2,
+                 generator=torch.Generator().manual_seed(0)),
+            dict(learning_rate=0.025, max_id=data.max_id, seed=0),
+            device=dev, mesh=m),
+            [line_batch() for _ in range(MESH_RUNNER_STEPS)]),
+        "transe": (lambda m: BaseEstimator(
+            TransE(num_entities=kg.num_entities,
+                   num_relations=kg.num_relations, dim=64, margin=1.0,
+                   generator=torch.Generator().manual_seed(0)),
+            dict(learning_rate=0.01, seed=0), device=dev, mesh=m),
+            [next(triples) for _ in range(MESH_RUNNER_STEPS)]),
+    }
+    r = {}
+    for name, (build, batches) in builds.items():
+        runs = []
+        for m in (None, mesh):
+            est = build(m)
+            runs.append((est, est.train(iter(batches),
+                                        max_steps=MESH_RUNNER_STEPS)
+                         ["losses"]))
+        diffs = _run_diffs(*runs)
+        r[name] = {"splits_over_data": bool(getattr(
+            runs[1][0].model, "splits_over_data", False)),
+            "losses": runs[1][1], "max_abs_diff": max(diffs.values())}
+    r["seconds"] = time.monotonic() - t0
+    log("mesh: " + "; ".join(
+        f"{n} ({'split' if v['splits_over_data'] else 'replicated'}) "
+        f"{MESH_RUNNER_STEPS} steps with the mesh against without: largest "
+        f"difference {v['max_abs_diff']:.3g} (bit for bit: "
+        f"{v['max_abs_diff'] == 0.0})" for n, v in r.items()
+        if n != "seconds") + f"; {r['seconds']:.1f} s")
+    if any(v["max_abs_diff"] != 0.0 or not np.isfinite(v["losses"]).all()
+           for n, v in r.items() if n != "seconds"):
+        raise AssertionError(f"mesh: runners {r}")
+    return r
+
+
 def phase_mesh(store, table, graph, dev) -> dict:
     """Phase 9m (see the module docstring). Fails unless the meshed
     flagship equals the unmeshed one bit for bit, its graph holds one
-    collective a step and K gather_mean launches, the sharded model's
-    loss is finite and falls, and the small model on the card stays
-    within 1e-4 of the CPU's losses."""
+    collective a step and K gather_mean launches, its checkpoint and its
+    bounded export equal the unmeshed ones bit for bit and restore bit
+    for bit, the sharded model's loss is finite and falls and its
+    checkpoint restores bit for bit, the small model on the card stays
+    within its tolerances of the CPU's, the activation cache's refresh
+    and the LINE and TransE steps equal their unmeshed runs bit for
+    bit."""
     t0 = time.monotonic()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
     initialize_multihost(MultihostConfig(f"127.0.0.1:{free_port()}", 1, 0),
                          device=dev)
     try:
@@ -1668,7 +1893,9 @@ def phase_mesh(store, table, graph, dev) -> dict:
         runs, rec = [], {}
         for tag, m in (("plain", None), ("mesh", mesh)):
             est = flagship_estimator(store, table, graph, dev, mesh=m,
-                                     steps_per_loop=k)
+                                     steps_per_loop=k,
+                                     checkpoint_steps=steps,
+                                     model_dir=os.path.join(root, tag))
             gather_mean.launches = 0
             collectives.reset_counts()
             res = est.train(iter(batches), max_steps=steps)
@@ -1682,6 +1909,21 @@ def phase_mesh(store, table, graph, dev) -> dict:
             runs.append((est, res["losses"]))
         diffs = _run_diffs(*runs)
         worst = max(diffs.values())
+        # (i) the checkpoints train() wrote, the meshed one restored
+        ckpt, file = _round_trip(runs[1][0], lambda: flagship_estimator(
+            store, table, graph, dev, mesh=mesh))
+        ckpt["mesh_vs_plain_file"] = _unequal(file, _file_state(runs[0][0]))
+        log(f"mesh: the flagship's checkpoint {ckpt['file']} "
+            f"({ckpt['tensors']} tensors, {ckpt['bytes']} bytes) with the "
+            f"mesh against without, unequal: "
+            f"{ckpt['mesh_vs_plain_file'] or 'none'}; against the live "
+            f"state and restored into a fresh meshed estimator: "
+            f"{ckpt['unequal']} (bit for bit); "
+            f"{ckpt['load_restore_compare_seconds']:.2f} s")
+        if ckpt["mesh_vs_plain_file"]:
+            raise AssertionError(f"mesh: checkpoint {ckpt}")
+        del file
+        export = _mesh_export(runs, root)
         window = [_on_card(b, runs[0][0]) for b in batches[:k]]
         for tag, (est, _) in zip(("plain", "mesh"), runs):
             rec[tag]["replay_ms"] = _replay_ms(est, window, k)
@@ -1702,16 +1944,22 @@ def phase_mesh(store, table, graph, dev) -> dict:
                 or rec["mesh"]["gather_mean_launches_per_replay"] != k \
                 or rec["mesh"]["replays"] != MESH_WINDOWS - 1:
             raise AssertionError(f"mesh: {rec}, diffs {diffs}")
+        out = {"flagship": rec, "max_abs_diff": worst,
+               "collectives_per_step": per_step,
+               "nccl_ms_per_step": nccl_ms, "checkpoint": ckpt,
+               "export": export}
         del runs, window
         sampler = flagship_estimator(store, table, graph, dev)
         static = dict(sampler.static_batch)
-        out = {"flagship": rec, "max_abs_diff": worst,
-               "collectives_per_step": per_step,
-               "nccl_ms_per_step": nccl_ms}
-        out["sharded"] = _mesh_sharded(sampler, static, feed, mesh, dev)
+        out["sharded"] = _mesh_sharded(sampler, static, feed, mesh, dev,
+                                       os.path.join(root, "sharded"))
         out["small"] = _mesh_small_vs_cpu(sampler, static, feed, mesh, dev)
+        del sampler, static
+        out["act_cache"] = _mesh_act_cache(store, table, graph, mesh, dev)
+        out["runners"] = _mesh_runners(mesh, dev)
     finally:
         finalize_multihost()
+        shutil.rmtree(root, ignore_errors=True)
     out["memory_plan"] = {
         f"{n}_cards": plan_tables(FULL_NODES, cap=CAP, feat_dim=FEAT_DIM,
                                   label_dim=NUM_CLASSES, mp=n)
@@ -1732,17 +1980,18 @@ def phase_mesh(store, table, graph, dev) -> dict:
     return out
 
 
-def _mesh_sharded(sampler, static, feed, mesh, dev) -> dict:
+def _mesh_sharded(sampler, static, feed, mesh, dev, model_dir: str) -> dict:
     """ShardedSupervisedGraphSage at full width through the meshed
     estimator: MESH_SHARDED_STEPS steps at K = MESH_SHARDED_K on one
-    batch (its loss falls)."""
+    batch (its loss falls); then (iii) its checkpoint (the id table and
+    Adam's moments of it) in model_dir against the live state and
+    restored into a fresh meshed estimator, bit for bit."""
     k, n = MESH_SHARDED_K, MESH_SHARDED_STEPS
-    est = NodeEstimator(
-        _sharded_sage(DIM, dev),
-        dict(batch_size=BATCH, learning_rate=TRAIN_LR, optimizer="adam",
-             log_steps=1 << 30, checkpoint_steps=0, train_node_type=-1,
-             seed=0, steps_per_loop=k),
-        None, None, mesh=mesh, device=dev)
+    cfg = dict(batch_size=BATCH, learning_rate=TRAIN_LR, optimizer="adam",
+               log_steps=1 << 30, checkpoint_steps=0, train_node_type=-1,
+               seed=0, steps_per_loop=k)
+    est = NodeEstimator(_sharded_sage(DIM, dev), cfg, None, None,
+                        model_dir=model_dir, mesh=mesh, device=dev)
     batches = _sharded_batches(sampler, static, feed, 1) * n
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1764,6 +2013,18 @@ def _mesh_sharded(sampler, static, feed, mesh, dev) -> dict:
         f"{r['peak_device_bytes'] / 2**30:.2f} GiB")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"mesh: sharded model losses {losses}")
+    t0 = time.monotonic()
+    est.save_checkpoint(est.step)
+    save_s = time.monotonic() - t0
+    r["checkpoint"], _ = _round_trip(est, lambda: NodeEstimator(
+        _sharded_sage(DIM, dev), cfg, None, None, mesh=mesh, device=dev))
+    r["checkpoint"]["save_seconds"] = save_s
+    log(f"mesh: ShardedSupervisedGraphSage's checkpoint "
+        f"{r['checkpoint']['file']} ({r['checkpoint']['bytes']} bytes, the "
+        f"id table and Adam's moments of it) saved in {save_s:.2f} s, "
+        f"against the live state and restored into a fresh meshed "
+        f"estimator: {r['checkpoint']['unequal']} (bit for bit); "
+        f"{r['checkpoint']['load_restore_compare_seconds']:.2f} s")
     return r
 
 
@@ -2117,7 +2378,7 @@ def phase_layout_flagship(store, table, graph, dev, layout,
     return r
 
 
-def cache_estimator(store, table, graph, dev, **cfg):
+def cache_estimator(store, table, graph, dev, mesh=None, **cfg):
     """DeviceSampledScalableSage at bench.py --act_cache's shape (dim
     128, one hop of 15, 2 layers, a bfloat16 cache over every table row,
     uniform sampling on the unit-weight table as bench.py's auto; random
@@ -2133,7 +2394,8 @@ def cache_estimator(store, table, graph, dev, **cfg):
         model, dict(batch_size=BATCH, learning_rate=TRAIN_LR,
                     optimizer="adam", log_steps=1 << 30, checkpoint_steps=0,
                     train_node_type=-1, seed=0, **cfg),
-        graph, None, feature_store=store, device_sampler=table, device=dev)
+        graph, None, feature_store=store, device_sampler=table, device=dev,
+        mesh=mesh)
 
 
 def phase_act_cache(store, table, graph, dev) -> dict:

@@ -47,7 +47,10 @@ the reference's global params, or a one-process checkpoint) into this
 rank's rows by put_row_sharded's rule, and `gather_state_dict`
 all-gathers a rank's state back into whole tensors (every rank of the
 model group calls it), so a checkpoint moves between worlds of any
-size.
+size. `shard_optimizer_state_dict` / `gather_optimizer_state_dict` do
+the same for an optimizer's state: the per-row state of a row-sharded
+parameter (Adam's exp_avg and exp_avg_sq, any state tensor of the
+parameter's shape) is cut or gathered by the parameter's rule.
 
 The scalable models' `cache` collection (encoder/cache_{l}/h, float32
 or bfloat16 rows) is the port's buffers encoder.cache_{l}.h: it comes
@@ -215,3 +218,66 @@ def gather_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
                 t.detach(), info.mesh.group(info.axis))[:info.data_rows]
         out[key] = t.detach().cpu()
     return out
+
+
+def _row_sharded_params(optimizer) -> Dict[int, Any]:
+    """{index in optimizer.state_dict(): (parameter, RowShard)} of the
+    optimizer's row-sharded parameters (state_dict numbers them in
+    param_groups order)."""
+    from euler_tpu_torch.parallel.placement import row_shard
+
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    return {i: (p, row_shard(p)) for i, p in enumerate(params)
+            if row_shard(p) is not None}
+
+
+def _map_row_state(state_dict: Mapping[str, Any], optimizer,
+                   fn) -> Dict[str, Any]:
+    """optimizer's state_dict layout with fn(tensor, RowShard) applied
+    to each per-row state tensor of a row-sharded parameter
+    (one with the parameter's trailing shape); every tensor on the
+    CPU."""
+    shards = _row_sharded_params(optimizer)
+    state = {}
+    for i, st in state_dict["state"].items():
+        out = {}
+        for key, v in st.items():
+            if isinstance(v, torch.Tensor):
+                hit = shards.get(int(i))
+                if hit is not None and v.dim() >= 1 \
+                        and v.shape[1:] == hit[0].shape[1:]:
+                    v = fn(v, hit[1])
+                v = v.detach().cpu()
+            out[key] = v
+        state[i] = out
+    return {"state": state, "param_groups": state_dict["param_groups"]}
+
+
+def shard_optimizer_state_dict(state_dict: Mapping[str, Any],
+                               optimizer) -> Dict[str, Any]:
+    """This rank's optimizer state_dict for `optimizer` (built over a
+    row-sharded model) from a whole one: each per-row state tensor of
+    a row-sharded parameter cut to this rank's rows as
+    shard_state_dict cuts the parameter; the rest as given."""
+    from euler_tpu_torch.parallel.placement import pad_rows
+
+    def cut(v, info):
+        full = pad_rows(torch.as_tensor(v), info.global_rows // info.rows)
+        return full[info.lo:info.lo + info.rows].clone()
+
+    return _map_row_state(state_dict, optimizer, cut)
+
+
+def gather_optimizer_state_dict(optimizer) -> Dict[str, Any]:
+    """The whole state_dict of an optimizer over a row-sharded model,
+    on the CPU: each per-row state tensor of a row-sharded parameter
+    all-gathered over the parameter's axis, the padding cut off, as
+    gather_state_dict gathers the parameter. A collective: every rank
+    of each model group calls it."""
+    from euler_tpu_torch.parallel import collectives
+
+    def gather(v, info):
+        return collectives.all_gather(
+            v.detach(), info.mesh.group(info.axis))[:info.data_rows]
+
+    return _map_row_state(optimizer.state_dict(), optimizer, gather)

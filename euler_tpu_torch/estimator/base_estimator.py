@@ -47,20 +47,34 @@ the host, which alone reads them.
 Entry points run on CUDA unless the caller asks for the CPU
 (`device="cpu"`).
 
-mesh (parallel/mesh.py, one process per device): each rank trains on
-its data slice of every batch (mesh.data_slice, before the copy to the
-device) and a step is parallel.train.spmd_update: the loss a mean over
-the global batch, the parameter gradients summed over 'data' (one
-collective), the nonfinite guard decided for every rank; evaluate()
-sums each batch's loss and metric shares and mask count over 'data'.
-A data axis > 1 takes only a model whose batch and loss split over it
-(parallel.train.check_data_axis); the others raise. The model's
-row-partitioned parameters keep this rank's rows
+mesh (parallel/mesh.py, one process per device): a step is
+parallel.train.spmd_update, and parallel.train.splits_over_data decides
+how a model takes the data axis. A split model trains each rank on its
+data slice of every batch (mesh.data_slice, before the copy to the
+device): the loss a mean over the global batch, the parameter gradients
+summed over 'data' (one collective); evaluate() sums each batch's loss
+and metric shares and mask count over 'data', and run_eval all-gathers
+the embedding over it, so every rank sees the global batch's rows in
+order. Any other model takes the whole batch on every data rank and
+sums nothing over 'data', as the reference's estimator, which never
+splits a batch, runs it. The nonfinite guard is decided for every rank.
+The model's row-partitioned parameters keep this rank's rows
 (sharded_embedding.apply_param_shardings) before the optimizer is
 built. On the card a K-step window's collectives are captured in its
 CUDA graph with the rest of the step. table_partition and
 hub_cache_frac are the reference's partitioned-table options, validated
 as there (callers building a PartitionedFeatureStore read them).
+
+What a meshed estimator writes is the whole state, in the one-process
+layout: a checkpoint gathers the row-sharded parameters and their
+optimizer state (convert.gather_state_dict and
+gather_optimizer_state_dict), `infer` the global batch's embeddings
+and ids, `export_bundle` the whole parameters. World rank 0 alone
+writes, then every rank passes a barrier; a restore loads the whole
+file on every rank and keeps this rank's rows. So a checkpoint moves
+between a mesh and one process both ways. The emergency checkpoint is
+skipped on a mesh: one rank's input error is not seen by the others,
+which a gather would wait for.
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from euler_tpu_torch import obs as _obs
 from euler_tpu_torch.estimator.graphed_loop import GraphedLoop
@@ -82,7 +97,7 @@ from euler_tpu_torch.estimator.retry import retryable_error
 from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.mesh import data_slice
 from euler_tpu_torch.parallel.train import (
-    check_data_axis, global_values, spmd_update,
+    data_mesh, global_values, spmd_update,
 )
 from euler_tpu_torch.platform import (
     DeviceLike, host_to_device, resolve_device, seed_words,
@@ -144,8 +159,8 @@ class BaseEstimator:
     uint64 ids become int32 rows as they are; > 0: modulo max_id + 1),
     table_partition (0; >= 2 partitions the feature table) and
     hub_cache_frac (0.0, in [0, 1); needs table_partition >= 2).
-    Checkpoints go to model_dir/checkpoints (a rank's own state on a
-    mesh; convert.gather_state_dict gives the whole one). The model's
+    Checkpoints go to model_dir/checkpoints, the whole state on a mesh
+    too (written by world rank 0; see the module docstring). The model's
     parameters are initialised by its constructor (from its generator),
     where the reference inits them from key(seed)."""
 
@@ -163,7 +178,6 @@ class BaseEstimator:
                 apply_param_shardings,
             )
 
-            check_data_axis(model, mesh)
             apply_param_shardings(model, mesh)
         else:
             self.device = resolve_device(device)
@@ -335,11 +349,23 @@ class BaseEstimator:
                 torch.stack([o[1] for o in outs]))
 
     def _to_device(self, raw: Dict[str, Any]) -> Dict[str, Any]:
-        """A host batch on the device: this rank's data slice of it on a
-        mesh (mesh.data_slice), then _to_device."""
-        if self.mesh is not None:
-            raw = data_slice(raw, self.mesh)
+        """A host batch on the device: this rank's data slice of it for
+        a model that splits over the mesh's data axis (mesh.data_slice),
+        the whole batch otherwise, then _to_device."""
+        dmesh = data_mesh(self.model, self.mesh)
+        if dmesh is not None:
+            raw = data_slice(raw, dmesh)
         return _to_device(raw, self.device, self.max_id)
+
+    def _writes_files(self) -> bool:
+        """Whether this process writes what the estimator saves: world
+        rank 0 on a mesh, always without one."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _barrier(self) -> None:
+        """On a mesh: every rank waits until world rank 0 has written."""
+        if self.mesh is not None:
+            dist.barrier()
 
     def _maybe_restore(self) -> None:
         # the reference restores when it first builds its state
@@ -366,34 +392,52 @@ class BaseEstimator:
 
     def save_checkpoint(self, step: int) -> None:
         """{model, optimizer, step, skipped_steps} as
-        model_dir/checkpoints/ckpt-<step>.pt; the last 3 are kept. The
-        model's state_dict holds its activation caches (the reference's
-        extra_vars) beside its parameters."""
+        model_dir/checkpoints/ckpt-<step>.pt, on the CPU; the last 3 are
+        kept. The model's state_dict holds its activation caches (the
+        reference's extra_vars) beside its parameters. On a mesh every
+        rank joins the gather of the whole state and world rank 0 alone
+        writes it, in the one-process layout; then every rank passes a
+        barrier."""
+        from euler_tpu_torch.convert import (
+            gather_optimizer_state_dict, gather_state_dict,
+        )
+
         d = self._checkpoint_dir()
         if d is None:
             return
-        os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, f"ckpt-{int(step)}.pt")
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "step": int(step),
-                    "skipped_steps": int(self.skipped_steps)}, tmp)
-        os.replace(tmp, path)  # a reader never sees a partial file
-        for _, old in self._checkpoints()[:-KEEP_CHECKPOINTS]:
-            os.remove(old)
+        payload = {"model": gather_state_dict(self.model),
+                   "optimizer": gather_optimizer_state_dict(self.optimizer),
+                   "step": int(step),
+                   "skipped_steps": int(self.skipped_steps)}
+        if self._writes_files():
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, f"ckpt-{int(step)}.pt")
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)  # a reader never sees a partial file
+            for _, old in self._checkpoints()[:-KEEP_CHECKPOINTS]:
+                os.remove(old)
+        self._barrier()
 
     def restore_checkpoint(self) -> Optional[int]:
         """Load the latest checkpoint and resume at its step; None when
-        there is none. The optimizer's state tensors are replaced, so a
-        captured K-step graph is dropped and captured again."""
+        there is none. Every rank of a mesh loads the whole file and
+        keeps its rows of each row-sharded tensor. The optimizer's state
+        tensors are replaced, so a captured K-step graph is dropped and
+        captured again."""
+        from euler_tpu_torch.convert import (
+            shard_optimizer_state_dict, shard_state_dict,
+        )
+
         found = self._checkpoints()
         if not found:
             return None
-        payload = torch.load(found[-1][1], map_location=self.device,
+        payload = torch.load(found[-1][1], map_location="cpu",
                              weights_only=True)
-        self.model.load_state_dict(payload["model"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        self.model.load_state_dict(
+            shard_state_dict(payload["model"], self.model))
+        self.optimizer.load_state_dict(shard_optimizer_state_dict(
+            payload["optimizer"], self.optimizer))
         if self._graphed is not None:
             self._graphed.invalidate()
         self.step = int(payload["step"])
@@ -447,6 +491,14 @@ class BaseEstimator:
         checkpoint restored), as the reference saves nothing while its
         state is None."""
         if self._restore_pending:
+            return
+        if self.mesh is not None:
+            # saving gathers over the mesh, and the other ranks may
+            # never see this rank's error: the gather would hang
+            self._input_meta["emergency_checkpoint_skipped"] = (
+                "no emergency checkpoint on a mesh: one rank's input "
+                "error is not seen by the other ranks, whose gather of "
+                "the state it would wait for")
             return
         step = self.step
         try:
@@ -738,14 +790,18 @@ class BaseEstimator:
 
     def _stop_profiler(self, prof, start_step: int) -> None:
         """Stop the trace and write it as model_dir/prof/
-        trace-<first step>-<last step>.json (chrome trace format)."""
+        trace-<first step>-<last step>.json (chrome trace format), on a
+        mesh trace-<first>-<last>-rank<world rank>.json: each rank
+        traces its own process."""
         if prof is None:
             return
         prof.stop()
         d = os.path.join(os.path.abspath(self.model_dir), "prof")
         os.makedirs(d, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(d, f"trace-{start_step}-{self.step}.json"))
+        name = f"trace-{start_step}-{self.step}"
+        if self.mesh is not None:
+            name += f"-rank{dist.get_rank()}"
+        prof.export_chrome_trace(os.path.join(d, f"{name}.json"))
 
     def evaluate(self, input_fn, steps: int = 100) -> Dict[str, float]:
         """Mean loss and metric over up to `steps` batches, each batch
@@ -755,6 +811,7 @@ class BaseEstimator:
         batch of a sweep counts for its real entries only."""
         it = input_fn() if callable(input_fn) else input_fn
         self._maybe_restore()
+        dmesh = data_mesh(self.model, self.mesh)
         rows = []
         with eval_mode(self.model), torch.inference_mode():
             for _ in range(steps):
@@ -762,17 +819,18 @@ class BaseEstimator:
                     batch = self._to_device(next(it))
                 except StopIteration:
                     break
-                with collectives.data_parallel(self.mesh):
+                with collectives.data_parallel(dmesh):
                     out = self.model({**batch, **self.static_batch})
                 mask = batch.get("graph_mask")
                 if mask is None:
                     mask = batch.get("metric_mask")
                 w = (torch.ones((), device=self.device) if mask is None
                      else mask.to(torch.float32).sum())
-                # on a data axis: the loss's and the metric's shares and
-                # the mask's count summed over it, the global batch's
+                # on a data axis the batch splits over: the loss's and
+                # the metric's shares and the mask's count summed over
+                # it, the global batch's
                 rows.append(global_values(torch.stack(
-                    [out.loss.float(), out.metric.float(), w]), self.mesh))
+                    [out.loss.float(), out.metric.float(), w]), dmesh))
         if not rows:
             return {"loss": float("nan"), "metric": float("nan")}
         losses, metrics, w = torch.stack(rows).cpu().double().numpy().T
@@ -782,17 +840,27 @@ class BaseEstimator:
 
     def run_eval(self, batch: Dict[str, Any]):
         """One forward in eval mode (no dropout, no autograd) of a batch
-        moved to the device and merged with the tables."""
+        moved to the device and merged with the tables. Its embedding
+        holds the global batch's rows in order on every rank: a split
+        model's rank slices are all-gathered over 'data' (a replicated
+        model computes the whole batch's)."""
+        dmesh = data_mesh(self.model, self.mesh)
         with eval_mode(self.model), torch.inference_mode(), \
-                collectives.data_parallel(self.mesh):
-            return self.model({**self._to_device(batch),
-                               **self.static_batch})
+                collectives.data_parallel(dmesh):
+            out = self.model({**self._to_device(batch),
+                              **self.static_batch})
+        if dmesh is not None and dmesh.size("data") > 1:
+            out = out._replace(embedding=collectives.all_gather(
+                out.embedding, dmesh.group("data")))
+        return out
 
     def infer(self, input_fn, steps: int = 100,
               id_key: str = "infer_ids") -> Dict[str, str]:
         """Writes embedding_0.npy / ids_0.npy under model_dir (every
         batch's rows, pad rows included, as the reference writes them:
-        euler_tpu/estimator/base_estimator.py:844-877)."""
+        euler_tpu/estimator/base_estimator.py:844-877). On a mesh every
+        rank runs the sweep and world rank 0 writes the global batches'
+        rows, then every rank passes a barrier."""
         it = input_fn() if callable(input_fn) else input_fn
         self._maybe_restore()
         embs, ids = [], []
@@ -802,12 +870,15 @@ class BaseEstimator:
             if v is not None:
                 ids.append(v)
         out_dir = self.model_dir or "."
-        os.makedirs(out_dir, exist_ok=True)
         emb_path = os.path.join(out_dir, "embedding_0.npy")
-        np.save(emb_path, np.concatenate(embs) if embs else np.zeros((0,)))
         id_path = os.path.join(out_dir, "ids_0.npy")
-        if ids:
-            np.save(id_path, np.concatenate(ids))
+        if self._writes_files():
+            os.makedirs(out_dir, exist_ok=True)
+            np.save(emb_path,
+                    np.concatenate(embs) if embs else np.zeros((0,)))
+            if ids:
+                np.save(id_path, np.concatenate(ids))
+        self._barrier()
         return {"embedding": emb_path, "ids": id_path}
 
     def export_bundle(self, out_dir: str, input_fn=None,
@@ -826,13 +897,18 @@ class BaseEstimator:
         the bundle_version the hot-swap protocol reports (default: the
         training step). The model spec is the model's `export_spec()`:
         the reference model's class name and its scalar fields. Returns
-        the ModelBundle (already written to out_dir)."""
-        from euler_tpu_torch.convert import flax_param_paths
+        the ModelBundle (already written to out_dir). On a mesh the
+        parameters are the whole ones (convert.gather_state_dict), every
+        rank builds the same bundle and world rank 0 writes it, then
+        every rank passes a barrier."""
+        from euler_tpu_torch.convert import (
+            flax_param_paths, gather_state_dict,
+        )
         from euler_tpu_torch.serving.export import ModelBundle, embed_all
         from euler_tpu_torch.tools.knn import IVFFlatIndex
 
         ids, emb = embed_all(self, input_fn, steps)
-        params = flax_param_paths(self.model.state_dict())
+        params = flax_param_paths(gather_state_dict(self.model))
         spec = self.model.export_spec() if hasattr(
             self.model, "export_spec") else {
             "model_class": type(self.model).__name__}
@@ -847,11 +923,13 @@ class BaseEstimator:
             idx.train_add(emb, ids)
             index_state = idx.state_dict()
         bundle = ModelBundle(params, emb, ids, index_state, spec, meta)
-        if shards > 1:
-            bundle.save_sharded(out_dir, shards, nlist=nlist,
-                                nprobe=nprobe, index=index)
-        else:
-            bundle.save(out_dir)
+        if self._writes_files():
+            if shards > 1:
+                bundle.save_sharded(out_dir, shards, nlist=nlist,
+                                    nprobe=nprobe, index=index)
+            else:
+                bundle.save(out_dir)
+        self._barrier()
         return bundle
 
     def train_and_evaluate(self, train_input_fn, eval_input_fn,

@@ -18,10 +18,12 @@ batch through one of three input paths, as the reference does:
   evaluates on the host flow's exact 1-hop closures), labels from the
   engine.
 
-Every estimator takes BaseEstimator's mesh (each rank trains on its
-data slice of every batch). A data axis > 1 takes only a model whose
-batch and loss split over it (parallel.train.check_data_axis): not the
-graph models' packed batches, GAE's, DGI's or the solutions'.
+Every estimator takes BaseEstimator's mesh, on any data axis: a model
+whose batch and loss split over it (parallel.train.splits_over_data)
+trains each rank on its data slice of every batch; every other model
+(the graph models' packed batches, GAE's, DGI's, the solutions', the
+KG models') takes the whole batch on every data rank, as the
+reference's estimator runs it.
 
 Device-sampler seeds come in two streams, seed = stream<<31 | counter:
 stream 0 for training, stream 1 for evaluation and inference, so how
@@ -65,7 +67,7 @@ class NodeEstimator(BaseEstimator):
     every hop's rows on the host paths, the roots with the device
     sampler, whose hops are drawn on the device), as the reference's
     estimators.py:24-90 count them; health() reports its stats. mesh:
-    BaseEstimator's (each rank trains on its data slice)."""
+    BaseEstimator's."""
 
     def __init__(self, model, params: Dict[str, Any], graph, dataflow,
                  label_fid="label", label_dim: Optional[int] = None,

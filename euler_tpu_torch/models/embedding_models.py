@@ -45,7 +45,7 @@ class DeepWalk(nn.Module):
     """Skip-gram with negative sampling over the engine's walk pairs:
     emb and ctx tables [max_id + 1, dim]."""
 
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     def __init__(self, max_id: int, dim: int = 128,
@@ -71,6 +71,9 @@ Node2Vec = DeepWalk  # same model; the walk's p/q bias differs (walk_ops)
 class LINE(nn.Module):
     """LINE over sampled edges: order 2 scores against a context table
     ctx, order 1 against emb itself."""
+
+    # held to its one-process run on a data axis of 2 (splits_over_data)
+    splits_over_data = True
 
     def __init__(self, max_id: int, dim: int = 128, order: int = 2,
                  generator: Optional[torch.Generator] = None):
@@ -121,7 +124,7 @@ class DeviceSampledSkipGram(nn.Module):
     every step); the node sampler's tables stay replicated."""
 
     stream_word = 23
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     def __init__(self, num_rows: int, dim: int = 128, walk_len: int = 5,

@@ -124,7 +124,7 @@ class SupervisedGraphSage(SuperviseModel):
     model (bench.py --host_sampler's). in_dim is the feature width
     (flax infers it at init)."""
 
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     def __init__(self, num_classes: int, in_dim: int,
@@ -155,6 +155,9 @@ class UnsupervisedGraphSage(UnsuperviseModel):
     """Fanout batch + pos/negs ids → the sage embedding (concat=False)
     against the context table ctx_emb [max_id + 1, dim], the reference's
     host-fed model (EdgeEstimator's)."""
+
+    # held to its one-process run on a data axis of 2 (splits_over_data)
+    splits_over_data = True
 
     def __init__(self, in_dim: int, dim: int, max_id: int,
                  fanouts: Sequence[int] = (10, 10),
@@ -351,7 +354,7 @@ class DeviceSampledGraphSage(SuperviseModel):
     'gcn' or 'genie'. table_mesh: the mesh the tables are row-sharded
     over (see the module docstring)."""
 
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     stream_word = 17
@@ -443,7 +446,7 @@ class DeviceSampledScalableSage(SuperviseModel):
     fanout] for the alias draw). Its stream word is 17, as the
     reference's key(17)."""
 
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     stream_word = 17
@@ -590,7 +593,14 @@ def refresh_act_cache(est, n_rows: Optional[int] = None, chunk: int = 8192,
     (counterpart of euler_tpu/models/graphsage.py:refresh_act_cache).
     Chunk i draws from sample_seed seed·1,000,003 + i; the last chunk's
     tail repeats the last real row. Install as
-    `est.pre_eval_hook = refresh_act_cache`."""
+    `est.pre_eval_hook = refresh_act_cache`.
+
+    On a mesh (shard_act_cache, a row-sharded feature table) n_rows
+    defaults to the table's global rows, every rank runs every chunk
+    outside the data axis (the sharded reads are collectives over
+    'model', and each data replica writes the same rows), each rank
+    writes the rows it owns, and the rank that owns global row `live`
+    zeroes it at its local index: the one-process refresh's caches."""
     from euler_tpu_torch.estimator.infer import eval_mode
 
     model = est.model
@@ -598,7 +608,10 @@ def refresh_act_cache(est, n_rows: Optional[int] = None, chunk: int = 8192,
             or not model.encoder.caches():
         return
     if n_rows is None:
-        n_rows = int(est.static_batch["feature_table"].shape[0])
+        table = est.static_batch["feature_table"]
+        info = row_shard(table)
+        n_rows = info.data_rows if info is not None \
+            else int(table.shape[0])
     live = n_rows - 1  # rows 0..live-1 are real nodes; row live is pad
     chunk = max(1, min(chunk, live))
     dev = est.device
@@ -615,7 +628,11 @@ def refresh_act_cache(est, n_rows: Optional[int] = None, chunk: int = 8192,
                 model.embed(batch)
             for cache in model.encoder.caches():
                 cache.staged = None
-                cache.h[live] = 0
+                info = row_shard(cache.h)
+                if info is None:
+                    cache.h[live] = 0
+                elif info.lo <= live < info.lo + info.rows:
+                    cache.h[live - info.lo] = 0
     finally:
         model.refreshing = False
 
@@ -679,7 +696,7 @@ class DeviceSampledLayerwiseGCN(SuperviseModel):
     its roots' embeddings. layer_dropout: LayerEncoder's input dropout
     per layer; dropout: SuperviseModel's, on the embedding."""
 
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     stream_word = 31
@@ -759,7 +776,7 @@ class DeviceSampledUnsupervisedSage(nn.Module):
     model axis (the node sampler's stay replicated), read through
     make_table_gather."""
 
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     stream_word = 29
@@ -830,7 +847,7 @@ class ShardedSupervisedGraphSage(SuperviseModel):
     sharded_embedding.apply_param_shardings) keeps each rank's rows;
     lookup picks its exchange ('gspmd', 'ring', 'allgather')."""
 
-    # held to its one-process run on a data axis of 2 (check_data_axis)
+    # held to its one-process run on a data axis of 2 (splits_over_data)
     splits_over_data = True
 
     def __init__(self, num_classes: int, in_dim: int,

@@ -21,8 +21,9 @@ model group) and, for a row-sharded table, its rows. What that changes:
   masked sum by the all-reduced count (micro_f1 its 2·tp by the global
   denominator), so each rank's loss and metric are its shares of the
   global batch's; the step sums them, and the parameter gradients,
-  over 'data' (parallel.train, which refuses a model whose loss is not
-  built so: check_data_axis).
+  over 'data'. Only a model whose batch splits over the data axis runs
+  inside it (parallel.train.splits_over_data); any other model takes
+  the whole batch on every data rank, outside it.
 - A draw over batch rows is made for the global batch and sliced
   (`draw_rows`): every rank of a data axis draws from the same generator,
   so a sharded run picks what the one-process run picks.

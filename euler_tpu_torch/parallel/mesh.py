@@ -5,9 +5,11 @@ The reference is one controller over a jax Mesh; the port is one
 process per device over torch.distributed, and the mesh is a
 DeviceMesh of those processes with the reference's axis names:
 
-- 'data' shards the batch: each rank keeps its slice of every batch
-  array (shard_batch), and parameter gradients are summed over the
-  data group;
+- 'data' shards the batch of a model that splits over it
+  (parallel.train.splits_over_data): each rank keeps its slice of
+  every batch array (shard_batch), and parameter gradients are summed
+  over the data group; any other model takes the whole batch on every
+  data rank;
 - 'model' row-shards the tables (placement.put_row_sharded): rank r of
   a model group holds rows [r·per, (r+1)·per), and every rank of a
   model group holds the same data slice.

@@ -1,15 +1,26 @@
 """The SPMD training step over a ('data', 'model') mesh (counterpart of
 euler_tpu/parallel/train.py:27-133).
 
-Every rank runs the step on its data slice of the batch
-(mesh.shard_batch): the forward inside collectives.data_parallel
-(draws sliced from the global batch's; the loss and the metric this
-rank's share of the global batch's, see check_data_axis), the
-backward, then one SUM of all parameter gradients over 'data' (a
-row-sharded shard's and a replicated parameter's alike), the nonfinite
-guard decided for every rank by an all-reduced flag, and the optimizer
-step. Replicated parameters and their optimizer state stay equal bit
-for bit across ranks: every rank applies the same summed gradient.
+A model takes the data axis one of two ways; `splits_over_data`
+decides, and the estimator's batches, steps, evaluate() and run_eval
+all read it:
+
+- split (a model class with `splits_over_data = True`): every rank
+  runs the step on its data slice of the batch (mesh.shard_batch),
+  the forward inside collectives.data_parallel (draws sliced from the
+  global batch's; the loss and the metric this rank's share of the
+  global batch's: utils.metrics.masked_mean and micro_f1 divide by the
+  all-reduced count), then one SUM of all parameter gradients over
+  'data' (a row-sharded shard's and a replicated parameter's alike);
+- replicated (every other model): every data rank takes the whole
+  batch and computes the same loss and gradient, and nothing is summed
+  over 'data'. This is the reference's semantics: its estimator never
+  splits a batch over 'data' (euler_tpu/estimator/base_estimator.py:
+  305-310 stores a data sharding that nothing reads).
+
+Either way the nonfinite guard is decided for every rank by an
+all-reduced flag, and replicated parameters and their optimizer state
+stay equal bit for bit across ranks.
 
 The estimator (BaseEstimator(mesh=...)) runs the same `spmd_update`;
 make_spmd_train_step serves callers that hold their own state.
@@ -29,7 +40,8 @@ from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.sharded_embedding import apply_param_shardings
 
 __all__ = ["spmd_init", "make_spmd_train_step", "spmd_update",
-           "reduce_gradients", "check_data_axis", "global_values"]
+           "reduce_gradients", "splits_over_data", "data_mesh",
+           "global_values"]
 
 
 def reduce_gradients(params: Iterable[torch.nn.Parameter], mesh) -> None:
@@ -47,31 +59,30 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter], mesh) -> None:
                                      grads)])
 
 
-def check_data_axis(model: torch.nn.Module, mesh) -> None:
-    """Refuse a data axis of size > 1 for a model whose batch and loss
-    do not split over it. A model class sets `splits_over_data` when
-    every per-step batch array is row-aligned with the roots (a rank's
-    slice is its roots' rows) and its loss and metric are
-    utils.metrics.masked_mean or micro_f1, which inside
-    collectives.data_parallel give this rank's share of the global
-    batch's value (the local sum over the global count), so the SUM
-    over 'data' is the global batch's. The reference (GSPMD) keeps the
-    global batch's semantics for every model; the port holds each model
-    that sets the flag to its one-process run on 4 gloo ranks."""
-    if mesh is not None and mesh.size("data") > 1 \
-            and not getattr(model, "splits_over_data", False):
-        raise ValueError(
-            f"{type(model).__name__} does not split over a data axis "
-            f"(mesh {mesh.shape}): its batch or its loss is not a "
-            f"per-row masked mean; put every rank on the model axis "
-            f"(make_mesh(model_parallel=world size)) or train it on one "
-            f"device")
+def splits_over_data(model: torch.nn.Module, mesh) -> bool:
+    """Whether each data rank takes its slice of a batch for `model` on
+    `mesh`: a model class sets `splits_over_data` when every per-step
+    batch array is row-aligned with the roots (a rank's slice is its
+    roots' rows) and its loss and metric are utils.metrics.masked_mean,
+    mrr or micro_f1, which inside collectives.data_parallel give this
+    rank's share of the global batch's value. Every such class is held
+    to its one-process run on 4 gloo ranks. False without a mesh."""
+    return mesh is not None and bool(getattr(model, "splits_over_data",
+                                             False))
+
+
+def data_mesh(model: torch.nn.Module, mesh):
+    """The mesh whose data axis `model`'s batches split over (for
+    mesh.data_slice, collectives.data_parallel and global_values), None
+    for a replicated model or without a mesh."""
+    return mesh if splits_over_data(model, mesh) else None
 
 
 def global_values(values: torch.Tensor, mesh) -> torch.Tensor:
     """The global batch's loss and metric (no gradient) from this rank's
-    shares of them (see check_data_axis): one SUM over 'data'. The
-    values themselves on a data axis of size 1."""
+    shares of them: one SUM over 'data'. The values themselves on a
+    data axis of size 1 or without a mesh (a replicated model's values
+    are already the global batch's: pass data_mesh(model, mesh))."""
     if mesh is None or mesh.size("data") <= 1:
         return values.detach()
     return collectives.all_reduce(values.detach().clone(),
@@ -81,20 +92,22 @@ def global_values(values: torch.Tensor, mesh) -> torch.Tensor:
 def spmd_update(model: torch.nn.Module, optimizer, batch: Dict[str, Any],
                 mesh, nonfinite_guard: bool = True,
                 one: Optional[torch.Tensor] = None):
-    """Forward, backward, the gradient SUM over 'data', the guard and the
-    optimizer step on this rank's slice of a batch. Returns (the global
-    batch's loss, its metric, found_inf: a [] float tensor, 1.0 on a skipped
-    step; None without the guard). Nothing waits for the device, so a
-    CUDA graph can capture it (NCCL's collectives included)."""
-    check_data_axis(model, mesh)
-    with collectives.data_parallel(mesh):
+    """Forward, backward, the gradient SUM over 'data' (a split model's
+    only), the guard and the optimizer step on this rank's batch: its
+    slice for a split model, the whole batch for a replicated one
+    (splits_over_data). Returns (the global batch's loss, its metric,
+    found_inf: a [] float tensor, 1.0 on a skipped step; None without
+    the guard). Nothing waits for the device, so a CUDA graph can
+    capture it (NCCL's collectives included)."""
+    dmesh = data_mesh(model, mesh)
+    with collectives.data_parallel(dmesh):
         out = model(batch)
     optimizer.zero_grad(set_to_none=True)
     out.loss.backward()
-    reduce_gradients(model.parameters(), mesh)
+    reduce_gradients(model.parameters(), dmesh)
     loss, metric = global_values(
         torch.stack([out.loss.detach().float(),
-                     out.metric.detach().float()]), mesh).unbind()
+                     out.metric.detach().float()]), dmesh).unbind()
     found_inf = None
     if nonfinite_guard:
         grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -123,7 +136,6 @@ def spmd_init(model: torch.nn.Module,
     and tx(params) builds the optimizer over what is left, its state
     beside each parameter. Returns {"model", "optimizer", "step",
     "skipped_steps"}."""
-    check_data_axis(model, mesh)
     apply_param_shardings(model, mesh)
     return {"model": model, "optimizer": tx(model.parameters()),
             "step": 0,
@@ -135,7 +147,7 @@ def make_spmd_train_step(mesh, nonfinite_guard: bool = True,
                          table_store=None,
                          table_rows_key: str = "rows") -> Callable:
     """(state, batch) → (state, loss, metric): one spmd_update of
-    state["model"] on this rank's batch slice. A guarded bad step keeps
+    state["model"] on this rank's batch (its slice for a split model). A guarded bad step keeps
     the parameters and the optimizer state and bumps
     state["skipped_steps"]. table_store (a PartitionedFeatureStore)
     counts each step's table rows (batch[table_rows_key], a host row

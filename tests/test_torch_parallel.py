@@ -14,7 +14,13 @@ within 1e-5; sharded against one-process within the port: the draws'
 picks bit for bit (the reference requires it of itself), losses,
 embeddings and caches within 1e-5 relative; the estimators on a data
 axis of 2 against one process: losses, metrics and evaluate() within
-1e-5, parameters after 3 Adam steps within 1e-4.
+1e-5, parameters after 3 Adam steps within 1e-4; the models that do
+not split over the data axis bit for bit (every data rank runs the
+whole batch); a meshed checkpoint's state, and the parameters one step
+after a restore across the mesh and one process, within 1e-4; infer's
+and export's ids exact, their embeddings within 1e-5 relative and the
+exported parameters within 1e-4; the sharded activation-cache refresh
+within 1e-5, its pad row exactly 0.
 """
 
 import euler_tpu_torch  # noqa: F401 (first: OMP_WAIT_POLICY)
@@ -362,18 +368,19 @@ def test_act_cache_row_sharded_through_the_estimator(ranks):
         assert np.isfinite(out["est/losses"]).all()
 
 
-DATA_AXIS = ["sharded", "sage", "deepwalk"]
+DATA_AXIS = ["sharded", "sage", "deepwalk", "line", "unsup_sage"]
 
 
 @pytest.mark.parametrize("name", DATA_AXIS)
 def test_estimator_on_the_data_axis_matches_one_process(ranks, name):
     """NodeEstimator (ShardedSupervisedGraphSage, SupervisedGraphSage)
-    and EdgeEstimator (DeepWalk) on {'data': 2, 'model': 2} against the
-    same estimator in one process, fed the same global batches (masks
-    that count different rows on the two data halves): each step's
-    training loss and metric and evaluate()'s within 1e-5 relative (the
-    ranks' shares add in another order), the parameters after 3 Adam
-    steps within 1e-4 (as the SPMD step against the reference)."""
+    and EdgeEstimator (DeepWalk, LINE, the host-fed
+    UnsupervisedGraphSage) on {'data': 2, 'model': 2} against the same
+    estimator in one process, fed the same global batches (masks that
+    count different rows on the two data halves): each step's training
+    loss and metric and evaluate()'s within 1e-5 relative (the ranks'
+    shares add in another order), the parameters after 3 Adam steps
+    within 1e-4 (as the SPMD step against the reference)."""
     for out in ranks:
         np.testing.assert_allclose(out[f"dax/{name}/1/steps"],
                                    out[f"dax/{name}/0/steps"], rtol=1e-5)
@@ -386,12 +393,126 @@ def test_estimator_on_the_data_axis_matches_one_process(ranks, name):
                                        rtol=1e-4, atol=1e-6, err_msg=k)
 
 
-def test_what_does_not_split_refuses_a_data_axis(ranks):
-    """GraphEstimator's packed graphs, LINE (not held to its one-process
-    run on a data axis) and a batch array of 5 rows on a data axis of 2
-    raise ValueError."""
+REPLICATED = ["transe", "solution", "gae", "dgi", "graph", "conv_gcn"]
+
+
+@pytest.mark.parametrize("name", REPLICATED)
+def test_replicated_estimator_on_the_data_axis_is_one_process(ranks, name):
+    """A model that does not split over the data axis (TransE,
+    SuperviseSolution's and DGI's BaseEstimator, GaeEstimator,
+    GraphEstimator over GraphModel, the full-batch gcn ConvModel's
+    NodeEstimator) on {'data': 2, 'model': 2}: every data rank takes
+    the whole batch and nothing is summed over 'data', as the reference
+    runs it, so each step's loss and metric, evaluate()'s and the
+    parameters after 3 steps equal the one-process run's bit for bit."""
     for out in ranks:
-        assert out["dax/refused"].tolist() == [1, 1, 1]
+        keys = [k for k in out if k.startswith(f"rep/{name}/0/")]
+        assert any("/param/" in k for k in keys)
+        for k in keys:
+            assert out[k.replace("/0/", "/1/", 1)].tobytes() == \
+                out[k].tobytes(), k
+
+
+def test_an_indivisible_batch_array_raises_on_a_split_model(ranks):
+    """A split model's batch of 7 rows on a data axis of 2 raises
+    ValueError through the estimator, as data_slice does on 5."""
+    for out in ranks:
+        assert out["dax/indivisible"].tolist() == [1, 1]
+
+
+def test_meshed_checkpoint_writes_one_file_a_step(ranks):
+    """checkpoint_steps=1 on {'data': 2, 'model': 2} with a model_dir
+    the 4 ranks share: one ckpt-<step>.pt a step (world rank 0 writes,
+    the last 3 kept, no temporary file left), the step and the guard's
+    count in it."""
+    want = ["ckpt-1.pt", "ckpt-1.pt,ckpt-2.pt",
+            "ckpt-1.pt,ckpt-2.pt,ckpt-3.pt", "ckpt-2.pt,ckpt-3.pt,ckpt-4.pt"]
+    for out in ranks:
+        assert out["ckpt/listing"].tolist() == want
+        assert out["ckpt/mesh/step"].tolist() == [3, 0]
+        assert out["ckpt/one/step"].tolist() == [3, 0]
+
+
+def test_meshed_checkpoint_holds_the_one_process_state(ranks):
+    """The meshed checkpoint is the whole state in the one-process
+    layout: every model tensor (the whole id table, not a shard) and
+    every optimizer state tensor (Adam's step, exp_avg, exp_avg_sq)
+    with the one-process checkpoint's keys and shapes, the values within
+    1e-4 of its (a moment within 1e-4 of its tensor's largest)."""
+    for out in ranks:
+        one = {k[len("ckpt/one/"):]: v for k, v in out.items()
+               if k.startswith("ckpt/one/") and k != "ckpt/one/step"}
+        mesh = {k[len("ckpt/mesh/"):]: v for k, v in out.items()
+                if k.startswith("ckpt/mesh/") and k != "ckpt/mesh/step"}
+        assert sorted(mesh) == sorted(one)
+        assert any(k.endswith("exp_avg_sq") for k in one)
+        assert one["model/id_emb.table"].shape[0] == W.SPMD["max_id"] + 1
+        for k, v in one.items():
+            assert mesh[k].shape == v.shape, k
+            np.testing.assert_allclose(
+                mesh[k], v, rtol=1e-4,
+                atol=max(1e-6, 1e-4 * float(np.abs(v).max())), err_msg=k)
+
+
+@pytest.mark.parametrize("way", ["mesh_in_one", "one_on_mesh"])
+def test_checkpoints_restore_between_mesh_and_one_process(ranks, way):
+    """The meshed checkpoint restored into a one-process estimator, and
+    a one-process checkpoint restored into a meshed one ({'data': 2,
+    'model': 2}, each rank its rows): both resume at step 3 (one more
+    batch reaches step 4), and that step gives the writer's parameters
+    within 1e-4."""
+    writer = "mesh" if way == "mesh_in_one" else "one"
+    for out in ranks:
+        assert out["ckpt/restored_steps"].tolist() == [4, 4]
+        keys = [k for k in out if k.startswith(f"ckpt/after/{writer}/")]
+        assert keys
+        for k in keys:
+            np.testing.assert_allclose(
+                out[k.replace(f"/{writer}/", f"/{way}/")], out[k],
+                rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("what", ["infer", "export"])
+def test_meshed_infer_and_export_equal_one_process(ranks, what):
+    """infer's embedding_0.npy / ids_0.npy and export_bundle's bundle
+    from {'data': 2, 'model': 2} (world rank 0 writes, every rank reads
+    it) against the one-process files: ids exact (each id with its own
+    row: the ids run backwards within a batch), embeddings within 1e-5
+    relative, the exported parameters (the whole id table) within
+    1e-4; the bundle on disk is the one every rank returned."""
+    for out in ranks:
+        for tag in ("mesh", "one"):
+            assert out[f"{what}/{tag}/ids"].size == 16
+        assert out[f"{what}/mesh/ids"].tobytes() == \
+            out[f"{what}/one/ids"].tobytes()
+        np.testing.assert_allclose(out[f"{what}/mesh/emb"],
+                                   out[f"{what}/one/emb"], rtol=1e-5,
+                                   atol=1e-6)
+        if what == "export":
+            assert int(out["export/mesh/same_as_returned"]) == 1
+            params = [k for k in out if k.startswith("export/one/param/")]
+            assert any("id_emb" in k for k in params)
+            for k in params:
+                np.testing.assert_allclose(
+                    out[k.replace("/one/", "/mesh/")], out[k], rtol=1e-4,
+                    atol=1e-6, err_msg=k)
+
+
+def test_refresh_over_a_row_sharded_cache_equals_one_process(ranks):
+    """refresh_act_cache after shard_act_cache at model 2, where the
+    table's pad row (global row live) lies past a rank's rows: the
+    rank that owns it zeroes it, and the gathered cache equals the same
+    state refreshed in one process (the pad row exactly 0, the rest
+    within 1e-5); gather_mean runs on the one-process refresh only."""
+    for out in ranks:
+        live, per = out["refresh/live_per"].tolist()
+        assert live >= per
+        got, want = out["refresh/mesh/cache"], out["refresh/one/cache"]
+        assert not got[live].any() and not want[live].any()
+        assert np.abs(want[:live]).sum() > 0
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        assert int(out["refresh/mesh/gather_mean_calls"]) == 0
+        assert int(out["refresh/one/gather_mean_calls"]) > 0
 
 
 def test_dryrun_runs_its_six_legs_on_four_ranks(ranks):
@@ -498,3 +619,122 @@ def test_shard_act_cache_keeps_the_references_errors():
     shard_act_cache(SimpleNamespace(_restore_pending=False,
                                     model=SimpleNamespace(), _graphed=None),
                     TwoWide())
+
+
+def test_one_process_checkpoint_keeps_its_layout(tmp_path):
+    """A one-process checkpoint holds the model's state_dict and the
+    optimizer's state_dict with their own keys and shapes (the layout
+    older checkpoints have), now on the CPU, and restores bit for
+    bit."""
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+
+    cfg = dict(batch_size=8, learning_rate=0.05, log_steps=1 << 30,
+               checkpoint_steps=1, train_node_type=-1)
+    est = NodeEstimator(W._spmd_model(), cfg, None, None,
+                        model_dir=str(tmp_path), device="cpu")
+    est.train(iter(W.data_axis_batches(2, 0)), max_steps=2)
+    payload = torch.load(tmp_path / "checkpoints" / "ckpt-2.pt",
+                         weights_only=True)
+    assert sorted(payload) == ["model", "optimizer", "skipped_steps", "step"]
+    live = est.model.state_dict()
+    assert {k: tuple(v.shape) for k, v in payload["model"].items()} == \
+        {k: tuple(v.shape) for k, v in live.items()}
+    opt = est.optimizer.state_dict()
+    assert payload["optimizer"]["param_groups"] == opt["param_groups"]
+    assert {i: {k: tuple(v.shape) for k, v in st.items()}
+            for i, st in payload["optimizer"]["state"].items()} == \
+        {i: {k: tuple(v.shape) for k, v in st.items()}
+         for i, st in opt["state"].items()}
+    assert all(v.device.type == "cpu" for v in payload["model"].values())
+    again = NodeEstimator(W._spmd_model(), {**cfg, "checkpoint_steps": 0},
+                          None, None, model_dir=str(tmp_path), device="cpu")
+    assert again.restore_checkpoint() == 2
+    for k, v in again.model.state_dict().items():
+        assert torch.equal(v, live[k]), k
+
+
+class _RankOneOfTwo:
+    """A data axis of 2 seen from its rank 1, no process group: what
+    BaseEstimator reads of a mesh for a split model's batches."""
+    device = torch.device("cpu")
+
+    def size(self, axis):
+        return 2 if axis == "data" else 1
+
+    def index(self, axis):
+        return 1 if axis == "data" else 0
+
+    def group(self, axis):
+        return None
+
+
+class _Doubling(torch.nn.Module):
+    """A split model whose embedding row is twice its batch row's x."""
+    splits_over_data = True
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(()))
+
+    def forward(self, batch):
+        from euler_tpu_torch.mp_utils.base import ModelOutput
+
+        x = batch["x"]
+        return ModelOutput(2.0 * x * self.w, (x * self.w).sum(), "m",
+                           x.mean())
+
+
+def _rank_one_estimator(tmp_path, monkeypatch):
+    import torch.distributed as dist
+
+    from euler_tpu_torch.estimator.base_estimator import BaseEstimator
+
+    est = BaseEstimator(_Doubling(), {"checkpoint_steps": 0},
+                        model_dir=str(tmp_path), device="cpu")
+    est.mesh = _RankOneOfTwo()
+    est._restore_pending = False
+    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 0)
+    monkeypatch.setattr(dist, "barrier", lambda *a, **k: None)
+    return est
+
+
+def test_infer_pairs_each_id_with_its_row_on_a_data_slice(tmp_path,
+                                                          monkeypatch):
+    """infer on rank 1 of a data axis of 2 (a fake mesh; the all-gather
+    over 'data' gives rank 0's block of the global batch before this
+    rank's): embedding_0.npy holds the global batch's rows and ids_0.npy
+    pairs each id with its own row (row = 2·id), on every batch."""
+    from euler_tpu_torch.parallel import collectives
+
+    est = _rank_one_estimator(tmp_path, monkeypatch)
+    # x = the ids, backwards: rank 0's rows are rank 1's plus 4, doubled
+    monkeypatch.setattr(collectives, "all_gather",
+                        lambda t, group: torch.cat([t + 8.0, t]))
+    batches = []
+    for s in range(2):
+        ids = np.arange(100 + 8 * s, 108 + 8 * s, dtype=np.uint64)[::-1]
+        batches.append({"x": ids.astype(np.float32)[:, None],
+                        "infer_ids": ids.copy()})
+    paths = est.infer(iter(batches), steps=2)
+    emb, ids = np.load(paths["embedding"]), np.load(paths["ids"])
+    assert emb.shape == (16, 1) and ids.shape == (16,)
+    np.testing.assert_array_equal(emb[:, 0], 2.0 * ids.astype(np.float32))
+
+
+def test_emergency_checkpoint_is_skipped_on_a_mesh(tmp_path, monkeypatch):
+    """An input error on one rank of a mesh writes no emergency
+    checkpoint (its gather would wait for ranks that never saw the
+    error) and says why in input_health; the error re-raises."""
+    est = _rank_one_estimator(tmp_path, monkeypatch)
+    est.ckpt_steps = 1
+
+    def bad():
+        raise ValueError("input broke")
+        yield
+
+    with pytest.raises(ValueError, match="input broke"):
+        est._next_input(bad())
+    health = est.input_health
+    assert health["emergency_checkpoint_step"] is None
+    assert "mesh" in health["emergency_checkpoint_skipped"]
+    assert not (tmp_path / "checkpoints").exists()

@@ -243,6 +243,8 @@ def job_parallel(ctx: Rank) -> None:
     _device_model_cases(ctx, A)
     _act_cache_estimator(ctx, A)
     _data_axis_estimators(ctx, A)
+    _replicated_estimators(ctx, A)
+    _meshed_state(ctx, A)
 
     from euler_tpu_torch.parallel.dryrun import dryrun_multichip
 
@@ -538,6 +540,58 @@ def _act_cache_estimator(ctx: Rank, A) -> None:
                                      h.numel() * h.element_size()])
     ctx.put("est/losses", res["losses"])
     ctx.put("est/step", est.step)
+    _sharded_refresh(ctx, A, est, g, n_rows)
+
+
+def _sharded_refresh(ctx: Rank, A, est, g, n_rows) -> None:
+    """refresh_act_cache over the row-sharded caches (the table's pad
+    row, global row live, lies past a rank's `per` rows) against the
+    same state refreshed in one process: the caches gathered, and the
+    gather_mean calls of each."""
+    import torch
+
+    from euler_tpu_torch.convert import gather_state_dict
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.models.graphsage import (
+        DeviceSampledScalableSage, refresh_act_cache,
+    )
+    from euler_tpu_torch.ops import gather_mean as gm
+    from euler_tpu_torch.parallel import collectives
+    from euler_tpu_torch.parallel.device_sampler import DeviceNeighborTable
+    from euler_tpu_torch.parallel.feature_store import DeviceFeatureStore
+    from euler_tpu_torch.parallel.placement import row_shard
+
+    one = NodeEstimator(
+        DeviceSampledScalableSage(3, 16, multilabel=False, dim=16, fanout=4,
+                                  num_layers=2, max_id=n_rows - 1),
+        dict(batch_size=32, checkpoint_steps=0, train_node_type=-1),
+        g, None, label_fid="label", label_dim=3,
+        feature_store=DeviceFeatureStore(g, ["feature"], label_fid="label",
+                                         label_dim=3, device="cpu"),
+        device_sampler=DeviceNeighborTable(g, cap=16, device="cpu"),
+        device="cpu")
+    one.model.load_state_dict(gather_state_dict(est.model))
+    ctx.put("refresh/live_per", [
+        int(one.static_batch["feature_table"].shape[0]) - 1,
+        est.model.encoder.caches()[0].h.shape[0]])
+    plain, calls = gm.gather_mean_reference, [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return plain(*a, **k)
+
+    gm.gather_mean_reference = counted
+    try:
+        for tag, e in (("mesh", est), ("one", one)):
+            calls[0] = 0
+            refresh_act_cache(e, chunk=64)
+            ctx.put(f"refresh/{tag}/gather_mean_calls", calls[0])
+    finally:
+        gm.gather_mean_reference = plain
+    h = est.model.encoder.caches()[0].h
+    ctx.put("refresh/mesh/cache", collectives.all_gather(
+        h.detach(), A.group("model"))[:row_shard(h).data_rows])
+    ctx.put("refresh/one/cache", one.model.encoder.caches()[0].h)
 
 
 def data_axis_batches(n, seed0):
@@ -568,25 +622,64 @@ def skipgram_batches(n, max_id=31, negs=3, b=8, seed=5):
     return out
 
 
+def unsup_sage_batches(n, seed, b=8, fanouts=(2, 2), d=6, max_id=31,
+                       negs=3):
+    """n host-fed UnsupervisedGraphSage batches: the roots' fanout
+    features, their contexts (pos [B]) and negatives [B, negs]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        sizes = [b]
+        for k in fanouts:
+            sizes.append(sizes[-1] * k)
+        src = rng.integers(0, max_id + 1, b).astype(np.uint64)
+        out.append({
+            "layers": [rng.normal(0, 1, (s, d)).astype(np.float32)
+                       for s in sizes],
+            "src": src, "infer_ids": src,
+            "pos": rng.integers(0, max_id + 1, b).astype(np.uint64),
+            "negs": rng.integers(0, max_id + 1, (b, negs)).astype(np.uint64)})
+    return out
+
+
+def _estimator_runs(ctx: Rank, A, prefix: str, build, train, evals) -> None:
+    """An estimator built by build(mesh or device kwargs) on the mesh
+    and in one process, fed the same global batches one step at a time:
+    each step's loss and metric, evaluate()'s, and the whole
+    parameters after the steps."""
+    from euler_tpu_torch.convert import gather_state_dict
+
+    for meshed in (0, 1):
+        est = build(dict(mesh=A) if meshed else dict(device="cpu"))
+        steps = []
+        for i, b in enumerate(train):
+            r = est.train(iter([b]), max_steps=i + 1)
+            steps.append([r["loss"], r["metric"]])
+        ev = est.evaluate(iter(evals), steps=len(evals))
+        ctx.put(f"{prefix}/{meshed}/steps", steps)
+        ctx.put(f"{prefix}/{meshed}/eval", [ev["loss"], ev["metric"]])
+        for k, v in gather_state_dict(est.model).items():
+            ctx.put(f"{prefix}/{meshed}/param/{k}", v)
+
+
 def _data_axis_estimators(ctx: Rank, A) -> None:
-    """The estimators on {data: 2, model: 2} against themselves in one
-    process on the same global batches, one step at a time: each step's
-    loss and metric, evaluate()'s loss and metric, and the parameters
-    after the steps (NodeEstimator with ShardedSupervisedGraphSage and
-    SupervisedGraphSage, EdgeEstimator with DeepWalk). The models that
-    do not split over the data axis refuse it, and so does a batch
-    array whose rows it does not divide."""
+    """The estimators of models that split over the data axis, on
+    {data: 2, model: 2} against themselves in one process
+    (_estimator_runs): NodeEstimator with ShardedSupervisedGraphSage and
+    SupervisedGraphSage, EdgeEstimator with DeepWalk, LINE and the
+    host-fed UnsupervisedGraphSage. A batch array whose rows the data
+    axis does not divide raises, through the estimator and in
+    data_slice."""
     import torch
 
-    from euler_tpu_torch.convert import gather_state_dict
     from euler_tpu_torch.estimator.estimators import (
-        EdgeEstimator, GraphEstimator, NodeEstimator,
+        EdgeEstimator, NodeEstimator,
     )
     from euler_tpu_torch.models.embedding_models import LINE, DeepWalk
     from euler_tpu_torch.models.graphsage import (
         ShardedSupervisedGraphSage, SupervisedGraphSage,
+        UnsupervisedGraphSage,
     )
-    from euler_tpu_torch.mp_utils.graph_gnn import GraphModel
     from euler_tpu_torch.parallel.mesh import data_slice
 
     c = SPMD
@@ -608,35 +701,228 @@ def _data_axis_estimators(ctx: Rank, A) -> None:
             c["max_id"], dim=c["dim"],
             generator=torch.Generator().manual_seed(2)),
             skipgram_batches(3), skipgram_batches(2, seed=6)),
+        "line": (EdgeEstimator, lambda: LINE(
+            c["max_id"], dim=c["dim"],
+            generator=torch.Generator().manual_seed(3)),
+            skipgram_batches(3, seed=7), skipgram_batches(2, seed=8)),
+        "unsup_sage": (EdgeEstimator, lambda: UnsupervisedGraphSage(
+            c["in_dim"], c["dim"], c["max_id"], fanouts=c["fanouts"],
+            num_negs=3, generator=torch.Generator().manual_seed(4)),
+            unsup_sage_batches(3, 9), unsup_sage_batches(2, 10)),
     }
     for name, (cls, make, train, evals) in makers.items():
-        for meshed in (0, 1):
-            kw = dict(mesh=A) if meshed else dict(device="cpu")
-            est = cls(make(), cfg, None, None, **kw)
-            steps = []
-            for i, b in enumerate(train):
-                r = est.train(iter([b]), max_steps=i + 1)
-                steps.append([r["loss"], r["metric"]])
-            ev = est.evaluate(iter(evals), steps=len(evals))
-            ctx.put(f"dax/{name}/{meshed}/steps", steps)
-            ctx.put(f"dax/{name}/{meshed}/eval", [ev["loss"], ev["metric"]])
-            for k, v in gather_state_dict(est.model).items():
-                ctx.put(f"dax/{name}/{meshed}/param/{k}", v)
+        _estimator_runs(
+            ctx, A, f"dax/{name}",
+            lambda kw: cls(make(), cfg, None, None, **kw), train, evals)
 
-    refused = {}
-    for name, build in (
-            ("graph", lambda: GraphEstimator(
-                GraphModel(4, num_graphs=4), {"num_graphs": 4}, [], [],
-                mesh=A)),
-            ("line", lambda: EdgeEstimator(LINE(c["max_id"], dim=4), {},
-                                           None, mesh=A)),
-            ("rows", lambda: data_slice({"x": np.zeros(5)}, A))):
+    raised = []
+    est = NodeEstimator(makers["sage"][1](), cfg, None, None, mesh=A)
+    seven = tiny_fanout_batch(7, c["fanouts"], c["in_dim"],
+                              c["num_classes"], c["max_id"])
+    for fn in (lambda: est.train(iter([seven]), max_steps=1),
+               lambda: data_slice({"x": np.zeros(5)}, A)):
         try:
-            build()
-            refused[name] = 0
+            fn()
+            raised.append(0)
         except ValueError as e:
-            refused[name] = int("data axis" in str(e))
-    ctx.put("dax/refused", [refused[k] for k in ("graph", "line", "rows")])
+            raised.append(int("does not divide" in str(e)))
+    ctx.put("dax/indivisible", raised)
+
+
+def _citation(seed=11):
+    """A 200-node synthetic citation graph in the port's engine, the
+    engine's draws seeded."""
+    from euler_tpu_torch.dataset import engine_from_arrays
+    from euler_tpu_torch.dataset.synthetic import synthetic_citation
+    from euler_tpu_torch.graph import seed as engine_seed
+
+    engine_seed(seed)
+    return engine_from_arrays(synthetic_citation(
+        n=200, d=16, num_classes=3, train_per_class=10, val=20, test=40,
+        seed=seed))
+
+
+def small_graphs(n=12, d=4, seed=3):
+    """n random small graphs {x, edge_index} and their binary labels."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(n):
+        k = int(rng.integers(3, 7))
+        e = int(rng.integers(k, 2 * k))
+        graphs.append({"x": rng.normal(0, 1, (k, d)).astype(np.float32),
+                       "edge_index": rng.integers(0, k, (2, e))
+                       .astype(np.int32)})
+    return graphs, rng.integers(0, 2, n)
+
+
+def _replicated_estimators(ctx: Rank, A) -> None:
+    """The models that do not split over the data axis on {data: 2,
+    model: 2}: every data rank takes the whole batch, so each equals its
+    one-process run bit for bit (_estimator_runs): BaseEstimator with
+    TransE, SuperviseSolution and DGI, GaeEstimator with the GAE,
+    GraphEstimator with GraphModel, and NodeEstimator with the
+    full-batch gcn ConvModel. The batches are drawn once and fed to
+    both runs."""
+    import itertools
+
+    import torch
+
+    from euler_tpu_torch.estimator.base_estimator import (
+        BaseEstimator, _to_device,
+    )
+    from euler_tpu_torch.estimator.estimators import (
+        GaeEstimator, GraphEstimator, NodeEstimator,
+    )
+    from euler_tpu_torch.examples.common import ConvModel
+    from euler_tpu_torch.examples.run_gae import FlowAdapter
+    from euler_tpu_torch.dataflow import FullBatchDataFlow
+    from euler_tpu_torch.models.dgi import DGI
+    from euler_tpu_torch.models.kg_models import TransE
+    from euler_tpu_torch.mp_utils.base_gae import BaseGraphGAE
+    from euler_tpu_torch.mp_utils.graph_gnn import GraphModel
+    from euler_tpu_torch.solution.base_solution import SuperviseSolution
+
+    cfg = dict(learning_rate=0.05, log_steps=1 << 30, checkpoint_steps=0,
+               seed=0)
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    take = lambda it, n: list(itertools.islice(it, n))  # noqa: E731
+    runs = {}
+
+    rng = np.random.default_rng(12)
+    triples = [{"h": rng.integers(0, 20, 8), "r": rng.integers(0, 4, 8)
+                .astype(np.int32), "t": rng.integers(0, 20, 8),
+                "neg_t": rng.integers(0, 20, (8, 3))} for _ in range(5)]
+    runs["transe"] = (lambda kw: BaseEstimator(
+        TransE(20, 4, dim=6, generator=gen(0)), cfg, **kw), triples)
+
+    data = _citation(13)
+    g = data.engine
+    sol = lambda: SuperviseSolution(  # noqa: E731
+        g, fanouts=(3, 2), dim=8, num_classes=3, batch_size=8,
+        generator=gen(1))
+    runs["solution"] = (lambda kw: BaseEstimator(sol().model, cfg, **kw),
+                        take(sol().input_fn(), 5))
+
+    flow = FullBatchDataFlow(g, feature_ids=["feature"])
+    gae_cfg = dict(cfg, batch_size=8, num_pos=12)
+    gae = lambda kw: GaeEstimator(  # noqa: E731
+        BaseGraphGAE(16, dim=4, generator=gen(2)), gae_cfg, g,
+        FlowAdapter(flow), **kw)
+    runs["gae"] = (gae, take(gae(dict(device="cpu")).train_input_fn(), 5))
+
+    full = flow(g.all_node_ids())
+    perm = np.random.default_rng(14)
+
+    def dgi(kw):
+        est = BaseEstimator(DGI(16, dim=6, generator=gen(3)), cfg, **kw)
+        est.static_batch.update(_to_device(full, est.device))
+        return est
+
+    runs["dgi"] = (dgi, [{"x_corrupt": full["x"][perm.permutation(
+        full["x"].shape[0])]} for _ in range(5)])
+
+    graphs, labels = small_graphs()
+    graph = lambda kw: GraphEstimator(  # noqa: E731
+        GraphModel(4, "gin", "sum", dim=8, num_graphs=4, generator=gen(4)),
+        dict(cfg, num_graphs=4, seed=5), graphs, labels, **kw)
+    one = graph(dict(device="cpu"))
+    runs["graph"] = (graph, take(one.train_input_fn(), 3)
+                     + take(one.eval_input_fn(), 2))
+
+    conv = lambda kw: NodeEstimator(  # noqa: E731
+        ConvModel(3, 16, "gcn", dim=8, generator=gen(6)),
+        dict(cfg, batch_size=8), g, flow, label_fid="label", label_dim=3,
+        **kw)
+    one = conv(dict(device="cpu"))
+    runs["conv_gcn"] = (conv, take(one.train_input_fn(), 3)
+                        + take(one.eval_input_fn(), 2))
+
+    for name, (build, batches) in runs.items():
+        _estimator_runs(ctx, A, f"rep/{name}", build, batches[:3],
+                        batches[3:])
+
+
+def _meshed_state(ctx: Rank, A) -> None:
+    """What a meshed NodeEstimator(ShardedSupervisedGraphSage) writes,
+    against the same estimator in one process on the same batches:
+    checkpoint_steps=1's files in a model_dir every rank shares (the
+    listing after each step, the last file's model and optimizer
+    state), the meshed checkpoint restored in one process and a
+    one-process checkpoint restored on the mesh (the whole parameters
+    after one more step), and infer's and export_bundle's files."""
+    import torch
+
+    from euler_tpu_torch.convert import gather_state_dict
+    from euler_tpu_torch.estimator.estimators import NodeEstimator
+    from euler_tpu_torch.serving.export import ModelBundle
+
+    c = SPMD
+    cfg = dict(batch_size=c["batch"], learning_rate=c["lr"],
+               optimizer="adam", log_steps=1 << 30, train_node_type=-1,
+               seed=0)
+    root = os.path.join(ctx.out_dir, "state")
+    mesh_dir = os.path.join(root, "mesh")
+    one_dir = os.path.join(root, f"one_rank{ctx.rank}")
+
+    def est(meshed, model_dir, ckpt):
+        kw = dict(mesh=A) if meshed else dict(device="cpu")
+        return NodeEstimator(_spmd_model(), {**cfg, "checkpoint_steps": ckpt},
+                             None, None, model_dir=model_dir, **kw)
+
+    def ckpt_file(d, step):
+        return torch.load(os.path.join(d, "checkpoints", f"ckpt-{step}.pt"),
+                          map_location="cpu", weights_only=True)
+
+    train = data_axis_batches(4, 50)
+    m, o = est(True, mesh_dir, 1), est(False, one_dir, 1)
+    listing = []
+    for i, b in enumerate(train[:3]):
+        m.train(iter([b]), max_steps=i + 1)
+        o.train(iter([b]), max_steps=i + 1)
+        listing.append(",".join(sorted(os.listdir(
+            os.path.join(mesh_dir, "checkpoints")))))
+    for tag, d in (("mesh", mesh_dir), ("one", one_dir)):
+        p = ckpt_file(d, 3)
+        ctx.put(f"ckpt/{tag}/step", [p["step"], p["skipped_steps"]])
+        for k, v in p["model"].items():
+            ctx.put(f"ckpt/{tag}/model/{k}", v)
+        for i, st in p["optimizer"]["state"].items():
+            for k, v in st.items():
+                ctx.put(f"ckpt/{tag}/opt/{i}/{k}", v)
+    # each way before the writer's next step: the meshed file into one
+    # process, the one-process file onto the mesh
+    o2, m2 = est(False, mesh_dir, 0), est(True, one_dir, 0)
+    for e in (o2, m2, m, o):
+        e.train(iter([train[3]]), max_steps=4)
+    listing.append(",".join(sorted(os.listdir(
+        os.path.join(mesh_dir, "checkpoints")))))
+    ctx.put("ckpt/listing", np.array(listing))
+    ctx.put("ckpt/restored_steps", [o2.step, m2.step])
+    for tag, e in (("mesh", m), ("one", o), ("mesh_in_one", o2),
+                   ("one_on_mesh", m2)):
+        for k, v in gather_state_dict(e.model).items():
+            ctx.put(f"ckpt/after/{tag}/{k}", v)
+
+    # infer and export: the meshed files against the one-process ones
+    infer = data_axis_batches(2, 70)
+    for s, b in enumerate(infer):
+        b["infer_ids"] = np.arange(100 + 8 * s, 108 + 8 * s,
+                                   dtype=np.uint64)[::-1].copy()
+    for tag, e in (("mesh", m), ("one", o)):
+        paths = e.infer(iter(infer), steps=len(infer))
+        ctx.put(f"infer/{tag}/emb", np.load(paths["embedding"]))
+        ctx.put(f"infer/{tag}/ids", np.load(paths["ids"]))
+        out = os.path.join(e.model_dir, "bundle")
+        got = e.export_bundle(out, input_fn=lambda: iter(infer),
+                              index=False)
+        disk = ModelBundle.load(out)
+        ctx.put(f"export/{tag}/same_as_returned", int(
+            np.array_equal(disk.ids, got.ids)
+            and np.array_equal(disk.embeddings, got.embeddings)))
+        ctx.put(f"export/{tag}/ids", disk.ids)
+        ctx.put(f"export/{tag}/emb", disk.embeddings)
+        for k, v in disk.params.items():
+            ctx.put(f"export/{tag}/param/{k.replace(chr(39), '')}", v)
 
 
 def job_partition(ctx: Rank) -> None:
