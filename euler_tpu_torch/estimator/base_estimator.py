@@ -94,6 +94,7 @@ from euler_tpu_torch.estimator.graphed_loop import GraphedLoop
 from euler_tpu_torch.estimator.infer import eval_mode, iter_embeddings
 from euler_tpu_torch.estimator.prefetch import ParallelPrefetcher
 from euler_tpu_torch.estimator.retry import retryable_error
+from euler_tpu_torch.obs.device import PhaseRecorder
 from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.mesh import data_slice
 from euler_tpu_torch.parallel.train import (
@@ -275,6 +276,19 @@ class BaseEstimator:
         self._hist_hook = child(
             "histogram", "estimator_hook_ms",
             "per-step logging/checkpoint hooks")
+        self._hist_replay_stage = child(
+            "histogram", "estimator_replay_stage_ms",
+            "per-replay host staging of a K-step window (static-input "
+            "stacks, generator seeds)")
+        self._hist_replay_launch = child(
+            "histogram", "estimator_replay_launch_ms",
+            "per-replay host time in CUDAGraph.replay()")
+        phases = reg.histogram(
+            "estimator_phase_device_ms",
+            "per-step device time of an update's phases (obs/device.py)",
+            ("estimator", "phase"))
+        self._phases = PhaseRecorder(
+            self.device, lambda p: phases.labels(phase=p, **lab))
         self._g_steps_per_sec = child(
             "gauge", "estimator_steps_per_sec", "train-loop throughput")
         self._g_skipped_steps = child(
@@ -314,9 +328,10 @@ class BaseEstimator:
         a mesh. Returns the (loss, metric) device scalars. Nothing here
         waits for the card or reads the host's step, so a CUDA graph can
         capture it."""
-        loss, metric, found_inf = spmd_update(
-            self.model, self.optimizer, batch, self.mesh,
-            self.nonfinite_guard, self._one)
+        with self._phases.update():
+            loss, metric, found_inf = spmd_update(
+                self.model, self.optimizer, batch, self.mesh,
+                self.nonfinite_guard, self._one)
         if found_inf is not None:
             self.skipped_steps += found_inf.to(torch.int32)
         settle = getattr(self.model, "settle_cache_writes", None)
@@ -658,6 +673,7 @@ class BaseEstimator:
                   if entries else np.zeros(0, np.float32))
         metrics = (torch.stack([_nanmean(e[1]) for e in entries])
                    .cpu().double().numpy() if entries else np.zeros(0))
+        self._phases.collect()
         w = np.asarray([e[1].numel() for e in entries], np.float64)
         keep = np.isfinite(metrics)
         if not entries:
@@ -725,39 +741,42 @@ class BaseEstimator:
         buf = [first]
         exhausted = False
         while step < max_steps:
-            want = min(K, max_steps - step)
-            if len(buf) < want and not exhausted:
-                with self._phase("input_wait", self._hist_input_wait):
-                    while len(buf) < want and not exhausted:
-                        try:
-                            raw, it = self._next_input(it)
-                            buf.append(self._to_device(raw))
-                        except StopIteration:
-                            exhausted = True
-            if not buf:
-                break
-            if len(buf) == K:
-                with self._phase("device_step", self._hist_device_step):
-                    entries.append(self._train_window(buf))
-            else:
-                for b in buf:
+            with _obs.span("train_window", estimator=self._obs_name,
+                           step=step):
+                want = min(K, max_steps - step)
+                if len(buf) < want and not exhausted:
+                    with self._phase("input_wait", self._hist_input_wait):
+                        while len(buf) < want and not exhausted:
+                            try:
+                                raw, it = self._next_input(it)
+                                buf.append(self._to_device(raw))
+                            except StopIteration:
+                                exhausted = True
+                if not buf:
+                    break
+                if len(buf) == K:
                     with self._phase("device_step", self._hist_device_step):
-                        loss, metric = self._train_step(b)
-                    entries.append((loss.reshape(1), metric.reshape(1)))
-            prev, step, buf = step, self.step, []
-            do_log = step - logged_at >= self.log_steps
-            do_ckpt = self.ckpt_steps and \
-                step // self.ckpt_steps > prev // self.ckpt_steps
-            if do_log or do_ckpt:
-                with self._phase("hook", self._hist_hook):
-                    if do_log:
-                        last_log = self._log(step, *entries[-1],
-                                             step - logged_at, last_log)
-                        logged_at = step
-                    if do_ckpt:
-                        self.save_checkpoint(step)
-            if exhausted:
-                break
+                        entries.append(self._train_window(buf))
+                else:
+                    for b in buf:
+                        with self._phase("device_step",
+                                         self._hist_device_step):
+                            loss, metric = self._train_step(b)
+                        entries.append((loss.reshape(1), metric.reshape(1)))
+                prev, step, buf = step, self.step, []
+                do_log = step - logged_at >= self.log_steps
+                do_ckpt = self.ckpt_steps and \
+                    step // self.ckpt_steps > prev // self.ckpt_steps
+                if do_log or do_ckpt:
+                    with self._phase("hook", self._hist_hook):
+                        if do_log:
+                            last_log = self._log(step, *entries[-1],
+                                                 step - logged_at, last_log)
+                            logged_at = step
+                        if do_ckpt:
+                            self.save_checkpoint(step)
+                if exhausted:
+                    break
         return entries
 
     def _log(self, step: int, losses: torch.Tensor, metrics: torch.Tensor,
@@ -772,11 +791,15 @@ class BaseEstimator:
         print(f"step {step}: loss={float(_nanmean(losses)):.4f} "
               f"metric={float(_nanmean(metrics)):.4f} "
               f"({rate:.1f} steps/s)", flush=True)
+        # the losses' read waited for the card: the marks are complete
+        self._phases.collect()
         return now
 
     def _start_profiler(self):
         """profiling=True with a model_dir: torch.profiler over the train
-        call (the counterpart of jax.profiler.start_trace)."""
+        call (the counterpart of jax.profiler.start_trace), over every
+        thread where torch can (profile_all_threads), so the feeder's
+        obs spans are ranges in the trace beside the loop's."""
         if not (self.profiling and self.model_dir):
             return None
         from torch.profiler import ProfilerActivity, profile
@@ -784,7 +807,14 @@ class BaseEstimator:
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+
+            kw = {"experimental_config":
+                  _ExperimentalConfig(profile_all_threads=True)}
+        except (ImportError, TypeError):
+            kw = {}
+        prof = profile(activities=acts, **kw)
         prof.start()
         return prof
 

@@ -30,6 +30,14 @@ What a replay reads is fixed at capture:
 Static outputs (the K losses and metrics) are overwritten by the next
 replay, so `run` returns clones.
 
+A replay is two host spans under the estimator's device_step:
+`replay_stage` (the static-input stacks and the generators' seeds) and
+`replay_launch` (CUDAGraph.replay()), each with its histogram
+(estimator_replay_stage_ms, estimator_replay_launch_ms). With obs
+enabled the capture records the estimator's phase marks as kernel nodes
+(obs/device.py), which every replay runs again; the switch is part of
+the signature, so toggling it captures again.
+
 The first window, and the first after anything that can move a captured
 address, runs eagerly as K real training steps (no step is wasted or
 repeated) on the side stream that then captures the graph: that warms
@@ -57,6 +65,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
+from euler_tpu_torch import obs as _obs
 from euler_tpu_torch.models.graphsage import sample_stream_seed
 from euler_tpu_torch.ops.gather_mean import gather_mean
 from euler_tpu_torch.parallel import collectives
@@ -107,6 +116,8 @@ class GraphedLoop:
         self._key = None
         self._inputs: Dict[str, Any] = {}
         self._losses = self._metrics = None
+        # the phase marks the capture recorded (obs/device.py)
+        self._phase_steps = []
 
     # -- what the graph depends on ------------------------------------------
     def _signature(self, est, batches: Sequence[Dict[str, Any]]):
@@ -119,7 +130,7 @@ class GraphedLoop:
             (k, v.data_ptr(), tuple(v.shape), v.dtype)
             if isinstance(v, torch.Tensor) else (k, id(v))
             for k, v in est.static_batch.items()))
-        return layouts[0], tables, est.model.training
+        return layouts[0], tables, est.model.training, _obs.enabled()
 
     def _tensor_keys(self, batch: Dict[str, Any]) -> List[str]:
         return [k for k, v in batch.items() if _describe(v) is not None]
@@ -139,15 +150,18 @@ class GraphedLoop:
             out = self._warm_up(est, batches)
             self._capture(est, batches, key)
             return out
-        for k in self._tensor_keys(batches[0]):
-            static = self._inputs[k]
-            if isinstance(static, list):
-                for h, dst in enumerate(static):
-                    torch.stack([b[k][h] for b in batches], out=dst)
-            else:
-                torch.stack([b[k] for b in batches], out=static)
-        self._seed(est, batches)
-        self.graph.replay()
+        with est._phase("replay_stage", est._hist_replay_stage):
+            for k in self._tensor_keys(batches[0]):
+                static = self._inputs[k]
+                if isinstance(static, list):
+                    for h, dst in enumerate(static):
+                        torch.stack([b[k][h] for b in batches], out=dst)
+                else:
+                    torch.stack([b[k] for b in batches], out=static)
+            self._seed(est, batches)
+        with est._phase("replay_launch", est._hist_replay_launch):
+            self.graph.replay()
+        est._phases.replayed(self._phase_steps)
         self.replays += 1
         est.step += self.steps
         return self._losses.clone(), self._metrics.clone()
@@ -201,8 +215,9 @@ class GraphedLoop:
         launches = gather_mean.launches
         issued = collectives.total_count()
         try:
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
+            with est._phases.capture() as phase_steps, \
+                    torch.cuda.graph(graph, stream=self._stream,
+                                     capture_error_mode="thread_local"):
                 losses, metrics = [], []
                 for i in range(self.steps):
                     b = {k: (v[i] if isinstance(v, torch.Tensor)
@@ -226,5 +241,6 @@ class GraphedLoop:
         self.launches_per_replay = gather_mean.launches - launches
         self.collectives_per_replay = collectives.total_count() - issued
         self.graph, self._key, self._inputs = graph, key, inputs
+        self._phase_steps = phase_steps
         self._losses, self._metrics = out
         self.captures += 1

@@ -6,7 +6,12 @@ Copy of euler_tpu/estimator/prefetch.py (stdlib only; the port imports
 nothing of euler_tpu); tests/test_torch_obs.py pins it to the original.
 In the port a `transform` that moves a batch to the card (the
 estimator's `_to_device`: a pinned, non-blocking copy) runs in the
-feeder thread, as bench.py's `_make_to_dev` does.
+feeder thread, as bench.py's `_make_to_dev` does. Each feeder thread
+times its work per batch, as spans with histograms labelled by the
+feeder's name: `feeder_source` (next() on the source, or the batch
+factory's call; feeder_source_ms) and `feeder_transform` (the transform;
+feeder_transform_ms). A source that ends adds one `feeder_source` for
+the call that says so.
 
 Two shapes:
 
@@ -31,7 +36,33 @@ import queue
 import threading
 from typing import Callable, Iterator, Optional, Union
 
+from euler_tpu_torch import obs as _obs
+
 _FEEDER_IDS = itertools.count()
+
+
+class _FeederTimes:
+    """A feeder's `feeder_source` / `feeder_transform` spans and their
+    millisecond histograms, labelled by the feeder's name."""
+
+    def __init__(self, name: str):
+        reg = _obs.default_registry()
+        self._name = name
+        self._source = reg.histogram(
+            "feeder_source_ms", "per-batch host ms of next() on the "
+            "feeder's source", ("feeder",)).labels(feeder=name)
+        self._transform = reg.histogram(
+            "feeder_transform_ms", "per-batch host ms of the feeder's "
+            "transform (the estimator's: the copy to the card)",
+            ("feeder",)).labels(feeder=name)
+
+    def source(self):
+        return _obs.timed_span("feeder_source", self._source,
+                               feeder=self._name)
+
+    def transform(self):
+        return _obs.timed_span("feeder_transform", self._transform,
+                               feeder=self._name)
 
 
 class Prefetcher:
@@ -42,9 +73,11 @@ class Prefetcher:
     def __init__(self, it: Iterator, depth: int = 2, transform=None):
         """transform (optional) runs on each batch IN the prefetch thread —
         pass a copy to the card to overlap host→device transfer with
-        device compute, not just graph sampling."""
-        self._it = it
+        device compute, not just graph sampling. The feeder's histograms
+        are labelled feeder<N>."""
+        self._it = iter(it)
         self._transform = transform
+        self._times = _FeederTimes(f"feeder{next(_FEEDER_IDS)}")
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err = None
         self._closed = threading.Event()
@@ -53,9 +86,14 @@ class Prefetcher:
 
     def _run(self):
         try:
-            for item in self._it:
+            while True:
+                with self._times.source():
+                    item = next(self._it, self._STOP)
+                if item is self._STOP:
+                    break
                 if self._transform is not None:
-                    item = self._transform(item)
+                    with self._times.transform():
+                        item = self._transform(item)
                 # bounded put that can be interrupted: close() sets the
                 # flag and drains, so a producer parked on a full queue
                 # always wakes up and exits instead of leaking
@@ -140,8 +178,6 @@ class ParallelPrefetcher:
     def __init__(self, source: Union[Callable, Iterator],
                  workers: int = 4, depth: Optional[int] = None,
                  transform=None, name: Optional[str] = None):
-        from euler_tpu_torch import obs as _obs
-
         self._transform = transform
         if callable(source):
             self._pull = source
@@ -174,6 +210,7 @@ class ParallelPrefetcher:
         self._ctr_batches = reg.counter(
             "feeder_batches_total", "batches produced by feeder workers",
             ("feeder",)).labels(**lab)
+        self._times = _FeederTimes(self._name)
         self._threads = [
             threading.Thread(target=self._work, daemon=True,
                              name=f"euler-{self._name}-{i}")
@@ -211,7 +248,8 @@ class ParallelPrefetcher:
                 if seq is None:
                     return None, None
             try:
-                return seq, ("ok", self._pull())
+                with self._times.source():
+                    return seq, ("ok", self._pull())
             except StopIteration:
                 return seq, ("end", None)
             except BaseException as e:   # delivered in-order, once
@@ -229,7 +267,8 @@ class ParallelPrefetcher:
             # it is the part that actually parallelizes
             if res[0] == "ok" and self._transform is not None:
                 try:
-                    res = ("ok", self._transform(res[1]))
+                    with self._times.transform():
+                        res = ("ok", self._transform(res[1]))
                 except BaseException as e:
                     res = ("err", e)
             with self._cond:

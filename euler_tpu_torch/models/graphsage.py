@@ -62,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from euler_tpu_torch.mp_utils.base import (
     ModelOutput, SuperviseModel, UnsuperviseModel, ranking_loss,
 )
+from euler_tpu_torch.obs.device import mark
 from euler_tpu_torch.ops.gather_mean import gather_mean, take_rows
 from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.device_layerwise import sample_layerwise_rows
@@ -403,9 +404,11 @@ class DeviceSampledGraphSage(SuperviseModel):
         uniforms = batch.get("sample_uniforms")
         gen = None if uniforms is not None else batch_stream(
             batch, roots.device, self.stream_word)
-        return sample_layers(batch, roots, self.fanouts, gen, uniforms,
+        rows = sample_layers(batch, roots, self.fanouts, gen, uniforms,
                              self.uniform_sampling,
                              table_reads(self.table_mesh))
+        mark("sample")
+        return rows
 
     def embed(self, batch: Dict[str, Any]) -> torch.Tensor:
         args = (batch["feature_table"], batch.get("feature_scale"),
@@ -823,6 +826,7 @@ class DeviceSampledUnsupervisedSage(nn.Module):
         negs = sample_global_rows(batch["neg_rows"], batch["neg_cum"],
                                   (roots.shape[0], self.num_negs),
                                   generator=gen, uniforms=replays[2])
+        mark("sample")
         return rows, pos, negs
 
     def forward(self, batch: Dict[str, Any]) -> ModelOutput:

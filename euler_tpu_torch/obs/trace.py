@@ -20,6 +20,12 @@ directly — complete "X" (duration) events with microsecond `ts`/`dur`.
 Disabled-path cost: when the tracer (or the whole subsystem, see
 euler_tpu_torch.obs.disable()) is off, `span()` returns a shared no-op
 singleton — one attribute check, no allocation.
+
+`Tracer.range_hook` (None here) lets a module outside this stdlib-only
+one mirror spans elsewhere: called with a span's name as the span
+opens, it returns a context manager (or None) that is entered then and
+left as the span closes, on the span's own thread.
+euler_tpu_torch/obs/device.py installs torch's profiler ranges there.
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ class Span:
     timing breakdown stitches under this span in a merged trace."""
 
     __slots__ = ("_tracer", "name", "attrs", "span_id", "parent_id",
-                 "trace_id", "_t0", "ts_us", "dur_us", "tid")
+                 "trace_id", "_t0", "ts_us", "dur_us", "tid", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict):
         self._tracer = tracer
@@ -82,6 +88,7 @@ class Span:
         self.ts_us = 0.0
         self.dur_us = 0.0
         self.tid = 0
+        self._range = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -99,6 +106,11 @@ class Span:
             self.trace_id = tr._trace_base + next(tr._trace_ids)
         stack.append(self)
         self.tid = threading.get_ident()
+        hook = tr.range_hook
+        if hook is not None:
+            self._range = hook(self.name)
+            if self._range is not None:
+                self._range.__enter__()
         self._t0 = time.perf_counter()
         self.ts_us = (self._t0 - tr._epoch) * 1e6
         return self
@@ -111,12 +123,18 @@ class Span:
         # escaped its with-block must not reparent the rest of the run)
         while stack and stack.pop() is not self:
             pass
+        if self._range is not None:
+            self._range.__exit__(*exc)
         tr._record(self)
         return False
 
 
 class Tracer:
     """Span factory + bounded ring of finished spans."""
+
+    # name -> context manager or None, mirrored around each span (see
+    # the module docstring)
+    range_hook = None
 
     def __init__(self, capacity: int = 65536):
         self._ring: collections.deque = collections.deque(maxlen=capacity)

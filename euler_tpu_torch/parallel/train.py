@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from euler_tpu_torch import obs as _obs
+from euler_tpu_torch.obs.device import mark
 from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.sharded_embedding import apply_param_shardings
 
@@ -98,13 +99,17 @@ def spmd_update(model: torch.nn.Module, optimizer, batch: Dict[str, Any],
     (splits_over_data). Returns (the global batch's loss, its metric,
     found_inf: a [] float tensor, 1.0 on a skipped step; None without
     the guard). Nothing waits for the device, so a CUDA graph can
-    capture it (NCCL's collectives included)."""
+    capture it (NCCL's collectives included). The phase marks of
+    obs/device.py close `forward`, `backward` and `optimizer` in the
+    update a caller's PhaseRecorder has open (none: no-ops)."""
     dmesh = data_mesh(model, mesh)
     with collectives.data_parallel(dmesh):
         out = model(batch)
+    mark("forward")
     optimizer.zero_grad(set_to_none=True)
     out.loss.backward()
     reduce_gradients(model.parameters(), dmesh)
+    mark("backward")
     loss, metric = global_values(
         torch.stack([out.loss.detach().float(),
                      out.metric.detach().float()]), dmesh).unbind()
@@ -124,6 +129,7 @@ def spmd_update(model: torch.nn.Module, optimizer, batch: Dict[str, Any],
             collectives.all_reduce(found_inf, None, op=dist.ReduceOp.MAX)
         optimizer.found_inf = found_inf
     optimizer.step()
+    mark("optimizer")
     return loss, metric, found_inf
 
 
