@@ -47,7 +47,12 @@ Phases, in order; any failure raises and the exit code is not 0:
               int8 table one byte off alignment; per case its launch
               plan, time, GB/s and share of the bound, the plain
               version's time, embedding_bag's and the bound; a sweep of
-              launch plans on the main case
+              launch plans on the main case. row_sparse_adam at the
+              unsupervised loop's shape ([N+1, 128] f32, 196,608 ids)
+              against its plain version (float32 steps), two runs over
+              1000 hot rows bit for bit; its time, the launch alone,
+              the plain version's, torch's fused Adam on the dense
+              gradient and the dense route it replaced, and its bound
   5. slice    the inference sweep over every node (75 batches) through
               the kernel (launch count checked), finite outputs, kernel
               forward vs plain forward
@@ -78,15 +83,16 @@ Phases, in order; any failure raises and the exit code is not 0:
               width on the same tables, in a plain BaseEstimator: K = 1
               as phase 6, K = 32 as phase 7 (edges/s, roots/s, host ms
               per step, busy share, peak memory, loss, MRR, launches ==
-              steps), then the graph against eager steps at K = 8, bit
-              for bit
+              steps, row_sparse_adam's too: one a step, 32 a replay),
+              then the graph against eager steps at K = 8, bit for bit
+              (row_sparse_adam 8 a replay, 1 an eager step)
   9. walk     the DeepWalk skip-gram (DeviceSampledSkipGram) at bench.py
               --walk's shape (bench.py:392-503: walk_len 5, window 1/1,
               5 negatives, dim 128, K = 8): pairs/s (bench.py's metric),
               ms per replay, host ms per step, busy share, peak memory,
-              dense Adam's bytes against the step; the graph against
-              eager steps at K = 8, bit for bit; then whether
-              F.embedding's dense backward repeats bit for bit
+              Adam's bytes against the step (row_sparse_adam, 2 a
+              step: emb and ctx); the graph against eager steps at
+              K = 8, bit for bit
  9a. layouts  the fused [N+1, 64] and alias [N+1, 32] layouts of the
               phase-3 table (its host copy, not built again):
               fuse_tables_host and build_alias_tables timed, bytes on
@@ -421,6 +427,10 @@ from euler_tpu_torch.serving import wire
 from euler_tpu_torch.serving import InferenceServer, ModelBundle, ServingClient
 from euler_tpu_torch.tools.knn import brute_force
 from euler_tpu_torch.utils.layers import PReLU
+from euler_tpu_torch.ops import row_sparse_adam as row_sparse_adam_module
+from euler_tpu_torch.ops.row_sparse_adam import (
+    densify, max_ulps, row_sparse_adam, row_sparse_adam_reference,
+)
 
 FULL_NODES = 2_450_000
 AVG_DEGREE, FEAT_DIM, NUM_CLASSES, CAP = 50, 100, 16, 32
@@ -1036,6 +1046,134 @@ def phase_kernels(store, rows: torch.Tensor, dev: torch.device,
     return {"cases": results, "plans": plan_sweep(q, scale_bf16, rows)}
 
 
+# row_sparse_adam against its plain version: float32 steps apart (it
+# measures 0: the same arithmetic, each fma through float64 there), and
+# the rows a determinism case draws its ids from
+RSA_MAX_ULPS, RSA_HOT_ROWS = 2, 1000
+
+
+def phase_row_sparse_adam(n_rows: int, dev: torch.device) -> dict:
+    """row_sparse_adam at the unsupervised loop's shape: its context
+    table [n_rows, DIM] float32, seeded moments at step 3, and one
+    step's row-sparse gradient, BATCH x (1 + UNSUP_NEGS) ids drawn over
+    every row (some repeat) with their rows, Adam at TRAIN_LR. The
+    kernel against its plain version (row_sparse_adam_reference, on the
+    card) from the same state: the table and both moments within
+    RSA_MAX_ULPS float32 steps, the step count equal; beside it (read,
+    not a gate) the float32 steps to torch's fused capturable Adam on
+    the dense gradient. Then the same step twice from one state with
+    the ids drawn from RSA_HOT_ROWS rows (each id summed about 200
+    times): the same bits (no atomics). Times (time_ms): the call (the
+    ids' sort, the row map, the pass), the launch alone (ids sorted
+    beforehand), the plain version, torch's fused Adam step on the
+    dense gradient (library), and the route the kernel replaced: the
+    dense gradient, the guard's non-finite pass over it, fused Adam.
+    The bound: p, m and v each read and written once, 24 x n_rows x DIM
+    bytes, at HBM_BYTES_PER_S."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    nnz = BATCH * (1 + UNSUP_NEGS)
+    p = torch.rand((n_rows, DIM), generator=gen, device=dev) / 20
+    m = torch.randn((n_rows, DIM), generator=gen, device=dev) * 1e-3
+    v = torch.rand((n_rows, DIM), generator=gen, device=dev) * 1e-6
+    step = torch.full((), 3.0, device=dev)
+    found = torch.zeros((), device=dev)
+    kw = dict(lr=TRAIN_LR, beta1=0.9, beta2=0.999, eps=1e-8,
+              found_inf=found)
+
+    def draw(hi):
+        ids = torch.randint(0, hi, (nnz,), generator=gen, device=dev)
+        vals = torch.randn((nnz, DIM), generator=gen, device=dev)
+        return torch.sparse_coo_tensor(ids[None], vals, (n_rows, DIM),
+                                       is_coalesced=False)
+
+    def state():
+        return [t.clone() for t in (p, m, v, step)]
+
+    grad = draw(n_rows)
+    ids = grad._indices()[0]
+    start = state()
+    row_sparse_adam(p, grad, m, v, step, **kw)
+    got = state()
+    ref = [t.clone() for t in start]
+    rp, rm, rv, rs = ref
+    row_sparse_adam_reference(rp, grad, rm, rv, rs, **kw)
+    torch.cuda.synchronize()
+    ulps = {k: max_ulps(a, b) for k, a, b in
+            zip(("param", "exp_avg", "exp_avg_sq"), got, ref)}
+    steps_equal = bool(torch.equal(got[3], ref[3]))
+    del ref, rp, rm, rv, rs
+    dense = torch.nn.Parameter(start[0].clone())
+    adam = torch.optim.Adam([dense], lr=TRAIN_LR, fused=True,
+                            capturable=True)
+    adam.found_inf = found
+    adam.state[dense].update(exp_avg=start[1].clone(),
+                             exp_avg_sq=start[2].clone(),
+                             step=start[3].clone())
+    dense.grad = densify(grad)
+    adam.step()
+    st = adam.state[dense]
+    fused_ulps = {k: max_ulps(a, b.detach()) for k, a, b in zip(
+        ("param", "exp_avg", "exp_avg_sq"), got,
+        (dense, st["exp_avg"], st["exp_avg_sq"]))}
+    del got
+    hot = draw(RSA_HOT_ROWS)
+    runs = []
+    for _ in range(2):
+        for t, s0 in zip((p, m, v, step), start):
+            t.copy_(s0)
+        row_sparse_adam(p, hot, m, v, step, **kw)
+        runs.append(state())
+    deterministic = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs, hot, start
+    log(f"kernel row_sparse_adam [{n_rows} x {DIM} f32, {nnz} ids, "
+        f"{int(torch.unique(ids).numel())} distinct]: float32 steps from "
+        f"the plain version {ulps} (at most {RSA_MAX_ULPS}), step counts "
+        f"equal {steps_equal}; from torch's fused Adam on the dense "
+        f"gradient {fused_ulps}; ids over {RSA_HOT_ROWS} rows, two runs "
+        f"bit for bit: {deterministic}")
+    if not (max(ulps.values()) <= RSA_MAX_ULPS and steps_equal
+            and deterministic):
+        raise AssertionError(f"row_sparse_adam vs its plain version: "
+                             f"{ulps} float32 steps, step counts equal "
+                             f"{steps_equal}, deterministic {deterministic}")
+    values = grad._values().contiguous()
+    sorted_ids, order = torch.sort(ids, stable=True)
+    scratch = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
+    one = torch.ones((), device=dev)
+
+    def dense_route():
+        dense.grad = densify(grad)
+        torch._amp_foreach_non_finite_check_and_unscale_([dense.grad],
+                                                         found, one)
+        adam.step()
+    bound_ms = 24 * n_rows * DIM / HBM_BYTES_PER_S * 1e3
+    r = {"N": n_rows, "D": DIM, "nnz": nnz,
+         "distinct_ids": int(torch.unique(ids).numel()),
+         "max_ulps": ulps, "tol_ulps": RSA_MAX_ULPS,
+         "step_counts_equal": steps_equal,
+         "fused_adam_max_ulps": fused_ulps,
+         "deterministic_hot_rows": deterministic,
+         "ms": time_ms(lambda: row_sparse_adam(p, grad, m, v, step, **kw)),
+         "launch_only_ms": time_ms(lambda: row_sparse_adam_module._launch(
+             p, values, sorted_ids, order, scratch, m, v, step,
+             weight_decay=0.0, decoupled=False, **kw)),
+         "plain_ms": time_ms(lambda: row_sparse_adam_reference(
+             p, grad, m, v, step, **kw)),
+         "library_ms": time_ms(adam.step),
+         "dense_route_ms": time_ms(dense_route),
+         "bound_ms": bound_ms, "bound_by": "bytes",
+         "bytes": 24 * n_rows * DIM}
+    r["bound_share"] = bound_ms / r["ms"]
+    r["launch_only_bound_share"] = bound_ms / r["launch_only_ms"]
+    log(f"kernel row_sparse_adam: kernel_ms {r['ms']:.4f} (launch only "
+        f"{r['launch_only_ms']:.4f}, {r['launch_only_bound_share']:.1%} of "
+        f"the bound; the call {r['bound_share']:.1%}) plain_ms "
+        f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} (fused Adam "
+        f"on the dense gradient) dense_route_ms {r['dense_route_ms']:.4f} "
+        f"bound_ms {bound_ms:.4f} (bytes)")
+    return r
+
+
 def plan_sweep(table, scale, rows) -> list:
     """The main case at 4, 8 and 16 warps per block (launch_plan's
     default is 4). Informational."""
@@ -1207,17 +1345,20 @@ def phase_train(store, table, graph, dev: torch.device) -> tuple:
 
 def _drive_steps(est, it, what: str, work: str = "edges",
                  work_per_step: int = 0, kernels_per_step: int = 1,
-                 batch: int = BATCH) -> dict:
+                 batch: int = BATCH, sparse_tables=None) -> dict:
     """est.train one step at a time, as bench.py times it: warm-up, then
     3 windows of steps on the host clock with a synchronize at the
     window edges only; then event-timed steps and one profiled step.
     Fails unless gather_mean launched kernels_per_step times a step, the
-    loss is finite and falling and no step was skipped. work_per_step:
-    the flagship's edges unless given; batch: the roots a step."""
+    loss is finite and falling and no step was skipped; with
+    sparse_tables, unless row_sparse_adam launched that many times a
+    step (one a table with a row-sparse gradient). work_per_step: the
+    flagship's edges unless given; batch: the roots a step."""
     work_per_step = work_per_step or EDGES_PER_STEP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gather_mean.launches = 0
+    row_sparse_adam.launches = 0
     losses = est.train(it, max_steps=WARMUP_STEPS)["losses"]
     per_window = TIMED_STEPS // WINDOWS
     window_s, window_rates, metrics = [], [], []
@@ -1262,6 +1403,11 @@ def _drive_steps(est, it, what: str, work: str = "edges",
         raise AssertionError(f"{what}: gather_mean launched {launches} "
                              f"times in {steps} training steps "
                              f"({kernels_per_step} a step expected)")
+    adam_launches = row_sparse_adam.launches
+    if sparse_tables is not None and adam_launches != steps * sparse_tables:
+        raise AssertionError(f"{what}: row_sparse_adam launched "
+                             f"{adam_launches} times in {steps} training "
+                             f"steps ({sparse_tables} a step expected)")
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"{what}: non-finite training loss: {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1275,6 +1421,7 @@ def _drive_steps(est, it, what: str, work: str = "edges",
     rate = work_per_step * TIMED_STEPS / timed_s
     ms = statistics.median(step_ms)
     r = {"steps": steps, "gather_mean_launches": launches,
+         "row_sparse_adam_launches": adam_launches,
          "skipped_steps": skipped, "losses": losses,
          "loss_first5_mean": first5, "loss_last5_mean": last5,
          "window_metrics": metrics,
@@ -1291,7 +1438,8 @@ def _drive_steps(est, it, what: str, work: str = "edges",
          "input_wait_ms": input_wait_ms, "dispatch_ms": dispatch_ms,
          "peak_device_bytes": peak, "profile": prof}
     log(f"{what}: {steps} steps of {batch} roots (Adam lr {TRAIN_LR}), "
-        f"gather_mean launches {launches}, skipped {skipped}; "
+        f"gather_mean launches {launches}, row_sparse_adam launches "
+        f"{adam_launches}, skipped {skipped}; "
         f"{work}_per_sec_per_gpu {rate:.6g} ({work_per_step} {work}/step, "
         f"{r['steps_per_s']:.3f} steps/s, {r['roots_per_s']:.0f} roots/s; "
         "windows " + ", ".join(f"{x:.3f}" for x in window_rates)
@@ -1351,7 +1499,7 @@ def check_remat(est, model, it, dev) -> dict:
         res.loss.backward()
         torch.cuda.synchronize()
         out[name] = (res.loss.detach(),
-                     {n: p.grad.detach().clone()
+                     {n: densify(p.grad).detach().clone()
                       for n, p in m.named_parameters()},
                      gather_mean.launches - n0,
                      torch.cuda.max_memory_allocated())
@@ -1412,7 +1560,7 @@ def phase_loop(store, table, graph, dev, k: int = LOOP_K) -> tuple:
     it = make_feeder(est.train_input_fn(), workers=0, depth=FEEDER_DEPTH,
                      transform=lambda b: _on_card(b, est))
     try:
-        return _drive_loop(est, it, k), est
+        return _drive_loop(est, it, k, sparse_tables=0), est
     finally:
         it.close()
 
@@ -1426,19 +1574,22 @@ def _phase_sums(est) -> tuple:
 
 def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
                 work_per_step: int = 0, kernels_per_step: int = 1,
-                batch: int = BATCH, n_windows: int = WINDOWS) -> dict:
+                batch: int = BATCH, n_windows: int = WINDOWS,
+                sparse_tables=None) -> dict:
     """est.train at steps_per_loop = k as bench.py drives it: k + 2
     warm-up steps (the first window eager, the capture, a tail of 2),
     n_windows (3) timed windows of 64 steps; then event-timed replays
     and one profiled replay. Fails unless gather_mean's launches on the
     card (eager + recorded per window x replays) are kernels_per_step
-    per step, the loss is finite and falling and no step was skipped.
-    work_per_step: the flagship's edges unless given; batch: the roots
-    a step."""
+    per step, the loss is finite and falling and no step was skipped;
+    with sparse_tables, unless row_sparse_adam's launches on the card
+    (counted the same way) are sparse_tables a step. work_per_step: the
+    flagship's edges unless given; batch: the roots a step."""
     work_per_step = work_per_step or EDGES_PER_STEP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gather_mean.launches = 0
+    row_sparse_adam.launches = 0
     warm = k + 2
     t0 = time.monotonic()
     losses = est.train(iter([next(it) for _ in range(warm)]),
@@ -1476,6 +1627,18 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
             f"recorded per {k}-step window, {loop.captures} captures, "
             f"{replays} replays: {device_launches} launches on the "
             f"card for {steps} steps")
+    adam_host = row_sparse_adam.launches
+    adam_per_replay = loop.row_sparse_adam_launches_per_replay
+    adam_device = (adam_host - loop.captures * adam_per_replay
+                   + replays * adam_per_replay)
+    if sparse_tables is not None and (
+            adam_per_replay != k * sparse_tables
+            or adam_device != steps * sparse_tables):
+        raise AssertionError(
+            f"{what}: row_sparse_adam: {adam_host} host launches, "
+            f"{adam_per_replay} recorded per {k}-step window, "
+            f"{adam_device} launches on the card for {steps} steps "
+            f"({sparse_tables} a step expected)")
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"{what}: non-finite training loss: {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1517,6 +1680,9 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
          "gather_mean_launches_per_replay": per_replay,
          "captures": loop.captures, "replays": replays,
          "gather_mean_device_launches": device_launches,
+         "row_sparse_adam_host_launches": adam_host,
+         "row_sparse_adam_launches_per_replay": adam_per_replay,
+         "row_sparse_adam_device_launches": adam_device,
          "skipped_steps": skipped, "losses": losses,
          "loss_first5_mean": first5, "loss_last5_mean": last5,
          "window_seconds": window_s, "window_steps_per_s": window_rates,
@@ -1539,7 +1705,9 @@ def _drive_loop(est, it, k: int, what: str = "loop", work: str = "edges",
     log(f"{what}: {steps} steps at steps_per_loop {k} ({loop.captures} "
         f"capture, {replays} replays), gather_mean {launches} host "
         f"launches, {per_replay} per replayed window, {device_launches} on "
-        f"the card ({kernels_per_step} a step); {work}_per_sec_per_gpu "
+        f"the card ({kernels_per_step} a step); row_sparse_adam "
+        f"{adam_per_replay} per replayed window, {adam_device} on the card; "
+        f"{work}_per_sec_per_gpu "
         f"{eps:.6g} ({r['steps_per_s']:.3f} steps/s, "
         f"{r['roots_per_s']:.0f} roots/s; windows "
         + ", ".join(f"{x:.3f}" for x in window_rates)
@@ -1574,7 +1742,8 @@ def _run_diffs(a, b) -> dict:
 
 
 def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
-                         what: str = "flagship", against=None) -> dict:
+                         what: str = "flagship", against=None,
+                         sparse_tables=None) -> dict:
     """LOOP_EQ_WINDOWS windows of k steps at K = k (the first eager on
     the capture stream, the rest graph replays) and at K = 1, from the
     same weights on the same batches: losses, parameters, buffers and
@@ -1582,13 +1751,17 @@ def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
     the estimator; feed gives the batches. against: an optional (label,
     make_estimator) whose run at K = k on the same batches must equal
     the graph run bit for bit too (the fused layout against the split
-    tables' weighted draw)."""
+    tables' weighted draw). sparse_tables: the tables with a row-sparse
+    gradient; row_sparse_adam must then launch sparse_tables x k times a
+    replayed window and sparse_tables times an eager step."""
     steps = LOOP_EQ_WINDOWS * k
     batches = [next(feed) for _ in range(steps)]
-    runs = []
+    runs, adam_launches = [], []
     for spl in (k, 1):
         est = make_estimator(spl)
+        row_sparse_adam.launches = 0
         res = est.train(iter(batches), max_steps=steps)
+        adam_launches.append(row_sparse_adam.launches)
         runs.append((est, res["losses"]))
     diffs = _run_diffs(*runs)
     worst = max(diffs.values())
@@ -1602,8 +1775,18 @@ def check_graph_vs_eager(make_estimator, feed, k: int = LOOP_K,
     if not (worst == 0.0 and replays == LOOP_EQ_WINDOWS - 1):
         raise AssertionError(f"{what}: graph replay differs from the eager "
                              f"steps: {diffs}")
+    adam_per_replay = eg._graphed.row_sparse_adam_launches_per_replay
+    if sparse_tables is not None and (
+            adam_per_replay != k * sparse_tables
+            or adam_launches[1] != steps * sparse_tables):
+        raise AssertionError(
+            f"{what}: row_sparse_adam launched {adam_per_replay} times a "
+            f"{k}-step window and {adam_launches[1]} times in {steps} eager "
+            f"steps ({sparse_tables} a step expected)")
     out = {"steps": steps, "steps_per_loop": k, "replays": replays,
            "gather_mean_launches_per_replay": eg._graphed.launches_per_replay,
+           "row_sparse_adam_launches_per_replay": adam_per_replay,
+           "row_sparse_adam_eager_launches": adam_launches[1],
            "max_abs_diff": worst, "diffs": diffs}
     if against is not None:
         label, make = against
@@ -2033,7 +2216,7 @@ def _step1_grads(model: torch.nn.Module, batch: dict) -> dict:
     the CPU."""
     model.train()
     model(batch).loss.backward()
-    return {n: p.grad.detach().cpu().double()
+    return {n: densify(p.grad).detach().cpu().double()
             for n, p in model.named_parameters() if p.grad is not None}
 
 
@@ -2147,22 +2330,24 @@ def phase_unsup(store, table, neg, graph, dev) -> dict:
     roots drawn over all nodes: K = 1 as phase 6 drives the flagship,
     K = 32 as phase 7 (bench.py's prefetch thread of depth 3), and the
     graph against eager steps at K = 8. gather_mean launches once per
-    step; edges per step as the flagship's."""
+    step, and row_sparse_adam once (the context table's row-sparse
+    gradient); edges per step as the flagship's."""
     roots = root_input_fn(graph, BATCH, table.pad_row)
     r = {"k1": _drive_steps(unsup_estimator(store, table, neg, dev),
-                            roots(), "unsup")}
+                            roots(), "unsup", sparse_tables=1)}
     est = unsup_estimator(store, table, neg, dev, steps_per_loop=LOOP_K)
     it = make_feeder(roots(), workers=0, depth=FEEDER_DEPTH,
                      transform=lambda b: _on_card(b, est))
     try:
-        r["k32"] = _drive_loop(est, it, LOOP_K, what="unsup loop")
+        r["k32"] = _drive_loop(est, it, LOOP_K, what="unsup loop",
+                               sparse_tables=1)
     finally:
         it.close()
     del est
     r["graph_vs_eager"] = check_graph_vs_eager(
         lambda k: unsup_estimator(store, table, neg, dev, steps_per_loop=k),
         roots(), k=UNSUP_EQ_K,
-        what="unsupervised GraphSAGE")
+        what="unsupervised GraphSAGE", sparse_tables=1)
     return r
 
 
@@ -2186,11 +2371,12 @@ def phase_walk(table, neg, graph, dev) -> dict:
     """The DeepWalk skip-gram at bench.py --walk's shape and K = 8
     (bench.py's spl_walk, :814-818), fed by its prefetch thread (depth
     3); pairs/s/GPU = steps x 32768 x 10 / s, bench.py's metric. The
-    path has no kernel of the port: gather_mean launches 0 times. Then
-    the graph against eager steps at K = 8, and dense Adam's bytes
-    beside the step's time: emb and ctx, [N+1, 128] float32 each, their
-    dense gradients and two moments; Adam reads p, g, m, v and writes
-    p, m, v."""
+    path reads no feature table: gather_mean launches 0 times, and
+    row_sparse_adam twice a step (emb and ctx take row-sparse
+    gradients). Then the graph against eager steps at K = 8, and Adam's
+    bytes beside the step's time: emb and ctx, [N+1, 128] float32 each,
+    and their two moments; row_sparse_adam's pass reads and writes p, m
+    and v once each (no dense gradient)."""
     pairs_per_root = len(gen_pair_offsets(WALK_LEN + 1, 1, 1))
     est = skipgram_estimator(table, neg, dev, steps_per_loop=WALK_K)
     roots = root_input_fn(graph, BATCH, table.pad_row)
@@ -2199,50 +2385,22 @@ def phase_walk(table, neg, graph, dev) -> dict:
     try:
         r = _drive_loop(est, it, WALK_K, what="walk", work="pairs",
                         work_per_step=BATCH * pairs_per_root,
-                        kernels_per_step=0)
+                        kernels_per_step=0, sparse_tables=2)
     finally:
         it.close()
     table_bytes = (table.pad_row + 1) * DIM * 4
-    adam_bytes = 2 * 7 * table_bytes
+    adam_bytes = 2 * 6 * table_bytes
     r["adam_bytes_per_step"] = adam_bytes
     r["adam_bound_ms"] = adam_bytes / HBM_BYTES_PER_S * 1e3
     step_ms = r["replay_ms_median"] / WALK_K
-    log(f"walk: dense Adam over emb and ctx moves {adam_bytes / 1e9:.2f} GB "
+    log(f"walk: Adam over emb and ctx moves {adam_bytes / 1e9:.2f} GB "
         f"a step, {r['adam_bound_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12} "
         f"TB/s, against {step_ms:.3f} ms a step (events)")
     del est
     r["graph_vs_eager"] = check_graph_vs_eager(
         lambda k: skipgram_estimator(table, neg, dev, steps_per_loop=k),
-        roots(), k=WALK_K, what="DeepWalk")
+        roots(), k=WALK_K, what="DeepWalk", sparse_tables=2)
     return r
-
-
-def probe_embedding_backward(table, dev) -> dict:
-    """Whether F.embedding's dense backward on the card is deterministic
-    (the graph-vs-eager checks compare bit for bit): the gradient of a
-    [N+1, 128] table from the same upstream gradient, twice, for
-    indices of the walk step's shape ([32768 x 10, 6] rows drawn over
-    all nodes) and for the same count drawn from 1000 rows, where every
-    row collects thousands of adds."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-    n = table.pad_row + 1
-    weight = torch.zeros((n, DIM), device=dev, requires_grad=True)
-    shape = (BATCH * len(gen_pair_offsets(WALK_LEN + 1, 1, 1)),
-             1 + WALK_NEGS)
-    up = torch.randn(shape + (DIM,), generator=gen, device=dev)
-    out = {}
-    for name, hi in (("all rows", n), ("1000 rows", 1000)):
-        idx = torch.randint(0, hi, shape, generator=gen, device=dev)
-        grads = []
-        for _ in range(2):
-            g, = torch.autograd.grad(
-                torch.nn.functional.embedding(idx, weight), weight, up)
-            grads.append(g)
-        out[name] = bool(torch.equal(grads[0], grads[1]))
-    del weight, up, grads
-    log("embedding backward: two runs bit for bit: " + ", ".join(
-        f"{k}: {v}" for k, v in out.items()))
-    return out
 
 
 def _chi2_crit(df: int, z: float = CHI2_Z) -> float:
@@ -2492,12 +2650,12 @@ def phase_alias_unsup(store, table, neg, alias, graph, dev) -> dict:
             lambda k: unsup_estimator(store, table, neg, dev, layout=alias,
                                       steps_per_loop=k),
             roots(), k=UNSUP_EQ_K,
-            what="unsupervised GraphSAGE, alias"),
+            what="unsupervised GraphSAGE, alias", sparse_tables=1),
         "walk": check_graph_vs_eager(
             lambda k: skipgram_estimator(table, neg, dev, layout=alias,
                                          steps_per_loop=k),
             roots(), k=WALK_K,
-            what="DeepWalk, alias")}
+            what="DeepWalk, alias", sparse_tables=2)}
     # one gather_mean launch a step for the mean aggregator's deepest
     # hop; the skip-gram reads no feature table
     for name, want in (("unsup", UNSUP_EQ_K), ("walk", 0)):
@@ -3090,7 +3248,7 @@ def _mp_step_grads(model, raw, dev):
     model.zero_grad(set_to_none=True)
     out = model(base_estimator._to_device(raw, dev))
     out.loss.backward()
-    return float(out.loss.detach()), {k: p.grad.detach().cpu()
+    return float(out.loss.detach()), {k: densify(p.grad).detach().cpu()
                              for k, p in model.named_parameters()}
 
 
@@ -3461,7 +3619,7 @@ def _scalable_card_vs_cpu(make_est, raws: list, dev) -> tuple:
         res = model(base_estimator._to_device(raws[1], d, max_id))
         res.loss.backward()
         out.append((float(res.loss.detach()),
-                    {k: p.grad.detach().cpu()
+                    {k: densify(p.grad).detach().cpu()
                      for k, p in model.named_parameters()}))
     (lp, gp), (lc, gc_) = out
     top = max(float(v.abs().max()) for v in gp.values())
@@ -4842,6 +5000,8 @@ def main(argv=None) -> int:
             uniform=table.uniform_rows).view(BATCH, CACHE_FANOUT)
     record["kernels"] = phase_kernels(store, deepest, dev, baseline,
                                       cache_rows)
+    record["kernels"]["row_sparse_adam"] = phase_row_sparse_adam(
+        table.pad_row + 1, dev)
     del deepest, probe, cache_rows
     record["slice"], ids, emb = phase_slice(inf, model)
     mark(record, "kernels, slice", t_start)
@@ -4877,7 +5037,6 @@ def main(argv=None) -> int:
         record["unsup"] = phase_unsup(store, table, neg, graph, dev)
         mark(record, "unsup", t_start)
         record["walk"] = phase_walk(table, neg, graph, dev)
-        record["embedding_backward"] = probe_embedding_backward(table, dev)
         mark(record, "walk", t_start)
         # slice 7: the fused and alias layouts of the same table, the
         # flagship over each, the activation cache, the unsupervised family
@@ -5028,7 +5187,34 @@ def main(argv=None) -> int:
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "cases": record["kernels"]["cases"]}]}
+        "cases": record["kernels"]["cases"]}, {
+        "name": "row_sparse_adam", "route": "cuda",
+        "source": "euler_tpu_torch/csrc/row_sparse_adam.cu",
+        "replaces": "torch.optim.Adam(fused=True) over a dense table "
+                    "gradient (optax.adam in the reference)",
+        "unsup_launches": record["unsup"]["k1"]["row_sparse_adam_launches"],
+        "unsup_loop_launches_per_replay":
+            record["unsup"]["k32"]["row_sparse_adam_launches_per_replay"],
+        "unsup_loop_device_launches":
+            record["unsup"]["k32"]["row_sparse_adam_device_launches"],
+        "unsup_graph_vs_eager_launches_per_replay": record["unsup"][
+            "graph_vs_eager"]["row_sparse_adam_launches_per_replay"],
+        "unsup_graph_vs_eager_eager_launches": record["unsup"][
+            "graph_vs_eager"]["row_sparse_adam_eager_launches"],
+        "walk_loop_launches_per_replay":
+            record["walk"]["row_sparse_adam_launches_per_replay"],
+        "walk_device_launches":
+            record["walk"]["row_sparse_adam_device_launches"],
+        "walk_graph_vs_eager_launches_per_replay": record["walk"][
+            "graph_vs_eager"]["row_sparse_adam_launches_per_replay"],
+        "loop_launches_per_replay":
+            record["loop"]["row_sparse_adam_launches_per_replay"],
+        "checked_vs_plain": True,
+        **{k: record["kernels"]["row_sparse_adam"][k] for k in (
+            "max_ulps", "fused_adam_max_ulps", "deterministic_hot_rows",
+            "ms", "launch_only_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "dense_route_ms", "bound_share",
+            "launch_only_bound_share", "N", "D", "nnz")}}]}
     record["seconds"] = time.monotonic() - t_start
     log(f"chip_smoke: {record['seconds']:.1f}s from start to the result")
     if args.out:

@@ -68,6 +68,7 @@ import torch
 from euler_tpu_torch import obs as _obs
 from euler_tpu_torch.models.graphsage import sample_stream_seed
 from euler_tpu_torch.ops.gather_mean import gather_mean
+from euler_tpu_torch.ops.row_sparse_adam import row_sparse_adam
 from euler_tpu_torch.parallel import collectives
 
 
@@ -91,8 +92,10 @@ class GraphedLoop:
     Counts for the record: `captures`, `replays`, and
     `launches_per_replay`, the gather_mean launches recorded into the
     graph by its capture (the wrapper counts host calls, so a replay
-    adds nothing to gather_mean.launches), and
-    `collectives_per_replay`, the collectives recorded so."""
+    adds nothing to gather_mean.launches),
+    `row_sparse_adam_launches_per_replay`, the same for the optimizer's
+    row-sparse Adam kernel, and `collectives_per_replay`, the
+    collectives recorded so."""
 
     def __init__(self, device: torch.device, steps: int):
         if device.type != "cuda":
@@ -106,6 +109,7 @@ class GraphedLoop:
         self.captures = 0
         self.replays = 0
         self.launches_per_replay = 0
+        self.row_sparse_adam_launches_per_replay = 0
         self.collectives_per_replay = 0
         self.invalidate()
 
@@ -213,6 +217,7 @@ class GraphedLoop:
                 inputs[k] = [torch.stack([b[k][h] for b in batches])
                              for h in range(len(v))]
         launches = gather_mean.launches
+        adam_launches = row_sparse_adam.launches
         issued = collectives.total_count()
         try:
             with est._phases.capture() as phase_steps, \
@@ -239,6 +244,8 @@ class GraphedLoop:
                 f"({type(e).__name__}: {e}); the eager loop is not used "
                 "in its place") from e
         self.launches_per_replay = gather_mean.launches - launches
+        self.row_sparse_adam_launches_per_replay = (row_sparse_adam.launches
+                                                    - adam_launches)
         self.collectives_per_replay = collectives.total_count() - issued
         self.graph, self._key, self._inputs = graph, key, inputs
         self._phase_steps = phase_steps

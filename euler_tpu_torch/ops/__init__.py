@@ -1,5 +1,6 @@
-"""Ops of the port: the kernel wrapper module gather_mean (beside its
-plain PyTorch version; imported as a module, never shadowed here), the
+"""Ops of the port: the kernel wrapper modules gather_mean and
+row_sparse_adam (each beside its plain PyTorch version; imported as
+modules, never shadowed here), the
 message-passing primitives (mp_ops), and the op layer over the
 process-global graph, which exports what euler_tpu/ops/__init__.py
 exports (base, sample_ops, neighbor_ops, feature_ops, type_ops,

@@ -39,6 +39,7 @@ from euler_tpu_torch import obs as _obs
 from euler_tpu_torch.obs.device import mark
 from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.sharded_embedding import apply_param_shardings
+from euler_tpu_torch.ops.row_sparse_adam import densify
 
 __all__ = ["spmd_init", "make_spmd_train_step", "spmd_update",
            "reduce_gradients", "splits_over_data", "data_mesh",
@@ -47,10 +48,19 @@ __all__ = ["spmd_init", "make_spmd_train_step", "spmd_update",
 
 def reduce_gradients(params: Iterable[torch.nn.Parameter], mesh) -> None:
     """SUM every parameter's gradient over the mesh's data group, as one
-    collective over one flat buffer (a no-op without a mesh)."""
+    collective over one flat buffer (a no-op without a mesh). A
+    row-sparse gradient (utils/layers.Embedding on CUDA) is made dense
+    first (ops/row_sparse_adam.densify) on a data axis of 2 or more: the
+    same traffic as a dense table gradient; on a data axis of 1 it is
+    left out of the sum (over one rank, the gradient itself) and stays
+    sparse."""
     if mesh is None:
         return
-    grads = [p.grad for p in params if p.grad is not None]
+    params = [p for p in params if p.grad is not None]
+    if mesh.size("data") > 1:
+        for p in params:
+            p.grad = densify(p.grad)
+    grads = [p.grad for p in params if not p.grad.is_sparse]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
@@ -115,7 +125,12 @@ def spmd_update(model: torch.nn.Module, optimizer, batch: Dict[str, Any],
                      out.metric.detach().float()]), dmesh).unbind()
     found_inf = None
     if nonfinite_guard:
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        # a row-sparse gradient's rows, each lookup's apart: the rows it
+        # leaves out are exact zeros. The optimizer sums an id's rows
+        # after the guard, so finite rows whose sum overflows pass here,
+        # where the guard on the dense gradient read the sum.
+        grads = [p.grad._values() if p.grad.is_sparse else p.grad
+                 for p in model.parameters() if p.grad is not None]
         found_inf = (~torch.isfinite(loss)).to(torch.float32)
         if one is None:
             one = torch.ones((), device=loss.device)

@@ -95,11 +95,16 @@ class Embedding(nn.Module):
     `nn.initializers.uniform(scale=init_scale)`: U[0, init_scale), not
     ±init_scale, drawn from the caller's generator (CPU).
 
-    The lookup's gradient is dense, a [num_embeddings, dim] tensor, as
-    the reference's jnp.take gradient is: the optimizers of
-    utils/optimizers.py then decay every row's moments every step, as
-    optax's do. A sparse gradient (nn.Embedding(sparse=True)) with a
-    lazy optimizer would take other steps."""
+    The lookup's gradient on a CUDA table is row-sparse: a sparse COO
+    tensor of the ids looked up and their gradient rows (uncoalesced,
+    nothing of the table's size; a table read twice in a step gets both
+    lookups' rows), built with no host sync, so a CUDA graph captures
+    it. The optimizers of utils/optimizers.py step it with dense
+    semantics, the step they take on the dense gradient: Adam decays
+    every row's moments every step, as optax's does on the reference's
+    dense jnp.take gradient (a lazy optimizer, torch's SparseAdam, would
+    take other steps). On a CPU table the gradient is the dense
+    [num_embeddings, dim] tensor."""
 
     def __init__(self, num_embeddings: int, dim: int,
                  init_scale: float = 0.05,
@@ -112,7 +117,8 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         rows = bucketize_ids(ids, self.num_embeddings)
-        return F.embedding(rows.long(), self.table)
+        return F.embedding(rows.long(), self.table,
+                           sparse=self.table.is_cuda)
 
 
 class SparseEmbedding(nn.Module):

@@ -33,6 +33,23 @@ graphed_loop.py): no host sync and nothing the host reads. Adam and
 AdamW are built capturable, which torch requires for a captured step
 and which leaves fused Adam's arithmetic as it is; fused SGD, Adagrad
 and RMSprop here need no flag.
+
+Row-sparse gradients. utils/layers.Embedding on a CUDA table hands its
+table a sparse COO gradient: the ids looked up and their gradient rows,
+uncoalesced, nothing of the table's size. Each optimizer here gives it
+dense semantics, the step it takes on the dense gradient:
+
+- Adam and AdamW (subclasses of torch's) step a parameter whose .grad
+  is sparse with ops/row_sparse_adam.py: dense Adam over every row of
+  the table in one pass (a row no id touched decays its moments and
+  moves), with torch's fused arithmetic, from the rows alone. Its state
+  is torch's: exp_avg, exp_avg_sq and a float32 step on the device, in
+  optimizer.state[p]. Every parameter with a dense .grad takes torch's
+  fused capturable step, unchanged. The choice is the gradient's
+  layout.
+- SGD, momentum, Adagrad and RMSprop first replace a sparse .grad by
+  its dense form (ops/row_sparse_adam.densify), then take their usual
+  step.
 """
 
 from __future__ import annotations
@@ -41,7 +58,103 @@ from typing import Iterable
 
 import torch
 
-__all__ = ["get", "Adagrad", "RMSprop"]
+from euler_tpu_torch.ops.row_sparse_adam import densify, row_sparse_adam
+
+__all__ = ["get", "Adam", "AdamW", "SGD", "Adagrad", "RMSprop"]
+
+
+def _densify_grads(opt: torch.optim.Optimizer) -> None:
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is not None and p.grad.is_sparse:
+                p.grad = densify(p.grad)
+
+
+def _base_step(base: type, opt: torch.optim.Optimizer, closure=None):
+    """torch's own step of `base` on `opt`, without torch's hook wrapper.
+    Optimizer.__init__ (_patch_step_function, torch 2) replaces a class's
+    step, once its first instance is built, by a wrapper marked `hooked`
+    that runs the step hooks and keeps the step under __wrapped__
+    (functools.wraps). The subclasses here wear that wrapper themselves,
+    so the base's would run the hooks twice.
+    tests/test_torch_row_sparse.py counts the hooks' calls."""
+    fn = base.step
+    if getattr(fn, "hooked", False):
+        fn = fn.__wrapped__
+    return fn(opt, closure)
+
+
+class _RowSparseAdam:
+    """The step of Adam and AdamW below: torch's own over the dense
+    gradients (the sparse ones hidden from it), then row_sparse_adam
+    over each parameter whose .grad is sparse."""
+
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        sparse = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None and p.grad.is_sparse]
+        grads = [p.grad for p in sparse]
+        for p in sparse:
+            p.grad = None
+        try:
+            _base_step(self._base, self)
+        finally:
+            for p, g in zip(sparse, grads):
+                p.grad = g
+        if sparse:
+            self._sparse_step()
+        return loss
+
+    @torch.no_grad()
+    def _sparse_step(self):
+        found_inf = getattr(self, "found_inf", None)
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None or not p.grad.is_sparse:
+                    continue
+                if group["amsgrad"] or group["maximize"]:
+                    raise ValueError("a row-sparse gradient takes neither "
+                                     "amsgrad nor maximize")
+                state = self.state[p]
+                if not state:  # torch's lazy init for a fused step
+                    state["step"] = torch.zeros((), dtype=torch.float32,
+                                                device=p.device)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                beta1, beta2 = group["betas"]
+                row_sparse_adam(
+                    p, p.grad, state["exp_avg"], state["exp_avg_sq"],
+                    state["step"], lr=group["lr"], beta1=beta1, beta2=beta2,
+                    eps=group["eps"], weight_decay=group["weight_decay"],
+                    decoupled=group["decoupled_weight_decay"],
+                    found_inf=None if found_inf is None
+                    else found_inf.to(p.device))
+
+
+class Adam(_RowSparseAdam, torch.optim.Adam):
+    """torch.optim.Adam whose step also takes row-sparse gradients (see
+    the module docstring)."""
+
+    _base = torch.optim.Adam
+
+
+class AdamW(_RowSparseAdam, torch.optim.AdamW):
+    """torch.optim.AdamW whose step also takes row-sparse gradients (see
+    the module docstring)."""
+
+    _base = torch.optim.AdamW
+
+
+class SGD(torch.optim.SGD):
+    """torch.optim.SGD (plain or momentum) that densifies a row-sparse
+    gradient first."""
+
+    def step(self, closure=None):
+        _densify_grads(self)
+        return _base_step(torch.optim.SGD, self, closure)
 
 
 class _ElementwiseOptimizer(torch.optim.Optimizer):
@@ -70,6 +183,7 @@ class _ElementwiseOptimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         skip = getattr(self, "found_inf", None)
+        _densify_grads(self)
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is None:
@@ -123,8 +237,8 @@ class RMSprop(_ElementwiseOptimizer):
         return nu, torch.rsqrt(nu + group["eps"]) * grad
 
 
-def _momentum_sgd(params, lr: float, momentum: float) -> torch.optim.SGD:
-    opt = torch.optim.SGD(params, lr=lr, momentum=momentum, fused=True)
+def _momentum_sgd(params, lr: float, momentum: float) -> SGD:
+    opt = SGD(params, lr=lr, momentum=momentum, fused=True)
     for group in opt.param_groups:
         for p in group["params"]:
             opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
@@ -153,15 +267,14 @@ def get(name: str, params: Iterable[torch.nn.Parameter],
         if kw:
             raise TypeError(f"unsupported {name} options {sorted(kw)}")
         if name == "adam":
-            return torch.optim.Adam(params, lr=learning_rate, betas=betas,
-                                    eps=eps, fused=True, capturable=True)
-        return torch.optim.AdamW(params, lr=learning_rate, betas=betas,
-                                 eps=eps, weight_decay=weight_decay,
-                                 fused=True, capturable=True)
+            return Adam(params, lr=learning_rate, betas=betas, eps=eps,
+                        fused=True, capturable=True)
+        return AdamW(params, lr=learning_rate, betas=betas, eps=eps,
+                     weight_decay=weight_decay, fused=True, capturable=True)
     if name == "sgd":
         if kw:
             raise TypeError(f"unsupported sgd options {sorted(kw)}")
-        return torch.optim.SGD(params, lr=learning_rate, fused=True)
+        return SGD(params, lr=learning_rate, fused=True)
     if name == "momentum":
         momentum = kw.pop("momentum", 0.9)
         if kw:

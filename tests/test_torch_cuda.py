@@ -524,10 +524,11 @@ def test_cuda_graph_windows_match_eager_steps_unsupervised(kind):
     capture stream, then two replays that re-seed each step's generator
     with the model's stream word, 29 or 23) against K = 1 on the same
     batches: the same losses, parameters and Adam moments, bit for bit.
-    The embedding tables' gradients are dense [rows, dim] tensors from
-    F.embedding's backward; bit for bit here also shows that backward
-    is deterministic on the card. gather_mean is recorded 8 times per
-    window in the unsupervised model, never in the skip-gram."""
+    The embedding tables' gradients are row-sparse on the card, stepped
+    by ops/row_sparse_adam.py; bit for bit here also shows its sorted
+    sums of repeated ids are deterministic. gather_mean is recorded 8
+    times per window in the unsupervised model, never in the
+    skip-gram."""
     _need_card()
     make, static, n = _unsup_setup(kind)
     k, steps = 8, 26
@@ -544,6 +545,139 @@ def test_cuda_graph_windows_match_eager_steps_unsupervised(kind):
     assert rg["losses"] == re_["losses"]
     assert np.isfinite(rg["losses"]).all()
     _assert_same_state(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_unsup_step_is_the_same_with_a_dense_table_gradient(
+        monkeypatch):
+    """DeviceSampledUnsupervisedSage, 8 eager steps of 4096 roots: its
+    context table's row-sparse gradient under row_sparse_adam (8
+    launches) against the dense [rows, 128] gradient under torch's fused
+    Adam (0 launches), on the same batches. The first loss within the
+    unsupervised cell's loss_gap_first (2.5e-7 relative) and each
+    parameter's change over the 8 steps within its change_gap (3e-3 of
+    the larger of the dense run's change norm and the median leaf's)."""
+    _need_card()
+    import torch.nn.functional as F
+
+    from euler_tpu_torch.ops import row_sparse_adam as rsa
+    from euler_tpu_torch.utils.layers import Embedding, bucketize_ids
+
+    make, static, n = _unsup_setup("unsup")
+    rng = np.random.default_rng(4)
+    batches = [{"rows": [rng.integers(0, n, 4096).astype(np.int32)],
+                "sample_seed": np.uint32(i + 1)} for i in range(8)]
+    runs = []
+    for sparse in (True, False):
+        if not sparse:
+            monkeypatch.setattr(Embedding, "forward", lambda self, ids:
+                                F.embedding(bucketize_ids(
+                                    ids, self.num_embeddings).long(),
+                                    self.table))
+        est = _unsup_estimator(make(), static)
+        before = {k: v.detach().clone()
+                  for k, v in est.model.named_parameters()}
+        launches = rsa.row_sparse_adam.launches
+        r = est.train(iter(batches), max_steps=8)
+        assert rsa.row_sparse_adam.launches - launches == (8 if sparse
+                                                           else 0)
+        change = {k: (v.detach() - before[k]).double().norm().item()
+                  for k, v in est.model.named_parameters()}
+        runs.append((r["losses"], change))
+    (ls, cs), (ld, cd) = runs
+    assert abs(ls[0] - ld[0]) / abs(ld[0]) <= 2.5e-7
+    median = float(np.median(list(cd.values())))
+    for k in cd:
+        assert abs(cs[k] - cd[k]) / max(cd[k], median) <= 3e-3, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dim", [("adam", 128), ("adamw", 128),
+                                      ("adam", 10)])
+def test_cuda_row_sparse_adam_in_a_graph_matches_fused_adam(name, dim):
+    """K = 8 steps captured in one CUDA graph beside torch's fused
+    capturable Adam (AdamW with decay 0.01): one table steps the
+    row-sparse gradient of a lookup of 3000 ids with repeats (one id 40
+    times) through the kernel, the other its dense form (each repeat
+    added in lookup order, as the kernel sums). After an eager window,
+    each of two replays, and a replay whose step 3 is skipped
+    (found_inf = 1), both tables, both moments and the step counts
+    within 1 float32 ulp on every element. dim 10 takes the kernel's
+    one-float path. launches: 8 recorded by the capture, 0 by a
+    replay."""
+    _need_card()
+    import torch.nn.functional as F
+
+    from euler_tpu_torch.ops import row_sparse_adam as rsa
+    from euler_tpu_torch.utils import optimizers as opt
+
+    n, nnz, k = 100_003, 3000, 8
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, n, (k, nnz))
+    ids[:, :40] = 5
+    ids[:, -1] = n - 1
+    w = torch.from_numpy(rng.normal(size=(k, nnz, dim)).astype(
+        np.float32)).cuda()
+    init = torch.from_numpy(rng.random((n, dim), dtype=np.float32)
+                            / 20).cuda()
+    # the i-th repeat of each id, added in lookup order
+    ranks = []
+    for row in ids:
+        seen, rank = {}, np.empty(nnz, np.int64)
+        for j, x in enumerate(row):
+            rank[j] = seen[x] = seen.get(x, -1) + 1
+        ranks.append([torch.from_numpy(np.flatnonzero(rank == r)).cuda()
+                      for r in range(rank.max() + 1)])
+    ids = torch.from_numpy(ids).cuda()
+    a = torch.nn.Parameter(init.clone())
+    b = torch.nn.Parameter(init.clone())
+    kw = {"weight_decay": 0.01} if name == "adamw" else {}
+    oa = opt.get(name, [a], 0.01, **kw)
+    ob = (torch.optim.AdamW if name == "adamw" else torch.optim.Adam)(
+        [b], lr=0.01, fused=True, capturable=True, **kw)
+    flags = torch.zeros(k, device="cuda")
+
+    def steps():
+        for i in range(k):
+            a.grad = None
+            (F.embedding(ids[i], a, sparse=True) * w[i]).sum().backward()
+            g = torch.zeros_like(b)
+            for pos in ranks[i]:
+                g.index_put_((ids[i][pos],), w[i][pos], accumulate=True)
+            b.grad = g
+            for o in (oa, ob):
+                o.found_inf = flags[i]
+                o.step()
+
+    def check(step):
+        assert a.grad.is_sparse
+        sa, sb = oa.state[a], ob.state[b]
+        assert float(sa["step"]) == float(sb["step"]) == step
+        assert rsa.max_ulps(a.detach(), b.detach()) <= 1
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert rsa.max_ulps(sa[key], sb[key]) <= 1, key
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    check(8)
+    graph = torch.cuda.CUDAGraph()
+    launches = rsa.row_sparse_adam.launches
+    with torch.cuda.graph(graph):
+        steps()
+    assert rsa.row_sparse_adam.launches - launches == k
+    for step in (16, 24):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(step)
+    flags[3] = 1.0
+    graph.replay()
+    torch.cuda.synchronize()
+    check(31)
+    assert rsa.row_sparse_adam.launches - launches == k
 
 
 # -- serving (serving/engine.py, serving/server.py) -------------------------
@@ -1174,11 +1308,15 @@ def test_cuda_kernel_f32_cache_read_matches_plain():
 
 
 def _kg_step(model, batch, dev):
-    """One forward and backward: (loss, {name: gradient on the host})."""
+    """One forward and backward: (loss, {name: gradient on the host}),
+    a row-sparse table gradient (an Embedding on the card) in its dense
+    form."""
+    from euler_tpu_torch.ops.row_sparse_adam import densify
+
     model = model.to(dev)
     out = model({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
     out.loss.backward()
-    return float(out.loss), {k: p.grad.cpu()
+    return float(out.loss), {k: densify(p.grad).cpu()
                              for k, p in model.named_parameters()}
 
 

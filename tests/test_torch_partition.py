@@ -121,6 +121,22 @@ def test_sharded_embedding_lookups_match_the_reference(ranks, tag, shape):
         assert int(o["emb/guard"]) == 1
 
 
+def test_row_sparse_table_gradient_is_summed_dense_over_data(ranks):
+    """A whole table's row-sparse gradient (utils/layers.Embedding on a
+    card, F.embedding(sparse=True) here) on the data axis of {2, 2}:
+    reduce_gradients makes it dense and sums it, so every rank holds the
+    global loss's gradient of every row, within 1e-6."""
+    import torch
+
+    ids, table = W.emb_inputs()
+    t = torch.tensor(table, requires_grad=True)
+    ((t[torch.from_numpy(ids).long()] ** 2).sum(-1).mean()).backward()
+    for o in ranks:
+        assert int(o["emb/row_sparse/was_sparse"]) == 1
+        np.testing.assert_allclose(o["emb/row_sparse/grad"],
+                                   t.grad.numpy(), rtol=1e-6, atol=1e-9)
+
+
 def _ref_store(feats, degrees, **kw):
     from euler_tpu.parallel import PartitionedFeatureStore as J
 

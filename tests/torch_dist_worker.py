@@ -981,6 +981,23 @@ def job_partition(ctx: Rank) -> None:
             reduce_gradients(m.parameters(), mesh)
             ctx.put(f"emb/{tag}/{mode}/out", out)
             ctx.put(f"emb/{tag}/{mode}/grad", m.table.grad)
+    # a whole table's row-sparse gradient (utils/layers.Embedding on a
+    # card) summed over the data axis of {2, 2}: made dense first
+    import torch.nn.functional as F
+
+    from euler_tpu_torch.parallel.mesh import data_slice
+    from euler_tpu_torch.parallel.train import reduce_gradients
+    from euler_tpu_torch.utils.metrics import masked_mean
+
+    t = torch.nn.Parameter(torch.from_numpy(e_table.copy()))
+    mine = data_slice({"i": e_ids}, A)["i"]
+    with collectives.data_parallel(A):
+        out = F.embedding(torch.from_numpy(mine).long(), t, sparse=True)
+        loss = masked_mean((out ** 2).sum(-1), None)
+    loss.backward()
+    ctx.put("emb/row_sparse/was_sparse", int(t.grad.is_sparse))
+    reduce_gradients([t], A)
+    ctx.put("emb/row_sparse/grad", t.grad)
     m = ShardedEmbedding(63, 4, lookup="ring")
     apply_param_shardings(m, M)
     try:

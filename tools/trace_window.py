@@ -12,7 +12,10 @@ estimator's and the feeder's histograms. The timed window is the call
 with the most steps; over it the line gives, per step, the device ms of
 each phase of an update (estimator_phase_device_ms: sum / count of the
 steps read) and the host ms of the replay's and the feeder's spans
-(sum / the window's steps), beside the benchmark's result line. --obs
+(sum / the window's steps), beside the benchmark's result line. Each
+call also counts the host's launches of ops/row_sparse_adam.py (an
+eager step launches once per row-sparse table, a capture records one a
+step, a replay adds none). --obs
 off runs the whole program with obs.disable(). The last line of
 standard output is the JSON record; --out writes it to a file too.
 Needs a CUDA card, as run.py does.
@@ -91,6 +94,7 @@ def main(argv=None) -> int:
 
     from euler_tpu_torch import obs
     from euler_tpu_torch.estimator.base_estimator import BaseEstimator
+    from euler_tpu_torch.ops.row_sparse_adam import row_sparse_adam
 
     if args.obs == "off":
         obs.disable()
@@ -100,6 +104,7 @@ def main(argv=None) -> int:
     def traced_train(est, *a, **kw):
         reg = obs.default_registry()
         before, step0 = _sums(reg.snapshot(run_collectors=False)), est.step
+        launches = row_sparse_adam.launches
         t0 = time.monotonic()
         try:
             return train(est, *a, **kw)
@@ -107,6 +112,8 @@ def main(argv=None) -> int:
             calls.append({
                 "steps": est.step - step0,
                 "seconds": time.monotonic() - t0,
+                "row_sparse_adam_launches":
+                    row_sparse_adam.launches - launches,
                 "histograms": _delta(
                     before, _sums(reg.snapshot(run_collectors=False)))})
 
