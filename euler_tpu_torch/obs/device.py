@@ -15,6 +15,14 @@ mark: a model that draws nothing of its own has no `sample`, and its
 and a repeated one is ignored. A mark on a thread with no update open
 (an eval forward, a draw the caller makes) records nothing.
 
+A model may also cut its forward (FORWARD_PHASES): the genie encoder
+(utils/encoders.py GenieEncoder) marks `gather` (every hop's rows taken
+and dequantized: its input is there), `breadth` (the projection, each
+depth's attention pools and tanh transforms, depth_fc) and `depth` (the
+LSTM), so its `forward` is the rest: the head and the loss. Their
+histograms are made on a phase's first read: an estimator whose model
+never marks them observes the four phases alone.
+
 A mark on the card is a one-thread kernel (csrc/globaltimer.cu) that
 writes the GPU's global nanosecond timer to the step's slot of a small
 device buffer. Captured into a CUDA graph it is an ordinary kernel node,
@@ -65,6 +73,9 @@ from euler_tpu_torch import obs as _obs
 from euler_tpu_torch.obs.trace import Tracer
 
 PHASES = ("sample", "forward", "backward", "optimizer")
+# marks a model may make inside its forward, in this order
+FORWARD_PHASES = ("gather", "breadth", "depth")
+_MARKS = ("start",) + PHASES + FORWARD_PHASES
 # eager steps kept for the next read; older ones fall off (a loop that
 # never logs)
 PENDING_STEPS = 4096
@@ -93,11 +104,14 @@ class _Step:
         self._stamp = rec._stamp
         self.marks = []
         if rec._cuda:
-            self.times = torch.empty(len(PHASES) + 1, dtype=torch.int64,
+            self.times = torch.empty(len(_MARKS), dtype=torch.int64,
                                      device=rec._device)
         self.mark("start")
 
     def mark(self, phase: str) -> None:
+        if phase not in _MARKS:
+            # a card's mark writes a slot of `times`, sized for these
+            raise ValueError(f"unknown phase {phase!r}")
         if all(p != phase for p, _ in self.marks):
             self.marks.append((phase, self._stamp(self)))
 
@@ -133,11 +147,13 @@ def _timer_fn():
 
 class PhaseRecorder:
     """The phase marks of one estimator's updates and their reads.
-    hist(phase) gives the histogram child a phase's milliseconds go to."""
+    hist(phase) gives the histogram child a phase's milliseconds go to:
+    made at once for PHASES, at a phase's first read for FORWARD_PHASES."""
 
     def __init__(self, device: torch.device, hist: Callable[[str], object]):
         self._device = device
         self._cuda = device.type == "cuda"
+        self._new_hist = hist
         self._hist = {p: hist(p) for p in PHASES}
         self._pending = collections.deque(maxlen=PENDING_STEPS)
         self._replayed: List[_Step] = []
@@ -216,7 +232,10 @@ class PhaseRecorder:
             ms = [[1000.0 * t for _, t in s.marks] for s in ready]
         for step, t in zip(ready, ms):
             for (phase, _), a, b in zip(step.marks[1:], t, t[1:]):
-                self._hist[phase].observe(b - a)
+                hist = self._hist.get(phase)
+                if hist is None:
+                    hist = self._hist[phase] = self._new_hist(phase)
+                hist.observe(b - a)
         return len(ready)
 
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from euler_tpu_torch.obs.device import mark
 from euler_tpu_torch.parallel import collectives
 from euler_tpu_torch.parallel.placement import row_shard
 from euler_tpu_torch.ops.gather_mean import gather_mean
@@ -165,7 +166,11 @@ class GenieEncoder(nn.Module):
     dim ("proj"); per depth an attention pool (att_{depth}) of each
     node with its neighbors, then tanh(w_{depth}_{hop}); the root's
     representation after each depth through depth_fc_{d}; an LSTM over
-    that depth sequence (depth_lstm), whose last step is the output."""
+    that depth sequence (depth_lstm), whose last step is the output.
+
+    Inside a training update it marks the forward's phases
+    (obs/device.py): `gather` on entry (the layers are read), `breadth`
+    after the last depth_fc, `depth` after the LSTM."""
 
     def __init__(self, in_dim: int, dim: int, fanouts: Sequence[int],
                  generator: Optional[torch.Generator] = None):
@@ -190,6 +195,7 @@ class GenieEncoder(nn.Module):
         if len(layers) != n_hops + 1:
             raise ValueError(f"need {n_hops + 1} feature layers for "
                              f"{n_hops} fanouts, got {len(layers)}")
+        mark("gather")
         hidden = [self.proj(h) for h in layers]
         h_t = [getattr(self, "depth_fc_0")(hidden[0])]
         for depth in range(n_hops):
@@ -203,8 +209,11 @@ class GenieEncoder(nn.Module):
                     getattr(self, f"w_{depth}_{hop}")(pooled)))
             hidden = next_hidden
             h_t.append(getattr(self, f"depth_fc_{depth + 1}")(hidden[0]))
+        mark("breadth")
         # the reference follows the paper: the LSTM's last step
-        return self.depth_lstm(torch.stack(h_t, dim=1))[:, -1, :]
+        out = self.depth_lstm(torch.stack(h_t, dim=1))[:, -1, :]
+        mark("depth")
+        return out
 
 
 def _ema_update(old: torch.Tensor, fresh: torch.Tensor,

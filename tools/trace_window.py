@@ -11,14 +11,14 @@ records the steps, the host seconds and the deltas (count, sum) of the
 estimator's and the feeder's histograms. The timed window is the call
 with the most steps; over it the line gives, per step, the device ms of
 each phase of an update (estimator_phase_device_ms: sum / count of the
-steps read) and the host ms of the replay's and the feeder's spans
-(sum / the window's steps), beside the benchmark's result line. Each
-call also counts the host's launches of ops/row_sparse_adam.py (an
-eager step launches once per row-sparse table, a capture records one a
-step, a replay adds none). --obs
-off runs the whole program with obs.disable(). The last line of
-standard output is the JSON record; --out writes it to a file too.
-Needs a CUDA card, as run.py does.
+steps read; the genie encoder's forward phases too) and the host ms of
+the replay's and the feeder's spans (sum / the window's steps), beside
+the benchmark's result line. Each call also counts the host's launches
+of ops/row_sparse_adam.py (an eager step launches once per row-sparse
+table, a capture records one a step, a replay adds none). --obs off
+runs the whole program with obs.disable(). The last line of standard
+output is the JSON record; --out writes it to a file too. Needs a CUDA
+card, as run.py does.
 """
 
 from __future__ import annotations
@@ -68,9 +68,10 @@ def per_step(call: dict) -> dict:
         elif steps:
             name = k.replace("estimator_", "").replace("_ms", "")
             out[name + "_ms_per_step"] = s / steps
-    phases = [out.get(f"{p}_device_ms_per_step")
-              for p in ("sample", "forward", "backward", "optimizer")]
-    if all(v is not None for v in phases):
+    # the four phases of an update, and the forward's own where the model
+    # marks them (the genie encoder's gather, breadth, depth)
+    phases = [v for k, v in out.items() if k.endswith("_device_ms_per_step")]
+    if phases and None not in phases:
         out["phases_device_ms_per_step"] = sum(phases)
     if steps:
         out["wall_ms_per_step"] = 1000.0 * call["seconds"] / steps
